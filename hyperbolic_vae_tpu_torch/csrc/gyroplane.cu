@@ -1,0 +1,157 @@
+// Gyroplane distances for Hopper (sm_90a).
+//
+// Replaces the Pallas TPU kernel
+//   hyperbolic_vae_tpu/ops/gyroplane.py::_gyroplane_kernel
+// (launched by gyroplane_distances_pallas). For x (B, D), points (P, D)
+// and an optional bias (P,), it writes out (B, P):
+//
+//   xp = <x, p>, x2 = |x|^2, p2 = |p|^2
+//   den   = max(1 - 2c xp + c^2 p2 x2, MIN_NORM)
+//   alpha = (1 - 2c xp + c x2) / den,  beta = (1 - c p2) / den
+//   <diff,p> = -alpha p2 + beta xp            (|.| when unsigned)
+//   |diff|^2 = clip(alpha^2 p2 - 2 alpha beta xp + beta^2 x2,
+//                   MIN_NORM, (1 - 1e-4)^2 / c)
+//   out = asinh(2 sqrt(c) <diff,p> / max((1 - c|diff|^2) max(|p|, MIN_NORM),
+//                                        MIN_NORM)) / sqrt(c) + bias
+//
+// which is ops/gyroplane.py::_epilogue with every clamp. arsinh is CUDA's
+// asinhf (accurate over the whole f32 range, so the TPU kernel's guarded
+// log formula, _arsinh_pallas, is not needed).
+//
+// Bound on this card: at the flagship's decode shape (B = 256, P = 16,
+// D = 2) the op moves 4 (B D + P D + P + B P) = 18,624 bytes, about 6 ns
+// at 3.35 TB/s, and does ~40 flops per output. Nothing there is worth a
+// tensor core: its real floor is one kernel launch. So the design is one
+// launch for the whole op, one output element per thread, with the P
+// points and their squared norms staged once per block in shared memory
+// so that no thread re-reads them from device memory. The TPU kernel's
+// (256, 256) tiles and MXU product do not carry over: at D = 2 the
+// contraction is two multiply-adds per output.
+//
+// Built with -fmad=false so that every product and sum rounds as the
+// plain PyTorch version's separate elementwise ops do.
+
+#include <cuda_runtime.h>
+#include <math.h>
+
+namespace {
+
+constexpr float kMinNorm = 1e-15f;
+
+struct Consts {
+  float c;        // c
+  float two_c;    // 2 c
+  float c_sq;     // c^2
+  float sqrt_c;   // sqrt(c)
+  float two_sqrt_c;
+  float max_d2;   // (1 - 1e-4)^2 / c
+};
+
+// DIM > 0: compile-time width (the flagship's D = 2); DIM == 0: runtime d.
+template <int DIM>
+__global__ void gyroplane_kernel(const float* __restrict__ x,
+                                 const float* __restrict__ points,
+                                 const float* __restrict__ bias,
+                                 float* __restrict__ out, int B, int P,
+                                 int d_runtime, Consts k, int is_signed) {
+  const int d = DIM > 0 ? DIM : d_runtime;
+  extern __shared__ float smem[];
+  float* sp = smem;            // (P, d) points
+  float* sp2 = smem + P * d;   // (P,) |p|^2
+
+  for (int i = threadIdx.x; i < P * d; i += blockDim.x) sp[i] = points[i];
+  __syncthreads();
+  for (int j = threadIdx.x; j < P; j += blockDim.x) {
+    float s = 0.0f;
+    for (int t = 0; t < d; ++t) s += sp[j * d + t] * sp[j * d + t];
+    sp2[j] = s;
+  }
+  __syncthreads();
+
+  const long long total = (long long)B * P;
+  for (long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+       idx < total; idx += (long long)gridDim.x * blockDim.x) {
+    const int b = (int)(idx / P);
+    const int p = (int)(idx - (long long)b * P);
+    const float* xr = x + (long long)b * d;
+    const float* pr = sp + p * d;
+    float x2 = 0.0f, xp = 0.0f;
+    if (DIM > 0) {
+#pragma unroll
+      for (int t = 0; t < DIM; ++t) {
+        const float xv = xr[t];
+        x2 += xv * xv;
+        xp += xv * pr[t];
+      }
+    } else {
+      for (int t = 0; t < d; ++t) {
+        const float xv = xr[t];
+        x2 += xv * xv;
+        xp += xv * pr[t];
+      }
+    }
+    const float p2 = sp2[p];
+
+    const float one_m = 1.0f - k.two_c * xp;
+    const float den = fmaxf(one_m + k.c_sq * p2 * x2, kMinNorm);
+    const float alpha = (one_m + k.c * x2) / den;
+    const float beta = (1.0f - k.c * p2) / den;
+    float sc = -alpha * p2 + beta * xp;
+    float d2 = alpha * alpha * p2 - 2.0f * alpha * beta * xp + beta * beta * x2;
+    d2 = fminf(fmaxf(d2, kMinNorm), k.max_d2);
+    if (!is_signed) sc = fabsf(sc);
+    const float p_norm = sqrtf(fmaxf(p2, kMinNorm * kMinNorm));
+    const float num = k.two_sqrt_c * sc;
+    const float denom = fmaxf((1.0f - k.c * d2) * p_norm, kMinNorm);
+    float r = asinhf(num / denom) / k.sqrt_c;
+    if (bias != nullptr) r += bias[p];
+    out[idx] = r;
+  }
+}
+
+template <int DIM>
+cudaError_t launch(const float* x, const float* points, const float* bias,
+                   float* out, int B, int P, int D, Consts k, int is_signed,
+                   cudaStream_t stream) {
+  const int threads = 256;
+  const long long total = (long long)B * P;
+  long long blocks = (total + threads - 1) / threads;
+  if (blocks > 132 * 16) blocks = 132 * 16;  // grid-stride beyond this
+  const size_t smem = sizeof(float) * ((size_t)P * D + P);
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        gyroplane_kernel<DIM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (e != cudaSuccess) return e;
+  }
+  gyroplane_kernel<DIM><<<(unsigned)blocks, threads, smem, stream>>>(
+      x, points, bias, out, B, P, D, k, is_signed);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// x (B, D), points (P, D), bias (P,) or null, out (B, P): contiguous f32 on
+// the current device. Returns the cudaError_t of the launch (0 = success).
+extern "C" int gyroplane_distances_launch(const void* x, const void* points,
+                                          const void* bias, void* out, int B,
+                                          int P, int D, double c,
+                                          int is_signed, void* stream) {
+  if (B <= 0 || P <= 0 || D <= 0) return (int)cudaErrorInvalidValue;
+  Consts k;
+  k.c = (float)c;
+  k.two_c = (float)(2.0 * c);
+  k.c_sq = (float)(c * c);
+  k.sqrt_c = (float)sqrt(c);
+  k.two_sqrt_c = (float)(2.0 * sqrt(c));
+  k.max_d2 = (float)((1.0 - 1e-4) * (1.0 - 1e-4) / c);
+  const float* xf = static_cast<const float*>(x);
+  const float* pf = static_cast<const float*>(points);
+  const float* bf = static_cast<const float*>(bias);
+  float* of = static_cast<float*>(out);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t e = (D == 2)
+      ? launch<2>(xf, pf, bf, of, B, P, D, k, is_signed, s)
+      : launch<0>(xf, pf, bf, of, B, P, D, k, is_signed, s);
+  return (int)e;
+}

@@ -1,0 +1,13 @@
+from hyperbolic_vae_tpu_torch.distributions.wrapped_normal import (
+    MAX_SAMPLE_RADIUS,
+    max_chart_radius,
+    wrapped_normal_rsample,
+    wrapped_normal_rsample_from_eps,
+)
+
+__all__ = [
+    "MAX_SAMPLE_RADIUS",
+    "max_chart_radius",
+    "wrapped_normal_rsample",
+    "wrapped_normal_rsample_from_eps",
+]

@@ -1,0 +1,135 @@
+"""Flagship model: MLP VAE with a Poincare latent and a gyroplane decoder.
+
+Port of ``hyperbolic_vae_tpu/models/vae_gyroplane.py`` (serving half):
+
+  encoder: flatten -> Linear(64) -> GELU -> Linear(16) -> GELU
+  mu:      Linear(latent) -> expmap0        (onto the ball)
+  scale:   Linear(latent) -> clip(softplus + 1e-3, 1e-3, 10)
+  decoder: gyroplane distances (latent -> 16) + bias -> GELU -> Linear(64)
+           -> GELU -> Linear(data) -> sigmoid
+
+GELU is the tanh approximation (flax's ``gelu`` default). Submodule
+indices follow the reference state_dict layout: ``encoder.1``,
+``encoder.3``, ``mu.0``, ``scale.0``, ``decoder.0.points``,
+``decoder.0.bias``, ``decoder.2``, ``decoder.4``. Data is HWC:
+``decode`` returns (B, 28, 28, 1) as the JAX model does.
+``loss`` and ``loss_from_eps`` arrive with the training slice.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional, Sequence
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from hyperbolic_vae_tpu_torch.device import DeviceLike, resolve_device
+from hyperbolic_vae_tpu_torch.distributions import wrapped_normal_rsample
+from hyperbolic_vae_tpu_torch.manifolds import PoincareBall
+from hyperbolic_vae_tpu_torch.models.sampling import prior_sample
+from hyperbolic_vae_tpu_torch.nn import PoincareHyperplanes
+
+# flax lecun_normal: variance_scaling(1, fan_in, truncated_normal), whose
+# std is corrected for the truncation at two standard deviations
+_TRUNC_STD_CORRECTION = 0.87962566103423978
+
+
+def _dense(n_in: int, n_out: int, generator: Optional[torch.Generator]) -> nn.Linear:
+    """Linear layer with flax's Dense init: lecun-normal (truncated)
+    weight, zero bias."""
+    layer = nn.utils.skip_init(nn.Linear, n_in, n_out)
+    std = math.sqrt(1.0 / n_in) / _TRUNC_STD_CORRECTION
+    with torch.no_grad():
+        nn.init.trunc_normal_(layer.weight, std=std, a=-2.0 * std, b=2.0 * std,
+                              generator=generator)
+        layer.bias.zero_()
+    return layer
+
+
+def _gelu() -> nn.GELU:
+    return nn.GELU(approximate="tanh")
+
+
+class GyroplaneVAE(nn.Module):
+    """Parameters are drawn on the CPU from ``generator`` (so one seed
+    gives the same weights on every device), then moved to ``device``
+    (default ``cuda``; raises when there is no card)."""
+
+    def __init__(
+        self,
+        data_shape: Sequence[int] = (28, 28, 1),
+        latent_dim: int = 2,
+        manifold_curvature: float = 1.0,
+        prior_scale: float = 1.0,
+        hidden_dims: Sequence[int] = (64, 16),
+        generator: Optional[torch.Generator] = None,
+        device: DeviceLike = None,
+    ):
+        super().__init__()
+        device = resolve_device(device)
+        self.data_shape = tuple(int(d) for d in data_shape)
+        self.latent_dim = int(latent_dim)
+        self.manifold_curvature = float(manifold_curvature)
+        self.prior_scale = float(prior_scale)
+        self.hidden_dims = tuple(int(d) for d in hidden_dims)
+        self.ball = PoincareBall(c=self.manifold_curvature)
+
+        enc = [nn.Flatten()]
+        n_in = self.data_numel
+        for d in self.hidden_dims:
+            enc += [_dense(n_in, d, generator), _gelu()]
+            n_in = d
+        self.encoder = nn.Sequential(*enc)
+        self.mu = nn.Sequential(_dense(n_in, self.latent_dim, generator))
+        self.scale = nn.Sequential(_dense(n_in, self.latent_dim, generator))
+        dec = [
+            PoincareHyperplanes(
+                plane_shape=self.latent_dim, num_planes=self.hidden_dims[-1],
+                ball=self.ball, generator=generator,
+            ),
+            _gelu(),
+        ]
+        n_in = self.hidden_dims[-1]
+        for d in reversed(self.hidden_dims[:-1]):
+            dec += [_dense(n_in, d, generator), _gelu()]
+            n_in = d
+        dec += [_dense(n_in, self.data_numel, generator), nn.Sigmoid()]
+        self.decoder = nn.Sequential(*dec)
+        self.to(device)
+
+    @property
+    def data_numel(self) -> int:
+        return int(math.prod(self.data_shape))
+
+    @property
+    def device(self) -> torch.device:
+        return self.mu[0].weight.device
+
+    def encode(self, x):
+        """Posterior mean on the ball and scale, each (B, latent)."""
+        h = self.encoder(x)
+        scale = torch.clamp(F.softplus(self.scale(h)) + 1e-3, 1e-3, 10.0)
+        return self.ball.expmap0(self.mu(h)), scale
+
+    def decode(self, z):
+        x_hat = self.decoder(z)
+        return x_hat.reshape((z.shape[0],) + self.data_shape)
+
+    def forward(self, x, generator: Optional[torch.Generator] = None):
+        mu, scale = self.encode(x)
+        z = wrapped_normal_rsample(generator, self.ball, mu, scale)
+        return {"mu": mu, "scale": scale, "z": z, "x_hat": self.decode(z)}
+
+    def generate(self, n: int = 64, generator: Optional[torch.Generator] = None):
+        """Decode n prior draws z ~ WrappedNormal(0, prior_scale): pixel
+        probabilities in (0, 1). The generator lives on the model's device."""
+        z = prior_sample(generator, self.ball, n, self.latent_dim, self.prior_scale,
+                         device=self.device)
+        return self.decode(z)
+
+    def reconstruct(self, x, generator: Optional[torch.Generator] = None):
+        """Decode one posterior sample (stochastic, as in JAX; the serving
+        endpoint decodes the posterior mean instead)."""
+        return self(x, generator)["x_hat"]

@@ -1,0 +1,209 @@
+"""Gyroplane distances: the decoder's first op.
+
+Port of ``hyperbolic_vae_tpu/ops/gyroplane.py``. For normals equal to the
+points (the gyroplane layer's convention) every term of the distance
+depends only on |x|^2 (B,), |p|^2 (P,) and <x, p> (B, P):
+
+  den   = 1 - 2c<p,x> + c^2 |p|^2 |x|^2
+  alpha = (1 - 2c<p,x> + c|x|^2) / den       (coefficient of -p)
+  beta  = (1 - c|p|^2) / den                 (coefficient of  x)
+  <diff, p> = -alpha |p|^2 + beta <x, p>
+  |diff|^2  = alpha^2 |p|^2 - 2 alpha beta <p,x> + beta^2 |x|^2
+  dist = arsinh(2 sqrt(c) <diff,p> / ((1 - c|diff|^2) |p|)) / sqrt(c)
+
+Three functions:
+
+  * ``gyroplane_distances``: the plain PyTorch version (any leading
+    dims). The CPU path and the reference the kernel is checked against.
+  * ``gyroplane_distances_cuda``: the wrapper of the hand-written CUDA
+    kernel (``csrc/gyroplane.cu``), which replaces the TPU's Pallas
+    ``_gyroplane_kernel``. CUDA tensors only.
+  * ``gyroplane_distances_fast``: the dispatcher the layer calls. Forward
+    runs the kernel for CUDA tensors and the plain version for CPU
+    tensors; backward is autograd through the plain version, as JAX's
+    ``_gdf_bwd`` differentiates its jnp version.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+import threading
+from typing import Optional
+
+import torch
+
+from hyperbolic_vae_tpu_torch.manifolds import MIN_NORM
+
+
+def _epilogue(xp, x2, p2, c: float, signed: bool, bias=None):
+    """Elementwise tail: xp (B, P), x2 (B, 1), p2 (1, P) -> (B, P)."""
+    sqrt_c = math.sqrt(c)
+    den = (1.0 - 2.0 * c * xp + c * c * p2 * x2).clamp_min(MIN_NORM)
+    alpha = (1.0 - 2.0 * c * xp + c * x2) / den
+    beta = (1.0 - c * p2) / den
+    sc_diff_a = -alpha * p2 + beta * xp
+    # the true Mobius difference lies inside the ball: |diff|^2 < 1/c.
+    # The analytic form cancels in f32 for near-boundary x, p — clamp
+    # into the open ball so the (1 - c|diff|^2) factor keeps its sign.
+    max_d2 = (1.0 - 1e-4) ** 2 / c
+    diff_norm2 = torch.clamp(
+        alpha * alpha * p2 - 2.0 * alpha * beta * xp + beta * beta * x2,
+        MIN_NORM,
+        max_d2,
+    )
+    if not signed:
+        sc_diff_a = sc_diff_a.abs()
+    p_norm = torch.sqrt(p2.clamp_min(MIN_NORM**2))
+    num = 2.0 * sqrt_c * sc_diff_a
+    denom = ((1.0 - c * diff_norm2) * p_norm).clamp_min(MIN_NORM)
+    out = torch.asinh(num / denom) / sqrt_c
+    if bias is not None:
+        out = out + bias
+    return out
+
+
+def gyroplane_distances(
+    x: torch.Tensor, points: torch.Tensor, c: float, signed: bool = True, bias=None
+) -> torch.Tensor:
+    """Signed distances from x (..., D) to the gyroplanes through
+    ``points`` (P, D) with normals = points. Returns (..., P)."""
+    # at least f32 (bf16 upcasts, f32 no-op); f64 inputs keep full width
+    dt = torch.promote_types(torch.float32, torch.promote_types(x.dtype, points.dtype))
+    x = x.to(dt)
+    points = points.to(dt)
+    x2 = (x * x).sum(dim=-1, keepdim=True)  # (..., 1)
+    p2 = (points * points).sum(dim=-1)  # (P,)
+    xp = x @ points.T  # (..., P)
+    return _epilogue(xp, x2, p2, c, signed, bias)
+
+
+# ---------------------------------------------------------------------- #
+# The CUDA kernel.
+
+
+class LaunchCounter:
+    """Counts a kernel's launches (thread-safe: the HTTP dispatcher thread
+    and the caller's thread may both launch)."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self.count = 0
+
+    def add(self) -> None:
+        with self._lock:
+            self.count += 1
+
+    def reset(self) -> None:
+        with self._lock:
+            self.count = 0
+
+
+launches = LaunchCounter()
+_fn = None
+
+
+def _launcher():
+    global _fn
+    if _fn is None:
+        from hyperbolic_vae_tpu_torch.ops._build import load_library
+
+        fn = load_library("gyroplane").gyroplane_distances_launch
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [
+            ctypes.c_double, ctypes.c_int, ctypes.c_void_p,
+        ]
+        fn.restype = ctypes.c_int
+        _fn = fn
+    return _fn
+
+
+def gyroplane_distances_cuda(
+    x: torch.Tensor,
+    points: torch.Tensor,
+    c: float,
+    signed: bool = True,
+    bias: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """The CUDA kernel: x (B, D), points (P, D), bias (P,) or None, all
+    contiguous f32 on one CUDA device -> (B, P) f32."""
+    tensors = [x, points] + ([] if bias is None else [bias])
+    for t in tensors:
+        if not t.is_cuda or t.device != x.device:
+            raise ValueError("gyroplane kernel: tensors must be on one CUDA device")
+        if t.dtype != torch.float32:
+            raise TypeError(f"gyroplane kernel: expected float32, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError("gyroplane kernel: tensors must be contiguous")
+    if x.dim() != 2 or points.dim() != 2 or x.shape[1] != points.shape[1]:
+        raise ValueError(
+            f"gyroplane kernel: x (B, D) and points (P, D), got {tuple(x.shape)}, "
+            f"{tuple(points.shape)}"
+        )
+    B, D = x.shape
+    P = points.shape[0]
+    if bias is not None and tuple(bias.shape) != (P,):
+        raise ValueError(f"gyroplane kernel: bias must be ({P},), got {tuple(bias.shape)}")
+    if 4 * (P * D + P) > 232448:
+        raise ValueError(f"gyroplane kernel: {P} planes of width {D} exceed shared memory")
+    out = torch.empty((B, P), dtype=torch.float32, device=x.device)
+    if B == 0:
+        return out
+    fn = _launcher()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = fn(
+            x.data_ptr(), points.data_ptr(), None if bias is None else bias.data_ptr(),
+            out.data_ptr(), B, P, D, float(c), int(bool(signed)), stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"gyroplane kernel launch failed: cudaError {err}")
+    launches.add()
+    return out
+
+
+# ---------------------------------------------------------------------- #
+# Differentiable dispatch.
+
+
+class _GyroplaneDistances(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, points, bias, c, signed):
+        ctx.save_for_backward(x, points, bias)
+        ctx.c, ctx.signed = c, signed
+        if x.is_cuda:
+            return gyroplane_distances_cuda(x, points, c, signed, bias)
+        if x.device.type != "cpu":
+            raise ValueError(f"gyroplane distances: no path for device {x.device}")
+        return gyroplane_distances(x, points, c, signed, bias)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, points, bias = ctx.saved_tensors
+        inputs = [x.detach().requires_grad_(), points.detach().requires_grad_()]
+        if bias is not None:
+            inputs.append(bias.detach().requires_grad_())
+        with torch.enable_grad():
+            out = gyroplane_distances(
+                inputs[0], inputs[1], ctx.c, ctx.signed,
+                None if bias is None else inputs[2],
+            )
+            grads = torch.autograd.grad(out, inputs, g)
+        dbias = grads[2] if bias is not None else None
+        return grads[0], grads[1], dbias, None, None
+
+
+def gyroplane_distances_fast(
+    x: torch.Tensor,
+    points: torch.Tensor,
+    c: float,
+    signed: bool = True,
+    bias: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Gyroplane distances for 2-D x (B, D), in f32: the kernel for CUDA
+    tensors, the plain version for CPU tensors; autograd through the
+    plain version."""
+    x = x.float().contiguous()
+    points = points.float().contiguous()
+    if bias is not None:
+        bias = bias.float().contiguous()
+    return _GyroplaneDistances.apply(x, points, bias, float(c), bool(signed))
