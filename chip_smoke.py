@@ -6,18 +6,29 @@
 Phases (any failure exits non-zero; nothing is caught and swallowed):
 
   1. Device: the card's name and power limit (nvidia-smi); builds every
-     CUDA kernel of the port from ``hyperbolic_vae_tpu_torch/csrc``.
+     CUDA kernel of the port from ``hyperbolic_vae_tpu_torch/csrc``, one
+     nvcc per source, all started together.
   2. Kernels: each kernel against its plain PyTorch version on CUDA
-     tensors at the serving path's shapes, then timed beside it with CUDA
-     events at the serving batch: called from Python (median of 51 means
-     of 20 back-to-back calls) and replayed from a CUDA graph (device
-     time alone).
+     tensors at its path's shapes, then timed beside it with CUDA events
+     at the path's batch: called from Python (median of 51 means of 20
+     back-to-back calls) and replayed from a CUDA graph (device time
+     alone). K1 (gyroplane distances) and K2 (the fused forward + ELBO).
   3. Serve: the flagship GyroplaneVAE at its published width (random
      weights from a seed, carried through ``state_dict_from_jax_params``)
      behind ``Inferencer`` and ``InferenceServer`` on 127.0.0.1, answering
-     real HTTP requests on synthetic MNIST. Launch counters are zeroed
-     just before the requests and read just after.
-  4. Summary: a ``{"kernels": [...]}`` line, then, as the last line,
+     real HTTP requests on synthetic MNIST.
+  4. Train, at the flagship's published width on synthetic MNIST
+     (54,000 train and 6,000 val rows, batch 256): (a) five steps of the
+     fused loss, backward and RiemannianAdam on the card against the same
+     five steps on the CPU; (b) a two-epoch ``Trainer.fit`` with the fused
+     ``loss_fn`` (K2 in every step and val batch); (c) one epoch of the
+     default path (``model.loss``, K1 in every decoder forward); (d) one
+     step split into the K2 forward, the autograd backward and the
+     optimizer; (e) the device's busy and idle share over 20 steps of
+     each path, from torch.profiler.
+  Each path (serve, fused train, default train) zeroes the launch
+  counters just before it and reads them just after.
+  5. Summary: a ``{"kernels": [...]}`` line, then, as the last line,
      ``{"ok": true, "device": {...}}``.
 
 Prints no result and exits 1 when CUDA is unavailable.
@@ -42,7 +53,13 @@ F32_FLOP_PER_S = 67e12
 GYRO_EPILOGUE_OPS = 40
 
 P, D = 16, 2  # the flagship's gyroplanes and latent width
-BATCH = 256   # serving batch: the kernel's shape on every full batch
+BATCH = 256   # serving and training batch: the kernels' shape on every full batch
+DATA = 784    # the flagship's pixels
+# K2's f32 work per row beyond the products: per pixel the sigmoid, the two
+# clips and logits, softplus and the log density (~30); per hidden unit
+# the bias and tanh-GELU (~10, for 64 + 16 + 16 + 64 units); the 16
+# gyroplane epilogues; the latent chain and both log densities (~300)
+K2_PIXEL_OPS, K2_GELU_OPS, K2_LATENT_OPS = 30, 10, 300
 
 
 def _fail(msg: str) -> None:
@@ -190,6 +207,128 @@ def kernel_phase() -> dict:
     }
 
 
+def _k2_close(out, ref, beta: float) -> bool:
+    """JAX's Pallas-vs-mirror tolerances: recon rtol 1e-5; KL rtol 1e-4,
+    atol 1e-5; loss_total rtol 1e-5 taken on the scale of its two terms
+    (|recon| + beta |kl|), since their sum can cancel."""
+    d = (out.double() - ref.double()).abs().tolist()
+    lt, rm, km = ref.double().abs().tolist()
+    return (d[0] <= 1e-5 * (rm + beta * km) and d[1] <= 1e-5 * rm
+            and d[2] <= 1e-4 * km + 1e-5)
+
+
+def k2_phase() -> dict:
+    """K2 against its plain version on CUDA tensors: B in {1, 37, 256,
+    1024}, c in {0.5, 1}, latent in {2, 3}, for the seeded flagship and
+    for a copy whose posterior means sit at the projection margin (mean
+    head scaled by 30, +2 on its bias; scale bias +3, so the truncation
+    of the tangent draw is active). Tolerances in ``_k2_close``. Near the
+    boundary, where artanh amplifies last-bit differences, a case outside
+    them passes when the kernel's error against the float64 evaluation of
+    the same formula is at most twice the plain f32 version's, plus 1e-6
+    relative (K1's rule). Then both are timed at B = 256."""
+    import torch
+
+    from hyperbolic_vae_tpu_torch.data import synthetic_mnist_arrays
+    from hyperbolic_vae_tpu_torch.models import GyroplaneVAE
+    from hyperbolic_vae_tpu_torch.ops import flagship_fused as ff
+
+    x_all = torch.from_numpy(synthetic_mnist_arrays(1024, 1, seed=0)[0]).cuda().reshape(1024, -1)
+    err = {"interior": 0.0, "boundary": 0.0}
+    n_f64 = 0
+    for lat in (2, 3):
+        for c in (0.5, 1.0):
+            for region in ("interior", "boundary"):
+                m = GyroplaneVAE(latent_dim=lat, manifold_curvature=c,
+                                 generator=torch.Generator().manual_seed(0))
+                if region == "boundary":
+                    with torch.no_grad():
+                        m.mu[0].weight.mul_(30.0)
+                        m.mu[0].bias.add_(2.0)
+                        m.scale[0].bias.add_(3.0)
+                params, cfg = ff.params_tuple(m), ff.fused_config(m)
+                for b in (1, 37, 256, 1024):
+                    eps = torch.randn(b, lat, generator=torch.Generator().manual_seed(b)).cuda()
+                    xb = x_all[:b].contiguous()
+                    out = ff.flagship_fused_cuda(params, xb, eps, **cfg)
+                    torch.cuda.synchronize()
+                    with torch.no_grad():
+                        ref = torch.stack(ff.flagship_forward_torch(params, xb, eps, **cfg))
+                    if out.shape != (3,) or not torch.isfinite(out).all():
+                        _fail(f"flagship kernel: bad output {out.tolist()} at B={b} c={c} L={lat}")
+                    rel = float(((out - ref).abs() / ref.abs().clamp_min(1e-6)).max())
+                    err[region] = max(err[region], float((out - ref).abs().max()))
+                    if region == "boundary" and b == 1024:
+                        with torch.no_grad():
+                            mu, _ = m.encode(xb)
+                        share = float((mu.norm(dim=-1) >= 0.99 * (1 - 4e-3) / c**0.5).float().mean())
+                        print(f"kernel flagship_fused near boundary c={c} L={lat}: {share:.3f} of rows "
+                              f"with |mu| >= 0.99 of the projection radius", flush=True)
+                        if share < 0.5:
+                            _fail("the boundary case does not reach the boundary")
+                    if _k2_close(out, ref, cfg["beta"]):
+                        continue
+                    if region == "interior":
+                        _fail(f"flagship kernel vs plain at B={b} c={c} L={lat}: "
+                              f"{out.tolist()} vs {ref.tolist()} (max rel {rel:.3e})")
+                    p64 = [t.detach().double() for t in params]
+                    with torch.no_grad():
+                        exact = torch.stack(ff.flagship_forward_torch(p64, xb.double(), eps.double(), **cfg))
+                    k_err = ((out.double() - exact).abs() / exact.abs()).tolist()
+                    p_err = ((ref.double() - exact).abs() / exact.abs()).tolist()
+                    if any(k > 2.0 * p + 1e-6 for k, p in zip(k_err, p_err)):
+                        _fail(f"flagship kernel near boundary at B={b} c={c} L={lat}: rel err vs "
+                              f"float64 {k_err} > 2 x plain's {p_err} + 1e-6")
+                    n_f64 += 1
+    print(f"kernel flagship_fused: max_abs_err vs plain: interior {err['interior']:.3e}, "
+          f"near boundary {err['boundary']:.3e} ({n_f64} boundary cases held to float64)", flush=True)
+
+    # timing at the training batch, flagship config, in turns: plain, kernel, kernel, plain
+    m = GyroplaneVAE(generator=torch.Generator().manual_seed(0))
+    params, cfg = ff.params_tuple(m), ff.fused_config(m)
+    xb = x_all[:BATCH].contiguous()
+    eps = torch.randn(BATCH, D, generator=torch.Generator().manual_seed(1)).cuda()
+
+    def kernel():
+        return ff.flagship_fused_cuda(params, xb, eps, **cfg)
+
+    @torch.no_grad()
+    def plain():
+        return ff.flagship_forward_torch(params, xb, eps, **cfg)
+
+    plain_a, ms_a, ms_b, plain_b = (_time_ms(f) for f in (plain, kernel, kernel, plain))
+    ms, plain_ms = (ms_a + ms_b) / 2, (plain_a + plain_b) / 2
+    graph_ms, plain_graph_ms = _graph_ms(kernel), _graph_ms(plain)
+    n_par = sum(t.numel() for t in params)
+    n_bytes = 4 * (BATCH * DATA + BATCH * D + n_par + 3)
+    h1, h2 = ff.HIDDEN
+    n_mac = DATA * h1 + h1 * h2 + 2 * h2 * D + P * D + h2 * h1 + h1 * DATA
+    n_ops = BATCH * (2 * n_mac + DATA * K2_PIXEL_OPS + (2 * h1 + 2 * h2) * K2_GELU_OPS
+                     + P * GYRO_EPILOGUE_OPS + K2_LATENT_OPS)
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S * 1e3, n_ops / F32_FLOP_PER_S * 1e3
+    print(f"kernel flagship_fused at B={BATCH}: called from Python {ms_a:.5f} ms, "
+          f"{ms_b:.5f} ms; plain {plain_a:.5f} ms, {plain_b:.5f} ms; replayed from a "
+          f"CUDA graph {graph_ms:.5f} ms, plain {plain_graph_ms:.5f} ms; "
+          f"{n_bytes} bytes, {n_ops} flops", flush=True)
+    return {
+        "name": "flagship_fused",
+        "route": "cuda",
+        "source": "hyperbolic_vae_tpu_torch/csrc/flagship_fused.cu",
+        "replaces": "hyperbolic_vae_tpu/ops/flagship_fused.py:212",
+        "max_abs_err": err["interior"],
+        "max_abs_err_boundary": err["boundary"],
+        "ms": ms,
+        "kernel_ms": ms,
+        "graph_ms": graph_ms,
+        "plain_graph_ms": plain_graph_ms,
+        "plain_ms": plain_ms,
+        "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        # no single PyTorch call computes the flagship's ELBO
+        "library_ms": None,
+    }
+
+
 def _jax_tree(sd) -> dict:
     """The JAX flagship's parameter names for a port state_dict, as numpy
     (kernels (in, out)): the input ``state_dict_from_jax_params`` takes."""
@@ -224,7 +363,6 @@ def serve_phase() -> dict:
         state_dict_from_jax_params,
     )
     from hyperbolic_vae_tpu_torch.models import GyroplaneVAE
-    from hyperbolic_vae_tpu_torch.ops import gyroplane as g
     from hyperbolic_vae_tpu_torch.serve import Inferencer
     from hyperbolic_vae_tpu_torch.serve_http import InferenceServer
 
@@ -245,7 +383,7 @@ def serve_phase() -> dict:
     server = InferenceServer(inf, host="127.0.0.1", port=0).start()
     lat = {}
     try:
-        g.launches.reset()
+        _reset_launches()
         _, body, lat["GET /v1/health"] = _http(server, "/v1/health")
         if json.loads(body)["status"] != "ok":
             _fail("health not ok")
@@ -271,7 +409,7 @@ def serve_phase() -> dict:
             gens.append(np.asarray(json.loads(body)["outputs"][0], np.float32))
         _, body, lat["GET /v1/metrics"] = _http(server, "/v1/metrics")
         metrics = json.loads(body)
-        launches = {"gyroplane_distances": g.launches.count}
+        launches = _launches()
     finally:
         server.shutdown()
     for name, ms in lat.items():
@@ -298,10 +436,186 @@ def serve_phase() -> dict:
         _fail(f"reconstruct on the card differs from the CPU by {err}")
     # one K1 launch per decoded batch: 2 + 8 (reconstruct 300, 2048 rows),
     # 1 (decode 64), 2 x 2 (generate 512 twice); embed decodes nothing
-    if launches["gyroplane_distances"] != 15:
-        _fail(f"gyroplane kernel launched {launches['gyroplane_distances']} times, want 15")
+    if launches != {"gyroplane_distances": 15, "flagship_fused": 0}:
+        _fail(f"serve launches {launches}, want 15 of the gyroplane kernel and no other")
     print(f"serve: launches {json.dumps(launches)}", flush=True)
     return launches
+
+
+def _launches() -> dict:
+    from hyperbolic_vae_tpu_torch.ops import flagship_fused as ff
+    from hyperbolic_vae_tpu_torch.ops import gyroplane as g
+
+    return {"gyroplane_distances": g.launches.count, "flagship_fused": ff.launches.count}
+
+
+def _reset_launches() -> None:
+    from hyperbolic_vae_tpu_torch.ops import flagship_fused as ff
+    from hyperbolic_vae_tpu_torch.ops import gyroplane as g
+
+    g.launches.reset()
+    ff.launches.reset()
+
+
+def train_phase(n_train: int = 60000, n_test: int = 10000, device: str = "cuda") -> dict:
+    """The training path on the card. Returns launches per path.
+    ``device="cpu"`` (and small ``n_train``) rehearses it on the CPU, where
+    the launch counts stay 0."""
+    import torch
+
+    def sync():
+        if device == "cuda":
+            torch.cuda.synchronize()
+
+    from hyperbolic_vae_tpu_torch.data import make_data_module
+    from hyperbolic_vae_tpu_torch.interop import gyroplane_vae_from_state_dict
+    from hyperbolic_vae_tpu_torch.models import GyroplaneVAE
+    from hyperbolic_vae_tpu_torch.ops import flagship_fused as ff
+    from hyperbolic_vae_tpu_torch.optim import RiemannianAdam
+    from hyperbolic_vae_tpu_torch.train import Trainer
+    from hyperbolic_vae_tpu_torch.train.epoch_program import train_step
+
+    t0 = time.perf_counter()
+    dm = make_data_module(batch_size=BATCH, synthetic=True, n_train=n_train, n_test=n_test)
+    print(f"train: data module {dm.x_train.shape[0]} train, {dm.x_val.shape[0]} val rows "
+          f"({time.perf_counter() - t0:.2f} s)", flush=True)
+
+    # (a) five steps of fused loss -> backward -> RiemannianAdam, card vs CPU.
+    # JAX's fused-step tolerance (tests/test_fused_train_step.py): rtol 5e-3, atol 3e-4
+    card = GyroplaneVAE(generator=torch.Generator().manual_seed(0), device=device)
+    cpu = gyroplane_vae_from_state_dict({k: v.cpu() for k, v in card.state_dict().items()},
+                                        device="cpu")
+    cfg = ff.fused_config(card)
+    opts = [RiemannianAdam(mod.parameters(), lr=1e-3, ball=mod.ball) for mod in (card, cpu)]
+    rng = np.random.default_rng(7)
+    for _ in range(5):
+        xb = dm.x_train[rng.integers(0, dm.x_train.shape[0], BATCH)]
+        eps = rng.normal(size=(BATCH, D)).astype(np.float32)
+        for mod, opt in zip((card, cpu), opts):
+            dev = mod.device
+            lt, _, _ = ff.fused_flagship_loss(ff.params_tuple(mod), torch.from_numpy(xb).to(dev),
+                                              torch.from_numpy(eps).to(dev), **cfg)
+            opt.zero_grad()
+            lt.backward()
+            opt.step()
+    worst = 0.0
+    for (name, p), q in zip(card.named_parameters(), cpu.parameters()):
+        pairs = [(p, q)] + [(opts[0].state[p][k], opts[1].state[q][k])
+                            for k in ("exp_avg", "exp_avg_sq")]
+        for a, b in pairs:
+            a, b = a.detach().cpu(), b.detach()
+            if not torch.allclose(a, b, rtol=5e-3, atol=3e-4):
+                _fail(f"train (a): {name} differs card vs CPU by {float((a - b).abs().max())}")
+            worst = max(worst, float((a - b).abs().max()))
+    if int(opts[0].count) != 5 or int(opts[1].count) != 5:
+        _fail("train (a): step count is not 5")
+    print(f"train (a): 5 fused steps card vs CPU: params and moments max abs diff {worst:.3e} "
+          f"(rtol 5e-3, atol 3e-4)", flush=True)
+
+    steps = dm.x_train.shape[0] // BATCH
+    n_val = dm.x_val.shape[0]
+    per_epoch = steps + n_val // BATCH + (1 if n_val % BATCH else 0)
+    out = {}
+    for path, epochs in (("train_fused", 2), ("train_default", 1)):
+        model = GyroplaneVAE(generator=torch.Generator().manual_seed(0), device=device)
+        trainer = Trainer(model, max_epochs=epochs, early_stopping_patience=None, shuffle="row",
+                          loss_fn=ff.make_fused_loss_fn(model) if path == "train_fused" else None,
+                          device=device)
+        sync()
+        _reset_launches()
+        t0 = time.perf_counter()
+        res = trainer.fit(dm)
+        sync()
+        wall = time.perf_counter() - t0
+        out[path] = _launches()
+        hist = res.history
+        for row in hist:
+            if not all(np.isfinite(v) for v in row.values()):
+                _fail(f"{path}: non-finite metrics {row}")
+        print(f"{path}: history {json.dumps(hist)}", flush=True)
+        print(f"{path}: {epochs} epochs in {wall:.3f} s ({wall / epochs:.3f} s/epoch, "
+              f"{wall / epochs / per_epoch * 1e3:.4f} ms per step or val batch), "
+              f"{epochs * steps * BATCH / wall:.1f} train samples/s over the whole fit; "
+              f"Trainer samples_per_sec (epochs after the first) {res.samples_per_sec:.1f}; "
+              f"launches {json.dumps(out[path])}", flush=True)
+        if path == "train_fused":
+            if hist[1]["val/loss_total"] >= hist[0]["val/loss_total"]:
+                _fail("train_fused: val/loss_total did not fall from epoch 0 to 1")
+            want = {"flagship_fused": epochs * per_epoch, "gyroplane_distances": 0}
+        else:
+            want = {"flagship_fused": 0, "gyroplane_distances": epochs * per_epoch}
+        if out[path] != want:
+            _fail(f"{path}: launches {out[path]}, want {want}")
+
+    # (d) one step split into its parts (host clock, synchronised around each)
+    model = GyroplaneVAE(generator=torch.Generator().manual_seed(0), device=device)
+    opt = RiemannianAdam(model.parameters(), lr=1e-3, ball=model.ball)
+    loss_fn = ff.make_fused_loss_fn(model)
+    gen = torch.Generator(device=device).manual_seed(0)
+    xb = torch.from_numpy(dm.x_train[:BATCH]).to(device)
+    parts = {"K2 forward": [], "autograd backward": [], "guard + RiemannianAdam": [], "step": []}
+    for i in range(60):
+        sync()
+        t0 = time.perf_counter()
+        m = loss_fn(model, xb, gen)
+        sync()
+        t1 = time.perf_counter()
+        opt.zero_grad(set_to_none=True)
+        m["loss_total"].backward()
+        sync()
+        t2 = time.perf_counter()
+        grads = [p.grad for p in model.parameters()]
+        ok = torch.isfinite(m["loss_total"]) & torch.isfinite(torch.stack([(g * g).sum() for g in grads]).sum())
+        opt.step(ok=ok)
+        sync()
+        t3 = time.perf_counter()
+        train_step(model, opt, xb, gen, loss_fn)
+        sync()
+        t4 = time.perf_counter()
+        if i >= 10:
+            for k, dt in zip(parts, (t1 - t0, t2 - t1, t3 - t2, t4 - t3)):
+                parts[k].append(dt * 1e3)
+    print("train step split (median ms of 50, synchronised after each part): " + ", ".join(
+        f"{k} {statistics.median(v):.4f}" for k, v in parts.items()), flush=True)
+
+    # (e) the device's busy and idle share over 20 back-to-back steps of each
+    # path, from torch.profiler (the profiler's own host cost inflates the
+    # wall time, so the idle share is an upper bound)
+    from torch.profiler import ProfilerActivity, profile
+
+    for path, fn in (("fused", loss_fn), ("default", None)):
+        step_fn = (lambda: train_step(model, opt, xb, gen, fn)) if fn else (
+            lambda: train_step(model, opt, xb, gen))
+        for _ in range(5):
+            step_fn()
+        sync()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(20):
+                step_fn()
+            sync()
+            wall_ms = (time.perf_counter() - t0) * 1e3 / 20
+        # the kernels' own rows (device events): not the host ops that launched
+        # them, nor ranges such as Optimizer.step that enclose other kernels
+        rows = [(e.key, getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0)),
+                 e.count) for e in prof.key_averages()
+                if str(e.device_type).endswith("CUDA") and not getattr(e, "is_user_annotation", False)
+                and "#" not in e.key]
+        rows = [r for r in rows if r[1] > 0]
+        busy_ms = sum(r[1] for r in rows) / 1e3 / 20
+        if not rows:
+            print(f"train step profile ({path}): device time not measured (the profiler saw "
+                  f"none); wall {wall_ms:.4f} ms/step", flush=True)
+            continue
+        top = sorted(rows, key=lambda r: -r[1])[:6]
+        ours = {name: sum(t for k, t, _ in rows if tag in k) / 1e3 / 20
+                for name, tag in (("K2", "flagship_"), ("K1", "gyroplane_kernel"))}
+        print(f"train step profile ({path}, 20 steps under torch.profiler): wall {wall_ms:.4f} ms/step, "
+              f"device busy {busy_ms:.4f} ms/step, idle share {1 - busy_ms / wall_ms:.4f}, "
+              f"{sum(r[2] for r in rows) / 20:.1f} kernels/step, of which K2 {ours['K2']:.4f} ms "
+              f"and K1 {ours['K1']:.4f} ms a step; top: " + "; ".join(
+                  f"{k[:60]} {t / 1e3 / 20:.4f} ms x{n / 20:.0f}" for k, t, n in top), flush=True)
+    return out
 
 
 def main() -> int:
@@ -323,8 +637,7 @@ def main() -> int:
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}", flush=True)
     t0 = time.perf_counter()
-    for name in ("gyroplane",):
-        _build.load_library(name)
+    _build.load_libraries(["gyroplane", "flagship_fused"])
     print(f"build: {time.perf_counter() - t0:.2f} s", flush=True)
     for name, (secs, log) in _build.build_log.items():
         print(f"build {name}: nvcc {secs:.2f} s", flush=True)
@@ -332,10 +645,12 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print(f"  {line.strip()}", flush=True)
 
-    kernels = [kernel_phase()]
-    launches = serve_phase()
+    kernels = [kernel_phase(), k2_phase()]
+    paths = {"serve": serve_phase()}
+    paths.update(train_phase())
     for k in kernels:
-        k["launches"] = launches[k["name"]]
+        k["launches_by_path"] = {p: n[k["name"]] for p, n in paths.items()}
+        k["launches"] = sum(k["launches_by_path"].values())
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

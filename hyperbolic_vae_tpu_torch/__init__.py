@@ -5,10 +5,13 @@ The layout mirrors it module for module, so each counterpart sits at the
 same relative path. Entry points run on ``cuda`` unless the caller asks
 for the CPU (``device="cpu"``); see :func:`device.resolve_device`.
 
-This slice ports the flagship GyroplaneVAE serving path: the Poincare
-ball, the gyroplane-distance op with its hand-written CUDA kernel
-(``csrc/gyroplane.cu``), the model, the bucketed ``Inferencer`` and the
-HTTP front-end.
+Ported so far, for the flagship GyroplaneVAE: the serving path (the
+Poincare ball, the gyroplane-distance op with its hand-written CUDA
+kernel ``csrc/gyroplane.cu``, the model, the bucketed ``Inferencer`` and
+the HTTP front-end) and the training path (the ELBO, the fused
+forward + ELBO op with its CUDA kernel ``csrc/flagship_fused.cu``,
+Riemannian Adam, the plateau and early-stopping controllers, the data
+module and ``train.Trainer``).
 """
 
 from hyperbolic_vae_tpu_torch.device import resolve_device

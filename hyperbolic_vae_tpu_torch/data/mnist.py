@@ -1,10 +1,62 @@
-"""Seeded synthetic MNIST-like data (numpy), for request payloads and
-tests. A copy of ``hyperbolic_vae_tpu/data/mnist.py::synthetic_mnist_arrays``:
-the same seed gives the same arrays."""
+"""MNIST arrays and the data module (numpy).
+
+A copy of ``hyperbolic_vae_tpu/data/mnist.py``: the same seed gives the
+same arrays. The standard IDX files are read from ``data_dir`` (raw or
+.gz; nothing is downloaded); ``synthetic=True`` builds the seeded
+stand-in instead. ``make_data_module`` splits the train set 90/10 with
+seed 42, as the reference does.
+"""
 
 from __future__ import annotations
 
+import gzip
+import struct
+from pathlib import Path
+from typing import Optional
+
 import numpy as np
+
+from hyperbolic_vae_tpu_torch.data.core import ArrayDataModule, split_train_val
+
+
+def _read_idx(path: Path) -> np.ndarray:
+    opener = gzip.open if path.suffix == ".gz" else open
+    with opener(path, "rb") as f:
+        _zero, _dtype_code, ndim = struct.unpack(">HBB", f.read(4))
+        shape = struct.unpack(">" + "I" * ndim, f.read(4 * ndim))
+        return np.frombuffer(f.read(), dtype=np.uint8).reshape(shape)
+
+
+def _find(data_dir: Path, stem: str) -> Optional[Path]:
+    for suffix in ("", ".gz"):
+        p = data_dir / (stem + suffix)
+        if p.exists():
+            return p
+    return None
+
+
+def load_mnist_arrays(data_dir) -> tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
+    """x_train (60000, 28, 28, 1) in [0, 1], y_train, x_test, y_test from
+    the four IDX files under ``data_dir`` (or ``data_dir/MNIST/raw``)."""
+    data_dir = Path(data_dir)
+    names = {
+        "x_train": "train-images-idx3-ubyte",
+        "y_train": "train-labels-idx1-ubyte",
+        "x_test": "t10k-images-idx3-ubyte",
+        "y_test": "t10k-labels-idx1-ubyte",
+    }
+    found = {k: _find(data_dir, v) or _find(data_dir / "MNIST" / "raw", v) for k, v in names.items()}
+    missing = [names[k] for k, v in found.items() if v is None]
+    if missing:
+        raise FileNotFoundError(
+            f"MNIST IDX files not found under {data_dir}: {missing}. "
+            "Nothing is downloaded; provide the files or use synthetic=True."
+        )
+    x_train = _read_idx(found["x_train"]).astype(np.float32) / 255.0
+    y_train = _read_idx(found["y_train"]).astype(np.int32)
+    x_test = _read_idx(found["x_test"]).astype(np.float32) / 255.0
+    y_test = _read_idx(found["y_test"]).astype(np.int32)
+    return x_train[..., None], y_train, x_test[..., None], y_test
 
 
 def synthetic_mnist_arrays(
@@ -42,3 +94,25 @@ def synthetic_mnist_arrays(
     x_train, y_train = make(n_train, 1)
     x_test, y_test = make(n_test, 2)
     return x_train, y_train, x_test, y_test
+
+
+def make_data_module(
+    batch_size: int = 256,
+    data_dir: str = "data",
+    synthetic: bool = False,
+    n_train: int = 60000,
+    n_test: int = 10000,
+    seed: int = 42,
+) -> ArrayDataModule:
+    """MNIST (or its synthetic stand-in) with the train set split 90/10."""
+    if synthetic:
+        x_tr, y_tr, x_te, y_te = synthetic_mnist_arrays(n_train, n_test)
+    else:
+        x_tr, y_tr, x_te, y_te = load_mnist_arrays(data_dir)
+    x_train, y_train, x_val, y_val = split_train_val(x_tr, y_tr, 0.1, seed)
+    return ArrayDataModule(
+        x_train=x_train, y_train=y_train, x_val=x_val, y_val=y_val,
+        x_test=x_te, y_test=y_te, batch_size=batch_size,
+        label_names=[str(i) for i in range(10)],
+        name="mnist-synthetic" if synthetic else "mnist",
+    )

@@ -1,6 +1,9 @@
+from hyperbolic_vae_tpu_torch.distributions.relaxed_bernoulli import relaxed_bernoulli_log_prob
 from hyperbolic_vae_tpu_torch.distributions.wrapped_normal import (
     MAX_SAMPLE_RADIUS,
     max_chart_radius,
+    normal_log_prob,
+    wrapped_normal_log_prob,
     wrapped_normal_rsample,
     wrapped_normal_rsample_from_eps,
 )
@@ -8,6 +11,9 @@ from hyperbolic_vae_tpu_torch.distributions.wrapped_normal import (
 __all__ = [
     "MAX_SAMPLE_RADIUS",
     "max_chart_radius",
+    "normal_log_prob",
+    "relaxed_bernoulli_log_prob",
+    "wrapped_normal_log_prob",
     "wrapped_normal_rsample",
     "wrapped_normal_rsample_from_eps",
 ]

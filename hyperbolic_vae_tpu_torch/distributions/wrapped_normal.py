@@ -1,14 +1,14 @@
-"""Wrapped normal distribution on the Poincare ball: sampling.
+"""Wrapped normal distribution on the Poincare ball.
 
-Port of the sampling half of
-``hyperbolic_vae_tpu/distributions/wrapped_normal.py``:
+Port of ``hyperbolic_vae_tpu/distributions/wrapped_normal.py``:
 
-    eps ~ N(0, I);  v = scale * eps / lambda_0
-    u = PT_{0->loc}(v);      z = exp_loc(u)
+    rsample:  eps ~ N(0, I);  v = scale * eps / lambda_0
+              u = PT_{0->loc}(v);      z = exp_loc(u)
+    log_prob: v = log_loc(x);  u = PT_{loc->0}(v) * lambda_0
+              log N(u; 0, scale) - logdetexp(loc, x)
 
 with the tangent draw truncated to the chart radius the f32 chart
-represents faithfully (see MAX_SAMPLE_RADIUS). ``log_prob`` arrives with
-the training slice.
+represents faithfully (see MAX_SAMPLE_RADIUS).
 """
 
 from __future__ import annotations
@@ -32,6 +32,14 @@ def max_chart_radius(ball: PoincareBall) -> float:
 # project(), so rsample truncates the tangent draw to
 # min(MAX_SAMPLE_RADIUS, max_chart_radius - dist0(loc)).
 MAX_SAMPLE_RADIUS = 10.0
+
+_LOG_2PI = math.log(2.0 * math.pi)
+
+
+def normal_log_prob(x: torch.Tensor, loc, scale) -> torch.Tensor:
+    """Elementwise N(loc, scale) log density."""
+    var = scale * scale
+    return -((x - loc) ** 2) / (2.0 * var) - torch.log(torch.as_tensor(scale)) - 0.5 * _LOG_2PI
 
 
 def wrapped_normal_rsample_from_eps(
@@ -63,3 +71,14 @@ def wrapped_normal_rsample(
     shape = tuple(sample_shape) + tuple(loc.shape)
     eps = torch.randn(shape, generator=generator, device=loc.device, dtype=torch.float32)
     return wrapped_normal_rsample_from_eps(ball, loc, scale, eps)
+
+
+def wrapped_normal_log_prob(
+    ball: PoincareBall, loc: torch.Tensor, scale: torch.Tensor, x: torch.Tensor
+) -> torch.Tensor:
+    """Log density at x; shape broadcast(loc.shape[:-1], x.shape[:-1])."""
+    v = ball.logmap(loc, x)
+    v = ball.transp0back(loc, v)  # PT_{loc->0}
+    u = v * 2.0  # * lambda_0
+    norm_pdf = normal_log_prob(u, 0.0, scale).sum(dim=-1)
+    return norm_pdf - ball.logdetexp(loc, x, keepdim=False)

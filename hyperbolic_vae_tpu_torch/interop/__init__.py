@@ -1,13 +1,15 @@
-"""Weights in and out of the port."""
+"""Weights and optimizer state in and out of the port."""
 
 from hyperbolic_vae_tpu_torch.interop.state_dict import (
     gyroplane_vae_from_state_dict,
     load_state_dict_file,
+    optimizer_state_from_jax,
     state_dict_from_jax_params,
 )
 
 __all__ = [
     "gyroplane_vae_from_state_dict",
     "load_state_dict_file",
+    "optimizer_state_from_jax",
     "state_dict_from_jax_params",
 ]

@@ -8,6 +8,10 @@ kernels are (in, out) and become (out, in) weights. It is the same
 mapping as the JAX package's ``interop/torch_export.py`` applies to the
 flagship, so an ``.npz`` written by ``experiments/export_torch_state_dict.py``
 loads with ``load_state_dict_file``.
+
+``optimizer_state_from_jax`` carries a JAX ``RiemannianAdamState``
+(``count``, ``exp_avg``, ``exp_avg_sq``) into the port's RiemannianAdam
+by the same mapping, so both optimizers can start from one state.
 """
 
 from __future__ import annotations
@@ -24,6 +28,7 @@ from hyperbolic_vae_tpu_torch.models.vae_gyroplane import GyroplaneVAE
 __all__ = [
     "gyroplane_vae_from_state_dict",
     "load_state_dict_file",
+    "optimizer_state_from_jax",
     "state_dict_from_jax_params",
 ]
 
@@ -56,6 +61,22 @@ def state_dict_from_jax_params(params: Mapping) -> Dict[str, torch.Tensor]:
     return sd
 
 
+def optimizer_state_from_jax(opt_state_inner, model) -> dict:
+    """The moments of a JAX ``RiemannianAdamState`` (``count``, and
+    ``exp_avg`` / ``exp_avg_sq`` as parameter-shaped trees of arrays) for
+    the port optimizer over ``model.parameters()``:
+    ``{"count": int, "state": {param: {"exp_avg": t, "exp_avg_sq": t}}}``,
+    the form ``RiemannianAdam.load_moments`` takes. Kernels are transposed
+    as ``state_dict_from_jax_params`` transposes them."""
+    m = state_dict_from_jax_params(opt_state_inner.exp_avg)
+    v = state_dict_from_jax_params(opt_state_inner.exp_avg_sq)
+    return {
+        "count": int(np.asarray(opt_state_inner.count)),
+        "state": {p: {"exp_avg": m[name], "exp_avg_sq": v[name]}
+                  for name, p in model.named_parameters()},
+    }
+
+
 def load_state_dict_file(path) -> Dict[str, torch.Tensor]:
     """Read a state_dict from an ``.npz`` (``np.savez`` of name -> array)
     or a ``.pt`` file (``torch.save`` of a state_dict)."""
@@ -73,16 +94,18 @@ def gyroplane_vae_from_state_dict(
     manifold_curvature: float = 1.0,
     prior_scale: float = 1.0,
     device: DeviceLike = None,
+    beta: float = 1.0,
 ) -> GyroplaneVAE:
     """A GyroplaneVAE holding ``sd``. Widths and the latent size come from
-    the tensors' shapes; the curvature, prior scale and data shape are not
-    stored in a state_dict and are given here."""
+    the tensors' shapes; the curvature, KL weight, prior scale and data
+    shape are not stored in a state_dict and are given here."""
     enc = sorted(int(k.split(".")[1]) for k in sd if k.startswith("encoder.") and k.endswith(".weight"))
     hidden = tuple(int(sd[f"encoder.{i}.weight"].shape[0]) for i in enc)
     model = GyroplaneVAE(
         data_shape=data_shape,
         latent_dim=int(sd["mu.0.weight"].shape[0]),
         manifold_curvature=manifold_curvature,
+        beta=beta,
         prior_scale=prior_scale,
         hidden_dims=hidden,
         device=device,

@@ -6,15 +6,17 @@ upcast to f32, ``artanh`` is clipped at 1 - eps(dtype), ``tanh`` at
 +-15, norms are floored at MIN_NORM and points are projected to radius
 (1 - BOUNDARY_EPS)/sqrt(c).
 
-This slice ports the methods the serving path uses; the rest of the
-class (gyration, Mobius matvec, logmap, dist, dist2plane, the optimizer
-helpers, logdetexp) arrives with the training slice.
+The serving path's methods and the training path's (logmap, gyration,
+transport, dist, the Riemannian optimizer's helpers, logdetexp with the
+stable ``log_sinh_ratio``). Still to port: mobius_matvec,
+mobius_scalar_mul, dist2plane and normdist2plane.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+from typing import Optional
 
 import torch
 
@@ -40,6 +42,19 @@ def artanh(x: torch.Tensor) -> torch.Tensor:
 
 def tanh(x: torch.Tensor) -> torch.Tensor:
     return torch.tanh(x.clamp(-TANH_CLAMP, TANH_CLAMP))
+
+
+def log_sinh_ratio(t: torch.Tensor) -> torch.Tensor:
+    """log(sinh(t)/t), stable for all t >= 0: the series
+    t^2/6 - t^4/180 + t^6/2835 below t = 0.2, else
+    t + log1p(-exp(-2t)) - log 2 - log t. ``torch.where`` differentiates
+    both branches, so the second one's input is kept at t >= 0.1, away
+    from log1p(-1) = -inf."""
+    t_safe = t.clamp_min(0.1)
+    big = t_safe + torch.log1p(-torch.exp(-2.0 * t_safe)) - math.log(2.0) - torch.log(t_safe)
+    t2 = t * t
+    small = t2 / 6.0 - t2 * t2 / 180.0 + t2 * t2 * t2 / 2835.0
+    return torch.where(t < 0.2, small, big)
 
 
 def _sq_norm(x: torch.Tensor, keepdim: bool = True) -> torch.Tensor:
@@ -87,6 +102,13 @@ class PoincareBall:
         denom = 1.0 + 2.0 * c * xy + c * c * x2 * y2
         return num / denom.clamp_min(MIN_NORM)
 
+    def mobius_neg(self, x: torch.Tensor) -> torch.Tensor:
+        return -x
+
+    def gyration(self, u: torch.Tensor, v: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+        """gyr[u, v] w = -(u (+) v) (+) (u (+) (v (+) w))."""
+        return self.mobius_add(-self.mobius_add(u, v), self.mobius_add(u, self.mobius_add(v, w)))
+
     def expmap(self, x: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
         """Exponential map exp_x(u)."""
         x, u = _upcast(x), _upcast(u)
@@ -103,6 +125,15 @@ class PoincareBall:
         u_norm = _norm(u)
         return self.project(tanh(sqrt_c * u_norm) * u / (sqrt_c * u_norm))
 
+    def logmap(self, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+        """Log map log_x(y)."""
+        x, y = _upcast(x), _upcast(y)
+        sqrt_c = self.sqrt_c
+        sub = self.mobius_add(-x, y)
+        sub_norm = _norm(sub)
+        lam = self.lambda_x(x)
+        return 2.0 / (sqrt_c * lam) * artanh(sqrt_c * sub_norm) * sub / sub_norm
+
     def logmap0(self, y: torch.Tensor) -> torch.Tensor:
         """log_0(y) = artanh(sqrt(c)|y|) y / (sqrt(c)|y|)."""
         y = _upcast(y)
@@ -115,8 +146,66 @@ class PoincareBall:
         y, v = _upcast(y), _upcast(v)
         return v * (1.0 - self.c * _sq_norm(y)).clamp_min(MIN_NORM)
 
+    def transp(self, x: torch.Tensor, y: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+        """Parallel transport of v from T_x to T_y: gyr[y, -x] v * lam_x / lam_y."""
+        x, y, v = _upcast(x), _upcast(y), _upcast(v)
+        return self.gyration(y, -x, v) * self.lambda_x(x) / self.lambda_x(y)
+
+    def transp0back(self, y: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+        """Transport from y back to the origin: v * lam_y / 2."""
+        y, v = _upcast(y), _upcast(v)
+        return v * self.lambda_x(y) / 2.0
+
+    def dist(self, x: torch.Tensor, y: torch.Tensor, keepdim: bool = False) -> torch.Tensor:
+        """Geodesic distance 2/sqrt(c) artanh(sqrt(c) |(-x) (+) y|)."""
+        x, y = _upcast(x), _upcast(y)
+        sqrt_c = self.sqrt_c
+        sub_norm = _norm(self.mobius_add(-x, y), keepdim=keepdim)
+        return 2.0 / sqrt_c * artanh(sqrt_c * sub_norm)
+
     def dist0(self, x: torch.Tensor, keepdim: bool = False) -> torch.Tensor:
         """Geodesic distance from the origin."""
         x = _upcast(x)
         sqrt_c = self.sqrt_c
         return 2.0 / sqrt_c * artanh(sqrt_c * _norm(x, keepdim=keepdim))
+
+    # ---- Riemannian structure (for the optimizer) ----------------------
+
+    def egrad2rgrad(self, x: torch.Tensor, grad: torch.Tensor) -> torch.Tensor:
+        """Euclidean -> Riemannian gradient: grad / lambda_x^2."""
+        lam = self.lambda_x(x)
+        return grad / (lam * lam)
+
+    def component_inner(
+        self, x: torch.Tensor, u: torch.Tensor, v: Optional[torch.Tensor] = None
+    ) -> torch.Tensor:
+        """Per-component metric product lambda_x^2 u v (the second moment
+        of Riemannian Adam)."""
+        if v is None:
+            v = u
+        lam = self.lambda_x(x)
+        return (lam * lam) * u * v
+
+    def inner(
+        self, x: torch.Tensor, u: torch.Tensor, v: Optional[torch.Tensor] = None,
+        keepdim: bool = False,
+    ) -> torch.Tensor:
+        if v is None:
+            v = u
+        lam = self.lambda_x(x, keepdim=keepdim)
+        return (lam * lam) * (u * v).sum(dim=-1, keepdim=keepdim)
+
+    def retr(self, x: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+        """Retraction: the exact exponential map."""
+        return self.expmap(x, u)
+
+    def retr_transp(self, x: torch.Tensor, u: torch.Tensor, v: torch.Tensor):
+        """Retract x along u and transport v to the new point."""
+        y = self.expmap(x, u)
+        return y, self.transp(x, y, v)
+
+    def logdetexp(self, x: torch.Tensor, y: torch.Tensor, keepdim: bool = False) -> torch.Tensor:
+        """log|det d(exp_x)| at log_x(y), the wrapped normal's volume term:
+        (d - 1) log(sinh(sqrt(c) d(x, y)) / (sqrt(c) d(x, y)))."""
+        d = self.dist(x, y, keepdim=keepdim)
+        return (x.shape[-1] - 1) * log_sinh_ratio(self.sqrt_c * d)

@@ -1,19 +1,21 @@
 """Flagship model: MLP VAE with a Poincare latent and a gyroplane decoder.
 
-Port of ``hyperbolic_vae_tpu/models/vae_gyroplane.py`` (serving half):
+Port of ``hyperbolic_vae_tpu/models/vae_gyroplane.py``:
 
   encoder: flatten -> Linear(64) -> GELU -> Linear(16) -> GELU
   mu:      Linear(latent) -> expmap0        (onto the ball)
   scale:   Linear(latent) -> clip(softplus + 1e-3, 1e-3, 10)
   decoder: gyroplane distances (latent -> 16) + bias -> GELU -> Linear(64)
            -> GELU -> Linear(data) -> sigmoid
+  loss:    recon = -sum RelaxedBernoulli(T=1, probs=x_hat).log_prob(x)
+           kl    = log q(z|x) - log p(z),  p = WrappedNormal(0, prior_scale)
+           total = mean(recon + beta * kl)
 
 GELU is the tanh approximation (flax's ``gelu`` default). Submodule
 indices follow the reference state_dict layout: ``encoder.1``,
 ``encoder.3``, ``mu.0``, ``scale.0``, ``decoder.0.points``,
 ``decoder.0.bias``, ``decoder.2``, ``decoder.4``. Data is HWC:
 ``decode`` returns (B, 28, 28, 1) as the JAX model does.
-``loss`` and ``loss_from_eps`` arrive with the training slice.
 """
 
 from __future__ import annotations
@@ -26,7 +28,12 @@ import torch.nn.functional as F
 from torch import nn
 
 from hyperbolic_vae_tpu_torch.device import DeviceLike, resolve_device
-from hyperbolic_vae_tpu_torch.distributions import wrapped_normal_rsample
+from hyperbolic_vae_tpu_torch.distributions import (
+    relaxed_bernoulli_log_prob,
+    wrapped_normal_log_prob,
+    wrapped_normal_rsample,
+    wrapped_normal_rsample_from_eps,
+)
 from hyperbolic_vae_tpu_torch.manifolds import PoincareBall
 from hyperbolic_vae_tpu_torch.models.sampling import prior_sample
 from hyperbolic_vae_tpu_torch.nn import PoincareHyperplanes
@@ -62,8 +69,10 @@ class GyroplaneVAE(nn.Module):
         data_shape: Sequence[int] = (28, 28, 1),
         latent_dim: int = 2,
         manifold_curvature: float = 1.0,
+        beta: float = 1.0,
         prior_scale: float = 1.0,
         hidden_dims: Sequence[int] = (64, 16),
+        lr: float = 1e-3,
         generator: Optional[torch.Generator] = None,
         device: DeviceLike = None,
     ):
@@ -72,8 +81,10 @@ class GyroplaneVAE(nn.Module):
         self.data_shape = tuple(int(d) for d in data_shape)
         self.latent_dim = int(latent_dim)
         self.manifold_curvature = float(manifold_curvature)
+        self.beta = float(beta)
         self.prior_scale = float(prior_scale)
         self.hidden_dims = tuple(int(d) for d in hidden_dims)
+        self.lr = float(lr)
         self.ball = PoincareBall(c=self.manifold_curvature)
 
         enc = [nn.Flatten()]
@@ -107,6 +118,14 @@ class GyroplaneVAE(nn.Module):
     def device(self) -> torch.device:
         return self.mu[0].weight.device
 
+    def hparams(self) -> dict:
+        """The constructor's configuration (everything but the weights)."""
+        return dict(
+            data_shape=self.data_shape, latent_dim=self.latent_dim,
+            manifold_curvature=self.manifold_curvature, beta=self.beta,
+            prior_scale=self.prior_scale, hidden_dims=self.hidden_dims, lr=self.lr,
+        )
+
     def encode(self, x):
         """Posterior mean on the ball and scale, each (B, latent)."""
         h = self.encoder(x)
@@ -121,6 +140,35 @@ class GyroplaneVAE(nn.Module):
         mu, scale = self.encode(x)
         z = wrapped_normal_rsample(generator, self.ball, mu, scale)
         return {"mu": mu, "scale": scale, "z": z, "x_hat": self.decode(z)}
+
+    def loss(self, x, generator: Optional[torch.Generator] = None) -> dict:
+        """The metric dict {loss_total, recon_loss, kl_loss}, each a mean
+        over the batch, for one posterior sample per row. The draw is
+        eps (B, latent) ~ N(0, I) from ``generator`` (on the model's
+        device), as ``wrapped_normal_rsample`` makes it."""
+        out = self(x, generator)
+        return self._loss_parts(x, out["mu"], out["scale"], out["z"], out["x_hat"])
+
+    def loss_from_eps(self, x, eps) -> dict:
+        """The loss for a given standard-normal draw eps (B, latent)."""
+        mu, scale = self.encode(x)
+        z = wrapped_normal_rsample_from_eps(self.ball, mu, scale, eps)
+        return self._loss_parts(x, mu, scale, z, self.decode(z))
+
+    def _loss_parts(self, x, mu, scale, z, x_hat) -> dict:
+        xf = x.reshape(x.shape[0], -1)
+        xhf = x_hat.reshape(x.shape[0], -1)
+        recon = -relaxed_bernoulli_log_prob(xf, 1.0, probs=xhf).sum(dim=-1)
+        log_q = wrapped_normal_log_prob(self.ball, mu, scale, z)
+        origin = torch.zeros((self.latent_dim,), dtype=torch.float32, device=z.device)
+        prior = torch.full((self.latent_dim,), self.prior_scale, dtype=torch.float32,
+                           device=z.device)
+        kl = log_q - wrapped_normal_log_prob(self.ball, origin, prior, z)
+        return {
+            "loss_total": (recon + self.beta * kl).mean(),
+            "recon_loss": recon.mean(),
+            "kl_loss": kl.mean(),
+        }
 
     def generate(self, n: int = 64, generator: Optional[torch.Generator] = None):
         """Decode n prior draws z ~ WrappedNormal(0, prior_scale): pixel

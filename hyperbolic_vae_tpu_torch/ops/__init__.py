@@ -1,3 +1,12 @@
+from hyperbolic_vae_tpu_torch.ops.flagship_fused import (
+    FusedFlagshipLoss,
+    flagship_forward_torch,
+    flagship_fused_cuda,
+    fused_flagship_loss,
+    make_fused_loss_fn,
+    params_tuple,
+    supports_fused,
+)
 from hyperbolic_vae_tpu_torch.ops.gyroplane import (
     gyroplane_distances,
     gyroplane_distances_cuda,
@@ -5,7 +14,14 @@ from hyperbolic_vae_tpu_torch.ops.gyroplane import (
 )
 
 __all__ = [
+    "FusedFlagshipLoss",
+    "flagship_forward_torch",
+    "flagship_fused_cuda",
+    "fused_flagship_loss",
     "gyroplane_distances",
     "gyroplane_distances_cuda",
     "gyroplane_distances_fast",
+    "make_fused_loss_fn",
+    "params_tuple",
+    "supports_fused",
 ]

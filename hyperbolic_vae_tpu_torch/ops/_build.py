@@ -3,9 +3,11 @@
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` into
 ``_build/lib<name>-<hash>.so`` (a directory git ignores), keyed by a
 hash of the source and the flags, so an edited source rebuilds and an
-unchanged one loads what is there. A file lock serialises the build
-across processes (pytest workers) and a thread lock across threads (the
-HTTP dispatcher), so the first users of a kernel build it once.
+unchanged one loads what is there. A file lock per kernel serialises its
+build across processes (pytest workers) and a thread lock per kernel
+across threads (the HTTP dispatcher), so the first users of a kernel
+build it once, while different kernels build side by side
+(``load_libraries``).
 
 The libraries have a plain C interface and are loaded with ``ctypes``;
 nothing here includes PyTorch's headers, so a build takes seconds.
@@ -20,6 +22,7 @@ import os
 import subprocess
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent.parent
@@ -32,7 +35,8 @@ NVCC_FLAGS = (
 )
 
 _libs: dict = {}
-_lock = threading.Lock()
+_locks: dict = {}
+_locks_guard = threading.Lock()
 # name -> (seconds spent building, nvcc output) for builds made by this process
 build_log: dict = {}
 
@@ -47,14 +51,16 @@ def _nvcc() -> str:
 
 def load_library(name: str) -> ctypes.CDLL:
     """The loaded library for ``csrc/<name>.cu``, built if needed."""
-    with _lock:
+    with _locks_guard:
+        lock = _locks.setdefault(name, threading.Lock())
+    with lock:
         if name in _libs:
             return _libs[name]
         src = CSRC / f"{name}.cu"
         digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
         so = BUILD_DIR / f"lib{name}-{digest}.so"
         BUILD_DIR.mkdir(exist_ok=True)
-        with open(BUILD_DIR / ".lock", "w") as lockf:
+        with open(BUILD_DIR / f".lock-{name}", "w") as lockf:
             fcntl.flock(lockf, fcntl.LOCK_EX)
             if not so.exists():
                 tmp = so.with_suffix(f".{os.getpid()}.tmp")
@@ -70,3 +76,11 @@ def load_library(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(so))
         _libs[name] = lib
         return lib
+
+
+def load_libraries(names) -> dict:
+    """Build (one nvcc per source, all started together) and load the
+    given kernels: name -> library."""
+    names = list(names)
+    with ThreadPoolExecutor(max_workers=len(names)) as pool:
+        return dict(zip(names, pool.map(load_library, names)))
