@@ -60,6 +60,12 @@ DATA = 784    # the flagship's pixels
 # the bias and tanh-GELU (~10, for 64 + 16 + 16 + 64 units); the 16
 # gyroplane epilogues; the latent chain and both log densities (~300)
 K2_PIXEL_OPS, K2_GELU_OPS, K2_LATENT_OPS = 30, 10, 300
+# K3's f32 work beyond K2's forward and the products: the backward per
+# pixel (~15: the softplus, logit and sigmoid derivatives), per hidden unit
+# (~15: the tanh-GELU derivative), per gyroplane epilogue (~60), the latent
+# chain's backward with both log densities (~600), and per parameter
+# element the finite guard's square and the Adam update (~12)
+K3_PIXEL_OPS, K3_GELU_OPS, K3_GYRO_OPS, K3_LATENT_OPS, K3_ADAM_OPS = 15, 15, 60, 600, 12
 
 
 def _fail(msg: str) -> None:
@@ -217,6 +223,17 @@ def _k2_close(out, ref, beta: float) -> bool:
             and d[2] <= 1e-4 * km + 1e-5)
 
 
+def _k3_close(out, ref, beta: float) -> bool:
+    """``_k2_close`` with an absolute floor of 1e-5 on recon and loss_total:
+    a batch's mean recon sums 784 pixel terms that each cancel two numbers
+    of up to ~87 (pixels at exactly 0), so it can lie near 0 where no
+    relative rule holds it; the two versions differ there by ~1e-7."""
+    d = (out.double() - ref.double()).abs().tolist()
+    lt, rm, km = ref.double().abs().tolist()
+    return (d[0] <= 1e-5 * (rm + beta * km) + 1e-5 and d[1] <= 1e-5 * rm + 1e-5
+            and d[2] <= 1e-4 * km + 1e-5)
+
+
 def k2_phase() -> dict:
     """K2 against its plain version on CUDA tensors: B in {1, 37, 256,
     1024}, c in {0.5, 1}, latent in {2, 3}, for the seeded flagship and
@@ -329,6 +346,187 @@ def k2_phase() -> dict:
     }
 
 
+def _k3_inputs(m, b: int, lat: int, moments: bool, seed: int):
+    """x (b, 784) of synthetic MNIST, eps, the model's params and moments
+    (random and non-zero with count 3, or zero with count 0), on the card."""
+    import torch
+
+    from hyperbolic_vae_tpu_torch.data import synthetic_mnist_arrays
+    from hyperbolic_vae_tpu_torch.ops import flagship_fused as ff
+
+    g = torch.Generator().manual_seed(seed)
+    x = torch.from_numpy(synthetic_mnist_arrays(b, 1, seed=seed)[0].reshape(b, -1)).cuda()
+    eps = torch.randn(b, lat, generator=g).cuda()
+    params = [p.detach().clone() for p in ff.params_tuple(m)]
+    if moments:
+        mom = [(0.01 * torch.randn(p.shape, generator=g)).cuda() for p in params]
+        vel = [(1e-4 * torch.rand(p.shape, generator=g)).cuda() for p in params]
+    else:
+        mom = [torch.zeros_like(p) for p in params]
+        vel = [torch.zeros_like(p) for p in params]
+    count = torch.full((), 3 if moments else 0, dtype=torch.int32, device="cuda")
+    return x, eps, params, mom, vel, count
+
+
+def k3_phase() -> dict:
+    """K3 against its plain version on CUDA tensors: B in {1, 37, 256,
+    1024}, c in {0.5, 1}, latent in {2, 3}, interior and at the projection
+    margin (as the K2 phase), from non-zero moments with count 3.
+    Tolerances: the metrics by ``_k3_close`` and skipped equal; the new
+    params and both moments rtol 5e-3, atol 3e-4 (JAX's fused-step
+    tolerance). Near the boundary a tensor outside it passes when the
+    kernel's max abs error against the float64 step is at most twice the
+    plain f32 version's, plus 3e-4 (the float64 rule of K1 and K2); the
+    metrics there follow the K2 phase's float64 rule. count must be 4.
+    Then, at B = 256 for each (c, latent, region): the first step from zero
+    moments, where exp_avg / (1 - b1) of every Euclidean tensor is the
+    kernel's gradient, against the plain version's gradients (rtol 1e-3,
+    atol 3e-5 of each tensor's largest gradient); a step on a batch with a
+    NaN pixel (params and moments bit for bit unchanged, skipped 1, count
+    advanced); two launches on the same inputs giving equal bits. Then K3
+    and the plain step are timed at B = 256."""
+    import torch
+
+    from hyperbolic_vae_tpu_torch.models import GyroplaneVAE
+    from hyperbolic_vae_tpu_torch.ops import flagship_fused as ff
+
+    def run_kernel(params, mom, vel, x, eps, count, cfg):
+        kp, km, kv = ([t.clone() for t in ts] for ts in (params, mom, vel))
+        kc = count.clone()
+        out = ff.flagship_train_cuda(kp, km, kv, x, eps, kc, lr=1e-3, **cfg)
+        torch.cuda.synchronize()
+        return out, kp, km, kv, kc
+
+    err = {"interior": 0.0, "boundary": 0.0}
+    n_f64 = 0
+    for lat in (2, 3):
+        for c in (0.5, 1.0):
+            for region in ("interior", "boundary"):
+                m = GyroplaneVAE(latent_dim=lat, manifold_curvature=c,
+                                 generator=torch.Generator().manual_seed(0))
+                if region == "boundary":
+                    with torch.no_grad():
+                        m.mu[0].weight.mul_(30.0)
+                        m.mu[0].bias.add_(2.0)
+                        m.scale[0].bias.add_(3.0)
+                cfg = ff.fused_config(m)
+                tag = f"c={c} L={lat} {region}"
+                for b in (1, 37, 256, 1024):
+                    x, eps, params, mom, vel, count = _k3_inputs(m, b, lat, True, b)
+                    out, kp, km, kv, kc = run_kernel(params, mom, vel, x, eps, count, cfg)
+                    ref = ff.flagship_train_step_torch(params, mom, vel, x, eps, lr=1e-3,
+                                                       count=count, **cfg)
+                    if int(kc) != 4 or int(ref[4]) != 4:
+                        _fail(f"K3 {tag} B={b}: count {int(kc)}, want 4")
+                    if not torch.isfinite(out).all() or float(out[3]) != 0.0:
+                        _fail(f"K3 {tag} B={b}: bad metrics {out.tolist()}")
+                    exact = None
+                    if not _k3_close(out[:3], ref[3][:3], cfg["beta"]):
+                        if region == "interior":
+                            _fail(f"K3 {tag} B={b}: metrics {out.tolist()} vs {ref[3].tolist()}")
+                        exact = ff.flagship_train_step_torch(
+                            *([t.double() for t in ts] for ts in (params, mom, vel)),
+                            x.double(), eps.double(), lr=1e-3, count=count, **cfg)
+                        k_err = ((out[:3].double() - exact[3][:3]).abs() / exact[3][:3].abs()).tolist()
+                        p_err = ((ref[3][:3].double() - exact[3][:3]).abs() / exact[3][:3].abs()).tolist()
+                        if any(ke > 2.0 * pe + 1e-6 for ke, pe in zip(k_err, p_err)):
+                            _fail(f"K3 {tag} B={b}: metrics rel err vs float64 {k_err} > 2 x plain's {p_err}")
+                    for j, (got, want) in enumerate(zip((kp, km, kv), ref[:3])):
+                        for i, (a, w) in enumerate(zip(got, want)):
+                            d = float((a - w).abs().max())
+                            err[region] = max(err[region], d)
+                            if torch.allclose(a, w, rtol=5e-3, atol=3e-4):
+                                continue
+                            if region == "interior":
+                                _fail(f"K3 {tag} B={b}: tensor {j}/{i} differs by {d}")
+                            if exact is None:
+                                exact = ff.flagship_train_step_torch(
+                                    *([t.double() for t in ts] for ts in (params, mom, vel)),
+                                    x.double(), eps.double(), lr=1e-3, count=count, **cfg)
+                            k_err = float((a.double() - exact[j][i]).abs().max())
+                            p_err = float((w.double() - exact[j][i]).abs().max())
+                            if k_err > 2.0 * p_err + 3e-4:
+                                _fail(f"K3 {tag} B={b}: tensor {j}/{i} err vs float64 {k_err} > "
+                                      f"2 x plain's {p_err} + 3e-4")
+                            n_f64 += 1
+
+                # the first step from zero moments: the kernel's gradients
+                x, eps, params, mom, vel, count = _k3_inputs(m, BATCH, lat, False, 5)
+                _, _, km, _, _ = run_kernel(params, mom, vel, x, eps, count, cfg)
+                grads, _ = ff.flagship_grads_torch(params, x, eps, **cfg)
+                for i, (mk, g) in enumerate(zip(km, grads)):
+                    if i == ff._MP_POINTS_IDX:
+                        continue
+                    scale = float(g.abs().max())
+                    if not torch.allclose(mk / (1.0 - 0.9), g, rtol=1e-3, atol=3e-5 * scale):
+                        _fail(f"K3 {tag}: gradient of parameter {i} differs by "
+                              f"{float((mk / 0.1 - g).abs().max())} (scale {scale})")
+                # a skipped step, and determinism
+                x_bad = x.clone()
+                x_bad[3, 100] = float("nan")
+                out, kp, km, kv, kc = run_kernel(params, mom, vel, x_bad, eps, count, cfg)
+                if float(out[3]) != 1.0 or int(kc) != 1 or not all(
+                        torch.equal(a, b) for a, b in zip(kp + km + kv, params + mom + vel)):
+                    _fail(f"K3 {tag}: a NaN batch was not skipped cleanly ({out.tolist()}, count {int(kc)})")
+                first = run_kernel(params, mom, vel, x, eps, count, cfg)
+                second = run_kernel(params, mom, vel, x, eps, count, cfg)
+                if not all(torch.equal(a, b) for a, b in zip(
+                        [first[0], *first[1], *first[2], *first[3]],
+                        [second[0], *second[1], *second[2], *second[3]])):
+                    _fail(f"K3 {tag}: two launches on the same inputs differ")
+    print(f"kernel flagship_train: max_abs_err vs plain (params, moments): interior "
+          f"{err['interior']:.3e}, near boundary {err['boundary']:.3e} ({n_f64} boundary tensors "
+          f"held to float64); first-step gradients, skipped step and determinism held", flush=True)
+
+    # timing at the training batch, flagship config, in turns: plain, kernel, kernel, plain
+    m = GyroplaneVAE(generator=torch.Generator().manual_seed(0))
+    cfg = ff.fused_config(m)
+    x, eps, params, mom, vel, count = _k3_inputs(m, BATCH, D, True, 1)
+
+    def kernel():
+        return ff.flagship_train_cuda(params, mom, vel, x, eps, count, lr=1e-3, **cfg)
+
+    def plain():
+        return ff.flagship_train_step_torch(params, mom, vel, x, eps, lr=1e-3, count=count, **cfg)
+
+    plain_a, ms_a, ms_b, plain_b = (_time_ms(f) for f in (plain, kernel, kernel, plain))
+    ms, plain_ms = (ms_a + ms_b) / 2, (plain_a + plain_b) / 2
+    graph_ms, plain_graph_ms = _graph_ms(kernel), _graph_ms(plain)
+    n_par = sum(t.numel() for t in params)
+    n_bytes = 4 * (BATCH * DATA + BATCH * D + 6 * n_par + 4) + 8
+    h1, h2 = ff.HIDDEN
+    n_mac = DATA * h1 + h1 * h2 + 2 * h2 * D + P * D + h2 * h1 + h1 * DATA
+    fwd_ops = (2 * n_mac + DATA * K2_PIXEL_OPS + (2 * h1 + 2 * h2) * K2_GELU_OPS
+               + P * GYRO_EPILOGUE_OPS + K2_LATENT_OPS)
+    # the backward: weight gradients (n_mac) and input gradients of every
+    # layer but the first (n_mac - DATA * h1), then the elementwise chain
+    bwd_ops = (2 * (2 * n_mac - DATA * h1) + DATA * K3_PIXEL_OPS
+               + (2 * h1 + 2 * h2) * K3_GELU_OPS + P * K3_GYRO_OPS + K3_LATENT_OPS)
+    n_ops = BATCH * (fwd_ops + bwd_ops) + n_par * K3_ADAM_OPS
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S * 1e3, n_ops / F32_FLOP_PER_S * 1e3
+    print(f"kernel flagship_train at B={BATCH}: called from Python {ms_a:.5f} ms, "
+          f"{ms_b:.5f} ms; plain {plain_a:.5f} ms, {plain_b:.5f} ms; replayed from a "
+          f"CUDA graph {graph_ms:.5f} ms, plain {plain_graph_ms:.5f} ms; "
+          f"{n_bytes} bytes, {n_ops} flops", flush=True)
+    return {
+        "name": "flagship_train",
+        "route": "cuda",
+        "source": "hyperbolic_vae_tpu_torch/csrc/flagship_train.cu",
+        "replaces": "hyperbolic_vae_tpu/ops/flagship_fused.py:376",
+        "max_abs_err": err["interior"],
+        "max_abs_err_boundary": err["boundary"],
+        "ms": ms,
+        "kernel_ms": ms,
+        "graph_ms": graph_ms,
+        "plain_graph_ms": plain_graph_ms,
+        "plain_ms": plain_ms,
+        "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        # no single PyTorch call computes a training step
+        "library_ms": None,
+    }
+
+
 def _jax_tree(sd) -> dict:
     """The JAX flagship's parameter names for a port state_dict, as numpy
     (kernels (in, out)): the input ``state_dict_from_jax_params`` takes."""
@@ -436,7 +634,7 @@ def serve_phase() -> dict:
         _fail(f"reconstruct on the card differs from the CPU by {err}")
     # one K1 launch per decoded batch: 2 + 8 (reconstruct 300, 2048 rows),
     # 1 (decode 64), 2 x 2 (generate 512 twice); embed decodes nothing
-    if launches != {"gyroplane_distances": 15, "flagship_fused": 0}:
+    if launches != {"gyroplane_distances": 15, "flagship_fused": 0, "flagship_train": 0}:
         _fail(f"serve launches {launches}, want 15 of the gyroplane kernel and no other")
     print(f"serve: launches {json.dumps(launches)}", flush=True)
     return launches
@@ -446,7 +644,8 @@ def _launches() -> dict:
     from hyperbolic_vae_tpu_torch.ops import flagship_fused as ff
     from hyperbolic_vae_tpu_torch.ops import gyroplane as g
 
-    return {"gyroplane_distances": g.launches.count, "flagship_fused": ff.launches.count}
+    return {"gyroplane_distances": g.launches.count, "flagship_fused": ff.launches.count,
+            "flagship_train": ff.train_launches.count}
 
 
 def _reset_launches() -> None:
@@ -455,6 +654,7 @@ def _reset_launches() -> None:
 
     g.launches.reset()
     ff.launches.reset()
+    ff.train_launches.reset()
 
 
 def train_phase(n_train: int = 60000, n_test: int = 10000, device: str = "cuda") -> dict:
@@ -512,14 +712,53 @@ def train_phase(n_train: int = 60000, n_test: int = 10000, device: str = "cuda")
     print(f"train (a): 5 fused steps card vs CPU: params and moments max abs diff {worst:.3e} "
           f"(rtol 5e-3, atol 3e-4)", flush=True)
 
+    # (a3) five K3 steps from the same weights on the same batches and
+    # draws: the kernel on the card (``flagship_train_cuda``), the plain
+    # version on the CPU (``flagship_train_step_torch``), each on its
+    # optimizer's moments and count
+    card = GyroplaneVAE(generator=torch.Generator().manual_seed(0), device=device)
+    cpu = gyroplane_vae_from_state_dict({k: v.cpu() for k, v in card.state_dict().items()},
+                                        device="cpu")
+    opts = [RiemannianAdam(mod.parameters(), lr=1e-3, ball=mod.ball) for mod in (card, cpu)]
+    worst = 0.0
+    with torch.no_grad():
+        for _ in range(5):
+            xb = torch.from_numpy(dm.x_train[rng.integers(0, dm.x_train.shape[0], BATCH)].reshape(BATCH, -1))
+            eps = torch.from_numpy(rng.normal(size=(BATCH, D)).astype(np.float32))
+            for mod, opt in zip((card, cpu), opts):
+                params = ff.params_tuple(mod)
+                mom, vel = zip(*(opt.moments(p) for p in params))
+                xd, ed = xb.to(mod.device), eps.to(mod.device)
+                if mod.device.type == "cuda":
+                    ff.flagship_train_cuda(params, mom, vel, xd, ed, opt.count, lr=1e-3, **cfg)
+                    continue
+                new = ff.flagship_train_step_torch(params, mom, vel, xd, ed, lr=1e-3,
+                                                   count=opt.count, **cfg)
+                for dst, src in zip((*params, *mom, *vel), (*new[0], *new[1], *new[2])):
+                    dst.copy_(src)
+                opt.count.copy_(new[4])
+    for (name, p), q in zip(card.named_parameters(), cpu.parameters()):
+        pairs = [(p, q)] + [(opts[0].state[p][k], opts[1].state[q][k])
+                            for k in ("exp_avg", "exp_avg_sq")]
+        for a, b in pairs:
+            a, b = a.detach().cpu(), b.detach()
+            if not torch.allclose(a, b, rtol=5e-3, atol=3e-4):
+                _fail(f"train (a3): {name} differs card vs CPU by {float((a - b).abs().max())}")
+            worst = max(worst, float((a - b).abs().max()))
+    if int(opts[0].count) != 5 or int(opts[1].count) != 5:
+        _fail("train (a3): step count is not 5")
+    print(f"train (a3): 5 K3 steps card vs CPU: params and moments max abs diff {worst:.3e} "
+          f"(rtol 5e-3, atol 3e-4)", flush=True)
+
     steps = dm.x_train.shape[0] // BATCH
     n_val = dm.x_val.shape[0]
     per_epoch = steps + n_val // BATCH + (1 if n_val % BATCH else 0)
     out = {}
-    for path, epochs in (("train_fused", 2), ("train_default", 1)):
+    for path, epochs in (("train_fused", 2), ("train_k3", 2), ("train_default", 1)):
         model = GyroplaneVAE(generator=torch.Generator().manual_seed(0), device=device)
         trainer = Trainer(model, max_epochs=epochs, early_stopping_patience=None, shuffle="row",
-                          loss_fn=ff.make_fused_loss_fn(model) if path == "train_fused" else None,
+                          loss_fn=ff.make_fused_loss_fn(model) if path != "train_default" else None,
+                          train_step_fn=ff.make_fused_train_step(model) if path == "train_k3" else None,
                           device=device)
         sync()
         _reset_launches()
@@ -538,12 +777,17 @@ def train_phase(n_train: int = 60000, n_test: int = 10000, device: str = "cuda")
               f"{epochs * steps * BATCH / wall:.1f} train samples/s over the whole fit; "
               f"Trainer samples_per_sec (epochs after the first) {res.samples_per_sec:.1f}; "
               f"launches {json.dumps(out[path])}", flush=True)
+        if path != "train_default" and hist[1]["val/loss_total"] >= hist[0]["val/loss_total"]:
+            _fail(f"{path}: val/loss_total did not fall from epoch 0 to 1")
         if path == "train_fused":
-            if hist[1]["val/loss_total"] >= hist[0]["val/loss_total"]:
-                _fail("train_fused: val/loss_total did not fall from epoch 0 to 1")
-            want = {"flagship_fused": epochs * per_epoch, "gyroplane_distances": 0}
+            want = {"flagship_fused": epochs * per_epoch, "gyroplane_distances": 0,
+                    "flagship_train": 0}
+        elif path == "train_k3":  # K3 every step, K2 every val batch
+            want = {"flagship_fused": epochs * (per_epoch - steps), "gyroplane_distances": 0,
+                    "flagship_train": epochs * steps}
         else:
-            want = {"flagship_fused": 0, "gyroplane_distances": epochs * per_epoch}
+            want = {"flagship_fused": 0, "gyroplane_distances": epochs * per_epoch,
+                    "flagship_train": 0}
         if out[path] != want:
             _fail(f"{path}: launches {out[path]}, want {want}")
 
@@ -578,14 +822,31 @@ def train_phase(n_train: int = 60000, n_test: int = 10000, device: str = "cuda")
     print("train step split (median ms of 50, synchronised after each part): " + ", ".join(
         f"{k} {statistics.median(v):.4f}" for k, v in parts.items()), flush=True)
 
+    # (d3) one K3 step (eps draw, checks, kernel), synchronised around it
+    k3_step = ff.make_fused_train_step(model)
+    k3_ms = []
+    for i in range(60):
+        sync()
+        t0 = time.perf_counter()
+        k3_step(model, opt, xb, gen)
+        sync()
+        if i >= 10:
+            k3_ms.append((time.perf_counter() - t0) * 1e3)
+    print(f"train (d3): one K3 step (median ms of 50, synchronised) {statistics.median(k3_ms):.4f}",
+          flush=True)
+
     # (e) the device's busy and idle share over 20 back-to-back steps of each
     # path, from torch.profiler (the profiler's own host cost inflates the
     # wall time, so the idle share is an upper bound)
     from torch.profiler import ProfilerActivity, profile
 
-    for path, fn in (("fused", loss_fn), ("default", None)):
-        step_fn = (lambda: train_step(model, opt, xb, gen, fn)) if fn else (
-            lambda: train_step(model, opt, xb, gen))
+    for path in ("fused", "default", "k3"):
+        if path == "k3":
+            step_fn = lambda: k3_step(model, opt, xb, gen)  # noqa: E731
+        elif path == "fused":
+            step_fn = lambda: train_step(model, opt, xb, gen, loss_fn)  # noqa: E731
+        else:
+            step_fn = lambda: train_step(model, opt, xb, gen)  # noqa: E731
         for _ in range(5):
             step_fn()
         sync()
@@ -609,11 +870,12 @@ def train_phase(n_train: int = 60000, n_test: int = 10000, device: str = "cuda")
             continue
         top = sorted(rows, key=lambda r: -r[1])[:6]
         ours = {name: sum(t for k, t, _ in rows if tag in k) / 1e3 / 20
-                for name, tag in (("K2", "flagship_"), ("K1", "gyroplane_kernel"))}
+                for name, tag in (("K2", "flagship_"), ("K1", "gyroplane_kernel"),
+                                  ("K3", "train_"))}
         print(f"train step profile ({path}, 20 steps under torch.profiler): wall {wall_ms:.4f} ms/step, "
               f"device busy {busy_ms:.4f} ms/step, idle share {1 - busy_ms / wall_ms:.4f}, "
-              f"{sum(r[2] for r in rows) / 20:.1f} kernels/step, of which K2 {ours['K2']:.4f} ms "
-              f"and K1 {ours['K1']:.4f} ms a step; top: " + "; ".join(
+              f"{sum(r[2] for r in rows) / 20:.1f} kernels/step, of which K3 {ours['K3']:.4f} ms, "
+              f"K2 {ours['K2']:.4f} ms and K1 {ours['K1']:.4f} ms a step; top: " + "; ".join(
                   f"{k[:60]} {t / 1e3 / 20:.4f} ms x{n / 20:.0f}" for k, t, n in top), flush=True)
     return out
 
@@ -637,7 +899,7 @@ def main() -> int:
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}", flush=True)
     t0 = time.perf_counter()
-    _build.load_libraries(["gyroplane", "flagship_fused"])
+    _build.load_libraries(["gyroplane", "flagship_fused", "flagship_train"])
     print(f"build: {time.perf_counter() - t0:.2f} s", flush=True)
     for name, (secs, log) in _build.build_log.items():
         print(f"build {name}: nvcc {secs:.2f} s", flush=True)
@@ -645,7 +907,7 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print(f"  {line.strip()}", flush=True)
 
-    kernels = [kernel_phase(), k2_phase()]
+    kernels = [kernel_phase(), k2_phase(), k3_phase()]
     paths = {"serve": serve_phase()}
     paths.update(train_phase())
     for k in kernels:

@@ -77,22 +77,28 @@ struct Consts {
   float max_norm, d_max, max_d2, beta, prior_scale, lsr_coef;
 };
 
+// max / min that keep a NaN in their first operand, as XLA's max / min and
+// torch.clamp do (CUDA's fmaxf / fminf would drop it: a NaN pixel would
+// give a finite recon)
+__device__ __forceinline__ float maxn(float a, float b) { return a != a ? a : fmaxf(a, b); }
+__device__ __forceinline__ float minn(float a, float b) { return a != a ? a : fminf(a, b); }
+
 __device__ __forceinline__ float artanh_c(float x) {
-  x = fminf(fmaxf(x, kAtanhLo), kAtanhHi);
+  x = minn(maxn(x, kAtanhLo), kAtanhHi);
   return 0.5f * (log1pf(x) - log1pf(-x));
 }
 
 __device__ __forceinline__ float arsinh_g(float y) {
   const float a = fabsf(y);
-  const float a_small = fminf(a, 1e10f);
+  const float a_small = minn(a, 1e10f);
   const float small = logf(a_small + sqrtf(a_small * a_small + 1.0f));
-  const float big = logf(fmaxf(a, 1e-30f)) + kLog2;
+  const float big = logf(maxn(a, 1e-30f)) + kLog2;
   const float s = y > 0.0f ? 1.0f : (y < 0.0f ? -1.0f : 0.0f);
   return s * (a > 1e10f ? big : small);
 }
 
 __device__ __forceinline__ float tanh_c(float x) {
-  return tanhf(fminf(fmaxf(x, -kTanhClamp), kTanhClamp));
+  return tanhf(minn(maxn(x, -kTanhClamp), kTanhClamp));
 }
 
 __device__ __forceinline__ float gelu(float x) {
@@ -100,11 +106,11 @@ __device__ __forceinline__ float gelu(float x) {
 }
 
 __device__ __forceinline__ float softplus(float x) {
-  return fmaxf(x, 0.0f) + log1pf(expf(-fabsf(x)));
+  return maxn(x, 0.0f) + log1pf(expf(-fabsf(x)));
 }
 
 __device__ __forceinline__ float log_sinh_ratio(float t) {
-  const float t_safe = fmaxf(t, 0.1f);
+  const float t_safe = maxn(t, 0.1f);
   const float big = t_safe + log1pf(-expf(-2.0f * t_safe)) - kLog2 - logf(t_safe);
   const float t2 = t * t;
   const float small = t2 / 6.0f - t2 * t2 / 180.0f + t2 * t2 * t2 / 2835.0f;
@@ -128,7 +134,7 @@ __device__ void mobius_add(const float* a, const float* b, float* out, int L,
   }
   const float ca = 1.0f + k.two_c * ab + k.c * b2;
   const float cb = 1.0f - k.c * a2;
-  const float den = fmaxf(1.0f + k.two_c * ab + k.c_sq * a2 * b2, kMinNorm);
+  const float den = maxn(1.0f + k.two_c * ab + k.c_sq * a2 * b2, kMinNorm);
   for (int l = 0; l < L; ++l) out[l] = (ca * a[l] + cb * b[l]) / den;
 }
 
@@ -140,8 +146,8 @@ __device__ float wn_log_prob(const float* loc, float loc2, const float* sc,
   mobius_add(neg, z, sub, L, k);
   float s2 = 0.0f;
   for (int l = 0; l < L; ++l) s2 += sub[l] * sub[l];
-  const float sub_n = sqrtf(fmaxf(s2, kMinNorm2));
-  const float lam = 2.0f / fmaxf(1.0f - k.c * loc2, kMinNorm);
+  const float sub_n = sqrtf(maxn(s2, kMinNorm2));
+  const float lam = 2.0f / maxn(1.0f - k.c * loc2, kMinNorm);
   const float at = artanh_c(k.sqrt_c * sub_n);
   const float coef = 2.0f / (k.sqrt_c * lam);
   float npdf = 0.0f;
@@ -247,42 +253,42 @@ flagship_rows_kernel(const float* __restrict__ x, const float* __restrict__ eps,
     float second[kMaxLatent], z[kMaxLatent];
     float s = 0.0f;
     for (int l = 0; l < L; ++l) s += mue[r][l] * mue[r][l];
-    const float mu_n = sqrtf(fmaxf(s, kMinNorm2));
+    const float mu_n = sqrtf(maxn(s, kMinNorm2));
     const float th = tanh_c(k.sqrt_c * mu_n);
     for (int l = 0; l < L; ++l) mu[l] = th * mue[r][l] / (k.sqrt_c * mu_n);
     s = 0.0f;
     for (int l = 0; l < L; ++l) s += mu[l] * mu[l];
-    float f = fminf(k.max_norm / sqrtf(fmaxf(s, kMinNorm2)), 1.0f);
+    float f = minn(k.max_norm / sqrtf(maxn(s, kMinNorm2)), 1.0f);
     for (int l = 0; l < L; ++l) mu[l] = mu[l] * f;
     for (int l = 0; l < L; ++l)
-      scale[l] = fminf(fmaxf(softplus(sce[r][l]) + 1e-3f, 1e-3f), 10.0f);
+      scale[l] = minn(maxn(softplus(sce[r][l]) + 1e-3f, 1e-3f), 10.0f);
 
     float mu2 = 0.0f;
     for (int l = 0; l < L; ++l) mu2 += mu[l] * mu[l];
-    const float dist0 = k.two_over_sqrt_c * artanh_c(k.sqrt_c * sqrtf(fmaxf(mu2, kMinNorm2)));
-    const float r_allowed = fminf(fmaxf(k.d_max - dist0, 1e-2f), 10.0f);
+    const float dist0 = k.two_over_sqrt_c * artanh_c(k.sqrt_c * sqrtf(maxn(mu2, kMinNorm2)));
+    const float r_allowed = minn(maxn(k.d_max - dist0, 1e-2f), 10.0f);
     const float* e = eps + (size_t)(row0 + r) * L;
     s = 0.0f;
     for (int l = 0; l < L; ++l) {
       v[l] = scale[l] * e[l];
       s += v[l] * v[l];
     }
-    f = fminf(1.0f, r_allowed / sqrtf(fmaxf(s, 1e-24f)));
+    f = minn(1.0f, r_allowed / sqrtf(maxn(s, 1e-24f)));
     for (int l = 0; l < L; ++l) v[l] = v[l] * f / 2.0f;
-    const float one_m = fmaxf(1.0f - k.c * mu2, kMinNorm);
+    const float one_m = maxn(1.0f - k.c * mu2, kMinNorm);
     const float lam_mu = 2.0f / one_m;
     s = 0.0f;
     for (int l = 0; l < L; ++l) {
       u[l] = v[l] * one_m;
       s += u[l] * u[l];
     }
-    const float u_n = sqrtf(fmaxf(s, kMinNorm2));
+    const float u_n = sqrtf(maxn(s, kMinNorm2));
     const float tu = tanh_c(k.sqrt_c * lam_mu * u_n / 2.0f);
     for (int l = 0; l < L; ++l) second[l] = tu * u[l] / (k.sqrt_c * u_n);
     mobius_add(mu, second, z, L, k);
     s = 0.0f;
     for (int l = 0; l < L; ++l) s += z[l] * z[l];
-    f = fminf(k.max_norm / sqrtf(fmaxf(s, kMinNorm2)), 1.0f);
+    f = minn(k.max_norm / sqrtf(maxn(s, kMinNorm2)), 1.0f);
     float z2 = 0.0f;
     for (int l = 0; l < L; ++l) {
       z[l] = z[l] * f;
@@ -297,15 +303,15 @@ flagship_rows_kernel(const float* __restrict__ x, const float* __restrict__ eps,
         p2 += pv * pv;
         zp += z[l] * pv;
       }
-      const float den = fmaxf(1.0f - k.two_c * zp + k.c_sq * p2 * z2, kMinNorm);
+      const float den = maxn(1.0f - k.two_c * zp + k.c_sq * p2 * z2, kMinNorm);
       const float alpha = (1.0f - k.two_c * zp + k.c * z2) / den;
       const float betaa = (1.0f - k.c * p2) / den;
       const float sc_diff = -alpha * p2 + betaa * zp;
-      const float dn2 = fminf(fmaxf(alpha * alpha * p2 - 2.0f * alpha * betaa * zp +
+      const float dn2 = minn(maxn(alpha * alpha * p2 - 2.0f * alpha * betaa * zp +
                                         betaa * betaa * z2, kMinNorm), k.max_d2);
-      const float p_norm = sqrtf(fmaxf(p2, kMinNorm2));
+      const float p_norm = sqrtf(maxn(p2, kMinNorm2));
       const float dist =
-          arsinh_g(k.two_sqrt_c * sc_diff / fmaxf((1.0f - k.c * dn2) * p_norm, kMinNorm)) /
+          arsinh_g(k.two_sqrt_c * sc_diff / maxn((1.0f - k.c * dn2) * p_norm, kMinNorm)) /
           k.sqrt_c;
       hd[r][p] = gelu(dist + pb[p]);
     }
@@ -348,9 +354,9 @@ flagship_rows_kernel(const float* __restrict__ x, const float* __restrict__ eps,
     const float bias = b5[i];
     for (int r = 0; r < nrows; ++r) {
       const float xhat = 1.0f / (1.0f + expf(-(o[r] + bias)));
-      const float pc = fminf(fmaxf(xhat, kProbLo), kProbHi);
+      const float pc = minn(maxn(xhat, kProbLo), kProbHi);
       const float logits = logf(pc) - log1pf(-pc);
-      const float xc = fminf(fmaxf(xs[r * D + i], kTiny), kXHi);
+      const float xc = minn(maxn(xs[r * D + i], kTiny), kXHi);
       const float y = logf(xc) - log1pf(-xc);
       const float diff = logits - y;
       const float base = diff - 2.0f * softplus(diff);

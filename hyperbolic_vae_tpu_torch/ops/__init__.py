@@ -2,8 +2,12 @@ from hyperbolic_vae_tpu_torch.ops.flagship_fused import (
     FusedFlagshipLoss,
     flagship_forward_torch,
     flagship_fused_cuda,
+    flagship_grads_torch,
+    flagship_train_cuda,
+    flagship_train_step_torch,
     fused_flagship_loss,
     make_fused_loss_fn,
+    make_fused_train_step,
     params_tuple,
     supports_fused,
 )
@@ -17,11 +21,15 @@ __all__ = [
     "FusedFlagshipLoss",
     "flagship_forward_torch",
     "flagship_fused_cuda",
+    "flagship_grads_torch",
+    "flagship_train_cuda",
+    "flagship_train_step_torch",
     "fused_flagship_loss",
     "gyroplane_distances",
     "gyroplane_distances_cuda",
     "gyroplane_distances_fast",
     "make_fused_loss_fn",
+    "make_fused_train_step",
     "params_tuple",
     "supports_fused",
 ]

@@ -61,11 +61,7 @@ class RiemannianAdam(torch.optim.Optimizer):
             for p in group["params"]:
                 if p.grad is None:
                     continue
-                state = self.state[p]
-                if not state:
-                    state["exp_avg"] = torch.zeros_like(p, memory_format=torch.preserve_format)
-                    state["exp_avg_sq"] = torch.zeros_like(p, memory_format=torch.preserve_format)
-                m, v = state["exp_avg"], state["exp_avg_sq"]
+                m, v = self.moments(p)
                 g = p.grad
                 if wd:
                     g = g + wd * p
@@ -90,6 +86,14 @@ class RiemannianAdam(torch.optim.Optimizer):
                 v.copy_(new_v)
         self.count = count if ok is None else torch.where(ok, count, self.count)
         return loss
+
+    def moments(self, p):
+        """(exp_avg, exp_avg_sq) of parameter ``p``, zeros on first use."""
+        state = self.state[p]
+        if not state:
+            state["exp_avg"] = torch.zeros_like(p, memory_format=torch.preserve_format)
+            state["exp_avg_sq"] = torch.zeros_like(p, memory_format=torch.preserve_format)
+        return state["exp_avg"], state["exp_avg_sq"]
 
     def state_dict(self):
         sd = super().state_dict()

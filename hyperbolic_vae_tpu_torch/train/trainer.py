@@ -13,12 +13,14 @@ that loop. Metrics leave the device once per epoch.
 
 Hooks, as in JAX: ``loss_fn(model, batch, generator) -> metrics`` (e.g.
 ``ops.flagship_fused.make_fused_loss_fn``) replaces ``model.loss``;
-``train_step_fn(model, optimizer, batch, generator) -> metrics`` replaces
-the whole step (loss, backward, guard and update) and owns its finite
-guard. ``fit`` trains ``model`` in place, from its current weights or
-from ``params``. Still to port: ``epochs_per_dispatch``, grad
-accumulation and clipping, EMA, hyperparameter lanes, meshes, streaming,
-checkpoints, lr and beta schedules.
+``train_step_fn(model, optimizer, batch, generator) -> metrics`` (e.g.
+``ops.flagship_fused.make_fused_train_step``, K3) replaces the whole step
+(loss, backward, guard and update) and owns its finite guard, so
+``finite_guard`` does not apply to it; ``grad_accum_steps`` and
+``grad_clip_norm`` do not compose with it and raise, as in JAX. ``fit``
+trains ``model`` in place, from its current weights or from ``params``.
+Still to port: ``epochs_per_dispatch``, EMA, moment_dtype, hyperparameter
+lanes, meshes, streaming, checkpoints, lr and beta schedules.
 """
 
 from __future__ import annotations
@@ -74,11 +76,20 @@ class Trainer:
         shuffle: str = "row",  # "row" (fresh permutation) | "block" (random windows)
         loss_fn: Optional[Callable] = None,  # fn(model, batch, generator) -> metrics
         train_step_fn: Optional[Callable] = None,  # fn(model, optimizer, batch, generator) -> metrics
-        finite_guard: bool = True,  # skip a step whose loss or gradient is not finite
+        finite_guard: bool = True,  # skip a step whose loss or gradient is not finite (default step)
+        grad_accum_steps: int = 1,  # A > 1: each step sums the gradients of A microbatches of batch/A rows
+        grad_clip_norm: Optional[float] = None,  # clip the gradients to this global L2 norm
         device: DeviceLike = None,
     ):
         if shuffle not in ("row", "block"):
             raise ValueError(f"shuffle must be 'row' or 'block', got {shuffle!r}")
+        if grad_accum_steps < 1:
+            raise ValueError(f"grad_accum_steps must be >= 1, got {grad_accum_steps}")
+        if grad_accum_steps > 1 and train_step_fn is not None:
+            raise ValueError("grad_accum_steps does not compose with train_step_fn "
+                             "(the full-step override owns its own grad computation)")
+        if grad_clip_norm is not None and train_step_fn is not None:
+            raise ValueError("grad_clip_norm does not compose with train_step_fn")
         mon_src, _, mon_key = monitor.partition("/")
         if mon_src not in ("val", "train") or not mon_key:
             raise ValueError(f"monitor must be 'val/<metric>' or 'train/<metric>', got {monitor!r}")
@@ -97,6 +108,8 @@ class Trainer:
         self.loss_fn = loss_fn
         self.train_step_fn = train_step_fn
         self.finite_guard = bool(finite_guard)
+        self.grad_accum_steps = int(grad_accum_steps)
+        self.grad_clip_norm = float(grad_clip_norm) if grad_clip_norm is not None else None
         self._plateau_cfg = dict(lr=self.lr, factor=plateau_factor, patience=plateau_patience,
                                  min_lr=plateau_min_lr)
         self._early_patience = early_stopping_patience
@@ -128,6 +141,9 @@ class Trainer:
             self.early_stopping = EarlyStopping(patience=self._early_patience)
         if params is not None:
             self.model.load_state_dict(params)
+        if dm.batch_size % self.grad_accum_steps:
+            raise ValueError(f"batch_size {dm.batch_size} not divisible by grad_accum_steps "
+                             f"{self.grad_accum_steps}")
         self.optimizer = self._make_optimizer()
         gen = torch.Generator(device=self.device).manual_seed(self.seed)
         loss_fn = self.loss_fn or default_loss_fn
@@ -147,7 +163,8 @@ class Trainer:
                 group["lr"] = lr_used
             t_names, t_means = train_epoch(
                 self.model, self.optimizer, x_train, dm.batch_size, gen, shuffle=self.shuffle,
-                loss_fn=loss_fn, train_step_fn=self.train_step_fn, finite_guard=self.finite_guard)
+                loss_fn=loss_fn, train_step_fn=self.train_step_fn, finite_guard=self.finite_guard,
+                grad_accum_steps=self.grad_accum_steps, grad_clip_norm=self.grad_clip_norm)
             v_names, v_means = eval_full(self.model, x_val, dm.batch_size, gen, loss_fn)
             values = torch.cat([t_means, v_means]).tolist()  # the epoch's one fetch
             metrics = {f"train/{k}": v for k, v in zip(t_names, values)}

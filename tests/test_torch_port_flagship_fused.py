@@ -239,3 +239,22 @@ def test_fused_loss_fn_on_card_launches_the_kernel_and_backpropagates():
     torch.cuda.synchronize()
     assert ff.launches.count == n0 + 1
     assert all(torch.isfinite(p.grad).all() for p in m.parameters())
+
+
+@pytest.mark.cuda
+def test_kernel_keeps_a_nan_pixel_nan_on_card():
+    """A NaN pixel makes all three metrics NaN, as in the plain version
+    (and JAX): the kernel's clamps keep NaN."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from hyperbolic_vae_tpu_torch.models import GyroplaneVAE
+
+    m = GyroplaneVAE(generator=torch.Generator().manual_seed(0))
+    cfg = ff.fused_config(m)
+    x = torch.rand(8, 784, generator=torch.Generator().manual_seed(1)).cuda()
+    x[3, 10] = float("nan")
+    eps = torch.randn(8, 2, generator=torch.Generator().manual_seed(2)).cuda()
+    out = ff.flagship_fused_cuda(ff.params_tuple(m), x, eps, **cfg)
+    with torch.no_grad():
+        ref = torch.stack(ff.flagship_forward_torch(ff.params_tuple(m), x, eps, **cfg))
+    assert torch.isnan(ref).all() and torch.isnan(out).all()
