@@ -7,12 +7,16 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
 
   1. Device: the card's name and power limit (nvidia-smi); builds every
      CUDA kernel of the port from ``hyperbolic_vae_tpu_torch/csrc``, one
-     nvcc per source, all started together.
+     nvcc per source, all started together; the registers of each kernel;
+     K2's and K3's rows kernels' shared memory against the wrapper's bound
+     and how many of their clusters the card holds at once.
   2. Kernels: each kernel against its plain PyTorch version on CUDA
      tensors at its path's shapes, then timed beside it with CUDA events
      at the path's batch: called from Python (median of 51 means of 20
      back-to-back calls) and replayed from a CUDA graph (device time
-     alone). K1 (gyroplane distances) and K2 (the fused forward + ELBO).
+     alone; for K2 and K3 also per internal kernel, from torch.profiler).
+     K1 (gyroplane distances), K2 (the fused forward + ELBO) and K3 (the
+     whole training step).
   3. Serve: the flagship GyroplaneVAE at its published width (random
      weights from a seed, carried through ``state_dict_from_jax_params``)
      behind ``Inferencer`` and ``InferenceServer`` on 127.0.0.1, answering
@@ -104,10 +108,9 @@ def _time_ms(fn, reps: int = 51, inner: int = 20) -> float:
     return statistics.median(times)
 
 
-def _graph_ms(fn, n: int = 50) -> float:
-    """Device time of one call with the host out of the way: ``n`` calls
-    captured in one CUDA graph, the graph replayed and timed by
-    ``_time_ms``, divided by ``n``."""
+def _capture(fn, n: int):
+    """``n`` calls of fn captured in one CUDA graph (after one call on a
+    side stream, which allocates what the calls reuse)."""
     import torch
 
     side = torch.cuda.Stream()
@@ -119,9 +122,50 @@ def _graph_ms(fn, n: int = 50) -> float:
     with torch.cuda.graph(graph):
         for _ in range(n):
             fn()
+    return graph
+
+
+def _graph_ms(fn, n: int = 50) -> float:
+    """Device time of one call with the host out of the way: ``n`` calls
+    captured in one CUDA graph, the graph replayed and timed by
+    ``_time_ms``, divided by ``n``."""
+    graph = _capture(fn, n)
     ms = _time_ms(graph.replay, reps=21, inner=5) / n
     del graph
     return ms
+
+
+def _graph_split(fn, n: int = 50) -> dict:
+    """Device time per call of each CUDA kernel that fn launches: torch.profiler
+    over five replays of ``n`` calls captured in one CUDA graph. Kernels that
+    overlap (programmatic dependent launch) each count their own span."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    graph = _capture(fn, n)
+    graph.replay()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            graph.replay()
+        torch.cuda.synchronize()
+    del graph
+    split = {}
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0))
+        if us > 0 and str(e.device_type).endswith("CUDA"):
+            name = e.key.replace("(anonymous namespace)::", "").split("(")[0].split()[-1].split("::")[-1]
+            split[name] = split.get(name, 0.0) + us / 1e3 / (5 * n)
+    return split
+
+
+def _print_split(label: str, split: dict) -> None:
+    if not split:
+        print(f"kernel {label}: per-kernel device time not measured (the profiler saw none)", flush=True)
+        return
+    print(f"kernel {label} at B={BATCH}, per internal kernel (graph replay under torch.profiler, "
+          f"ms a call): " + ", ".join(f"{k} {v:.5f}" for k, v in sorted(split.items(), key=lambda kv: -kv[1])),
+          flush=True)
 
 
 def kernel_phase() -> dict:
@@ -316,6 +360,8 @@ def k2_phase() -> dict:
     plain_a, ms_a, ms_b, plain_b = (_time_ms(f) for f in (plain, kernel, kernel, plain))
     ms, plain_ms = (ms_a + ms_b) / 2, (plain_a + plain_b) / 2
     graph_ms, plain_graph_ms = _graph_ms(kernel), _graph_ms(plain)
+    split = _graph_split(kernel)
+    _print_split("flagship_fused", split)
     n_par = sum(t.numel() for t in params)
     n_bytes = 4 * (BATCH * DATA + BATCH * D + n_par + 3)
     h1, h2 = ff.HIDDEN
@@ -337,6 +383,7 @@ def k2_phase() -> dict:
         "ms": ms,
         "kernel_ms": ms,
         "graph_ms": graph_ms,
+        "graph_split_ms": split,
         "plain_graph_ms": plain_graph_ms,
         "plain_ms": plain_ms,
         "bound_ms": max(t_bytes, t_ops),
@@ -492,6 +539,8 @@ def k3_phase() -> dict:
     plain_a, ms_a, ms_b, plain_b = (_time_ms(f) for f in (plain, kernel, kernel, plain))
     ms, plain_ms = (ms_a + ms_b) / 2, (plain_a + plain_b) / 2
     graph_ms, plain_graph_ms = _graph_ms(kernel), _graph_ms(plain)
+    split = _graph_split(kernel)
+    _print_split("flagship_train", split)
     n_par = sum(t.numel() for t in params)
     n_bytes = 4 * (BATCH * DATA + BATCH * D + 6 * n_par + 4) + 8
     h1, h2 = ff.HIDDEN
@@ -518,6 +567,7 @@ def k3_phase() -> dict:
         "ms": ms,
         "kernel_ms": ms,
         "graph_ms": graph_ms,
+        "graph_split_ms": split,
         "plain_graph_ms": plain_graph_ms,
         "plain_ms": plain_ms,
         "bound_ms": max(t_bytes, t_ops),
@@ -880,6 +930,27 @@ def train_phase(n_train: int = 60000, n_test: int = 10000, device: str = "cuda")
     return out
 
 
+def _rows_kernel_fit() -> None:
+    """The rows kernels' shared memory at the flagship's 784 pixels against
+    the wrapper's bound (which must not be below it), and how many of their
+    clusters the card holds at once (a batch of 256 makes 15)."""
+    import ctypes
+
+    from hyperbolic_vae_tpu_torch.ops import _build
+    from hyperbolic_vae_tpu_torch.ops import flagship_fused as ff
+
+    for name, train in (("flagship_fused", False), ("flagship_train", True)):
+        lib = _build.load_library(name)
+        smem, fit = getattr(lib, f"{name}_smem_bytes"), getattr(lib, f"{name}_max_clusters")
+        smem.argtypes, smem.restype = [ctypes.c_int], ctypes.c_long
+        fit.argtypes, fit.restype = [ctypes.c_int], ctypes.c_int
+        got, bound, n = smem(DATA), ff._rows_smem_bytes(DATA, train), fit(DATA)
+        print(f"rows kernel of {name}: {got} bytes of shared memory per CTA at D={DATA} (the "
+              f"wrapper's bound {bound}); {n} clusters of 8 CTAs resident at once", flush=True)
+        if got > bound or n < 1:
+            _fail(f"{name}: shared memory {got} over the wrapper's bound {bound}, or no cluster fits")
+
+
 def main() -> int:
     import torch
 
@@ -904,8 +975,9 @@ def main() -> int:
     for name, (secs, log) in _build.build_log.items():
         print(f"build {name}: nvcc {secs:.2f} s", flush=True)
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
+            if "Compiling entry" in line or "registers" in line or "spill" in line:
                 print(f"  {line.strip()}", flush=True)
+    _rows_kernel_fit()
 
     kernels = [kernel_phase(), k2_phase(), k3_phase()]
     paths = {"serve": serve_phase()}

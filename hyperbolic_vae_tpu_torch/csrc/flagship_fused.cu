@@ -17,373 +17,56 @@
 // L = 2) the op reads x (802,816 B) and the parameters (413,776 B), about
 // 0.36 us at 3.35 TB/s, and does ~52.5 MFLOP of products plus a few MFLOP
 // of elementwise work, ~0.9 us at 67 TFLOP/s f32. So it is bound by
-// operations, and one launch (a few us) is its real floor.
+// operations, and a launch of a few us is its real floor.
 //
 // Why the TPU design does not carry over: the TPU kernel keeps the 14
 // parameter arrays and the whole batch resident in VMEM in one grid cell.
 // The weights alone (404 KiB) exceed the 227 KB of shared memory of one
-// H100 block, and one block would leave 131 SMs idle. So:
-//   * batch rows are spread over blocks, kRows per block (64 blocks at
-//     B = 256), the last block ragged;
-//   * the block's rows of x are staged in shared memory once;
-//   * the two 784-wide layers read their weights in place, in (out, in)
-//     layout: for w1 one warp per output strides over the inputs
-//     (coalesced) for all the block's rows at once and reduces by warp
-//     shuffle; for w5 one thread per output pixel reads its contiguous
-//     64-float row, and the sigmoid, clip, logit and RelaxedBernoulli term
-//     are fused into that pass against x in shared memory;
-//   * the 2-D latent math and the two log densities run one thread per row;
-//   * per-row (recon, kl) go to scratch and a second one-block launch takes
-//     the batch means in a fixed order, so the loss is the same every run
-//     (atomics would make it vary).
-// Plain f32 on the CUDA cores, as the JAX mirror's f32 products; built
-// with -fmad=false so each product and sum rounds as the plain PyTorch
-// version's separate elementwise ops do. Tensor cores, TMA and graph
-// capture are later work.
+// H100 block, and one block would leave 131 SMs idle. So the weights are
+// cut across the 8 CTAs of a thread block cluster, each CTA holding its
+// slices of w1 and w5 in shared memory, and the batch across clusters of
+// 18 rows (flagship_common.cuh says how). Then:
+//   1. flagship_rows_kernel: one cluster per 18 rows -> (recon, kl) per row
+//      into rows_out (B, 2);
+//   2. flagship_mean_kernel (one block): the batch means in a fixed order,
+//      so the loss is the same every run (atomics would make it vary).
+// The second launch starts while the first drains (programmatic dependent
+// launch) and waits for its results.
 
-#include <cuda_runtime.h>
-#include <math.h>
+#include "flagship_common.cuh"
 
 namespace {
 
-constexpr int kH1 = 64;       // first hidden width (and the decoder's)
-constexpr int kH2 = 16;       // second hidden width = number of gyroplanes
-constexpr int kMaxLatent = 8;
-constexpr int kRows = 4;      // batch rows per block
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-static_assert(kRows * kH1 == kThreads, "the decoder layer maps one thread per (row, output)");
+using namespace flagship;
 
-constexpr float kMinNorm = 1e-15f;
-constexpr float kMinNorm2 = 1e-30f;
-constexpr float kAtanhLo = (float)(-1.0 + 1.19e-7);
-constexpr float kAtanhHi = (float)(1.0 - 1.19e-7);
-constexpr float kTanhClamp = 15.0f;
-constexpr float kProbLo = 1e-7f;
-constexpr float kProbHi = (float)(1.0 - 1e-7);
-constexpr float kTiny = 1.1754944e-38f;
-constexpr float kXHi = (float)(1.0 - 1.1920929e-7);
-constexpr float kLog2 = 0.69314718055994530942f;
-constexpr float kGeluC0 = 0.79788456080286535588f;  // sqrt(2 / pi)
-constexpr float kHalfLog2Pi = 0.91893853320467274178f;
-
-struct Params {
-  // w1 b1 w2 b2 wm bm ws bs points pbias w4 b4 w5 b5 (_params_tuple's order)
-  const float* p[14];
-};
-
-struct Consts {
-  float c, two_c, c_sq, sqrt_c, two_sqrt_c, two_over_sqrt_c;
-  float max_norm, d_max, max_d2, beta, prior_scale, lsr_coef;
-};
-
-// max / min that keep a NaN in their first operand, as XLA's max / min and
-// torch.clamp do (CUDA's fmaxf / fminf would drop it: a NaN pixel would
-// give a finite recon)
-__device__ __forceinline__ float maxn(float a, float b) { return a != a ? a : fmaxf(a, b); }
-__device__ __forceinline__ float minn(float a, float b) { return a != a ? a : fminf(a, b); }
-
-__device__ __forceinline__ float artanh_c(float x) {
-  x = minn(maxn(x, kAtanhLo), kAtanhHi);
-  return 0.5f * (log1pf(x) - log1pf(-x));
-}
-
-__device__ __forceinline__ float arsinh_g(float y) {
-  const float a = fabsf(y);
-  const float a_small = minn(a, 1e10f);
-  const float small = logf(a_small + sqrtf(a_small * a_small + 1.0f));
-  const float big = logf(maxn(a, 1e-30f)) + kLog2;
-  const float s = y > 0.0f ? 1.0f : (y < 0.0f ? -1.0f : 0.0f);
-  return s * (a > 1e10f ? big : small);
-}
-
-__device__ __forceinline__ float tanh_c(float x) {
-  return tanhf(minn(maxn(x, -kTanhClamp), kTanhClamp));
-}
-
-__device__ __forceinline__ float gelu(float x) {
-  return 0.5f * x * (1.0f + tanhf(kGeluC0 * (x + 0.044715f * x * x * x)));
-}
-
-__device__ __forceinline__ float softplus(float x) {
-  return maxn(x, 0.0f) + log1pf(expf(-fabsf(x)));
-}
-
-__device__ __forceinline__ float log_sinh_ratio(float t) {
-  const float t_safe = maxn(t, 0.1f);
-  const float big = t_safe + log1pf(-expf(-2.0f * t_safe)) - kLog2 - logf(t_safe);
-  const float t2 = t * t;
-  const float small = t2 / 6.0f - t2 * t2 / 180.0f + t2 * t2 * t2 / 2835.0f;
-  return t < 0.2f ? small : big;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
-
-// out = a (+) b on the c-ball, for L-vectors
-__device__ void mobius_add(const float* a, const float* b, float* out, int L,
-                           const Consts& k) {
-  float a2 = 0.0f, b2 = 0.0f, ab = 0.0f;
-  for (int l = 0; l < L; ++l) {
-    a2 += a[l] * a[l];
-    b2 += b[l] * b[l];
-    ab += a[l] * b[l];
-  }
-  const float ca = 1.0f + k.two_c * ab + k.c * b2;
-  const float cb = 1.0f - k.c * a2;
-  const float den = maxn(1.0f + k.two_c * ab + k.c_sq * a2 * b2, kMinNorm);
-  for (int l = 0; l < L; ++l) out[l] = (ca * a[l] + cb * b[l]) / den;
-}
-
-// log density of the wrapped normal at z: loc (L), |loc|^2, scales (L)
-__device__ float wn_log_prob(const float* loc, float loc2, const float* sc,
-                             const float* z, int L, const Consts& k) {
-  float neg[kMaxLatent], sub[kMaxLatent];
-  for (int l = 0; l < L; ++l) neg[l] = -loc[l];
-  mobius_add(neg, z, sub, L, k);
-  float s2 = 0.0f;
-  for (int l = 0; l < L; ++l) s2 += sub[l] * sub[l];
-  const float sub_n = sqrtf(maxn(s2, kMinNorm2));
-  const float lam = 2.0f / maxn(1.0f - k.c * loc2, kMinNorm);
-  const float at = artanh_c(k.sqrt_c * sub_n);
-  const float coef = 2.0f / (k.sqrt_c * lam);
-  float npdf = 0.0f;
-  for (int l = 0; l < L; ++l) {
-    const float vv = coef * at * sub[l] / sub_n;
-    const float uu = vv * lam;
-    npdf += -(uu * uu) / (2.0f * sc[l] * sc[l]) - logf(sc[l]) - kHalfLog2Pi;
-  }
-  const float dist = k.two_over_sqrt_c * at;
-  return npdf - k.lsr_coef * log_sinh_ratio(k.sqrt_c * dist);
-}
-
-// Per block: kRows batch rows -> (recon, kl) per row into rows_out (B, 2).
-__global__ void __launch_bounds__(kThreads)
-flagship_rows_kernel(const float* __restrict__ x, const float* __restrict__ eps,
-                     Params prm, float* __restrict__ rows_out, int B, int D,
-                     int L, Consts k) {
-  extern __shared__ float xs[];  // (kRows, D)
-  __shared__ float h1[kRows][kH1];
-  __shared__ float h2[kRows][kH2];
-  __shared__ float mue[kRows][kMaxLatent];
-  __shared__ float sce[kRows][kMaxLatent];
-  __shared__ float hd[kRows][kH2];
-  __shared__ float h4[kRows][kH1];
-  __shared__ float kl_row[kRows];
-  __shared__ float red[kWarps][kRows];
-
-  const float* __restrict__ w1 = prm.p[0];
-  const float* __restrict__ b1 = prm.p[1];
-  const float* __restrict__ w2 = prm.p[2];
-  const float* __restrict__ b2 = prm.p[3];
-  const float* __restrict__ wm = prm.p[4];
-  const float* __restrict__ bm = prm.p[5];
-  const float* __restrict__ ws = prm.p[6];
-  const float* __restrict__ bs = prm.p[7];
-  const float* __restrict__ pts = prm.p[8];
-  const float* __restrict__ pb = prm.p[9];
-  const float* __restrict__ w4 = prm.p[10];
-  const float* __restrict__ b4 = prm.p[11];
-  const float* __restrict__ w5 = prm.p[12];
-  const float* __restrict__ b5 = prm.p[13];
-
+__global__ void __launch_bounds__(kThreads, 1)
+flagship_rows_kernel(const float* __restrict__ x, const float* __restrict__ eps, Params prm,
+                     float* __restrict__ rows_out, int B, int D, int L, Consts k) {
+  Shared& S = *reinterpret_cast<Shared*>(hopper::dyn_smem());
+  const Slices v = carve(S, B, D, false);
+  Gyro g;
+  cluster_forward<false>(S, v, x, eps, prm, RowsOut{}, D, L, k, g);
+  hopper::launch_dependents();
+  // each row's recon: the CTAs' shares added in rank order by rank 0
+  hopper::cluster_sync();
   const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int row0 = blockIdx.x * kRows;
-  const int nrows = min(kRows, B - row0);
-
-  // 1. the block's rows of x (rows past the batch end read as 0)
-  const float* xb = x + (size_t)row0 * D;
-  for (int i = tid; i < kRows * D; i += kThreads) xs[i] = i < nrows * D ? xb[i] : 0.0f;
-  __syncthreads();
-
-  // 2. h1 = gelu(x w1^T + b1): one warp per output, lanes over the inputs
-  for (int j = warp; j < kH1; j += kWarps) {
-    const float* wr = w1 + (size_t)j * D;
-    float acc[kRows];
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) acc[r] = 0.0f;
-    for (int i = lane; i < D; i += 32) {
-      const float w = wr[i];
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) acc[r] += xs[r * D + i] * w;
-    }
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) acc[r] = warp_sum(acc[r]);
-    if (lane == 0) {
-      for (int r = 0; r < nrows; ++r) h1[r][j] = gelu(acc[r] + b1[j]);
-    }
-  }
-  __syncthreads();
-
-  // 3. h2 = gelu(h1 w2^T + b2): one thread per (row, output)
-  if (tid < kRows * kH2) {
-    const int r = tid / kH2, j = tid % kH2;
-    if (r < nrows) {
-      float s = 0.0f;
-      for (int i = 0; i < kH1; ++i) s += h1[r][i] * w2[j * kH1 + i];
-      h2[r][j] = gelu(s + b2[j]);
-    }
-  }
-  __syncthreads();
-
-  // 4. the mean and scale heads: one thread per (head, row, latent)
-  if (tid < 2 * kRows * L) {
-    const int head = tid / (kRows * L);
-    const int r = (tid / L) % kRows, l = tid % L;
-    if (r < nrows) {
-      const float* w = head == 0 ? wm : ws;
-      float s = 0.0f;
-      for (int i = 0; i < kH2; ++i) s += h2[r][i] * w[l * kH2 + i];
-      if (head == 0) mue[r][l] = s + bm[l];
-      else sce[r][l] = s + bs[l];
-    }
-  }
-  __syncthreads();
-
-  // 5. latent: expmap0, project, scale, truncated rsample, Mobius addition,
-  //    the gyroplane distances and both log densities; one thread per row
-  if (tid < nrows) {
-    const int r = tid;
-    float mu[kMaxLatent], scale[kMaxLatent], v[kMaxLatent], u[kMaxLatent];
-    float second[kMaxLatent], z[kMaxLatent];
+  if (v.rank == 0 && tid < v.nrows) {
     float s = 0.0f;
-    for (int l = 0; l < L; ++l) s += mue[r][l] * mue[r][l];
-    const float mu_n = sqrtf(maxn(s, kMinNorm2));
-    const float th = tanh_c(k.sqrt_c * mu_n);
-    for (int l = 0; l < L; ++l) mu[l] = th * mue[r][l] / (k.sqrt_c * mu_n);
-    s = 0.0f;
-    for (int l = 0; l < L; ++l) s += mu[l] * mu[l];
-    float f = minn(k.max_norm / sqrtf(maxn(s, kMinNorm2)), 1.0f);
-    for (int l = 0; l < L; ++l) mu[l] = mu[l] * f;
-    for (int l = 0; l < L; ++l)
-      scale[l] = minn(maxn(softplus(sce[r][l]) + 1e-3f, 1e-3f), 10.0f);
-
-    float mu2 = 0.0f;
-    for (int l = 0; l < L; ++l) mu2 += mu[l] * mu[l];
-    const float dist0 = k.two_over_sqrt_c * artanh_c(k.sqrt_c * sqrtf(maxn(mu2, kMinNorm2)));
-    const float r_allowed = minn(maxn(k.d_max - dist0, 1e-2f), 10.0f);
-    const float* e = eps + (size_t)(row0 + r) * L;
-    s = 0.0f;
-    for (int l = 0; l < L; ++l) {
-      v[l] = scale[l] * e[l];
-      s += v[l] * v[l];
-    }
-    f = minn(1.0f, r_allowed / sqrtf(maxn(s, 1e-24f)));
-    for (int l = 0; l < L; ++l) v[l] = v[l] * f / 2.0f;
-    const float one_m = maxn(1.0f - k.c * mu2, kMinNorm);
-    const float lam_mu = 2.0f / one_m;
-    s = 0.0f;
-    for (int l = 0; l < L; ++l) {
-      u[l] = v[l] * one_m;
-      s += u[l] * u[l];
-    }
-    const float u_n = sqrtf(maxn(s, kMinNorm2));
-    const float tu = tanh_c(k.sqrt_c * lam_mu * u_n / 2.0f);
-    for (int l = 0; l < L; ++l) second[l] = tu * u[l] / (k.sqrt_c * u_n);
-    mobius_add(mu, second, z, L, k);
-    s = 0.0f;
-    for (int l = 0; l < L; ++l) s += z[l] * z[l];
-    f = minn(k.max_norm / sqrtf(maxn(s, kMinNorm2)), 1.0f);
-    float z2 = 0.0f;
-    for (int l = 0; l < L; ++l) {
-      z[l] = z[l] * f;
-      z2 += z[l] * z[l];
-    }
-
-    // gyroplane distances -> gelu(dist + bias)
-    for (int p = 0; p < kH2; ++p) {
-      float p2 = 0.0f, zp = 0.0f;
-      for (int l = 0; l < L; ++l) {
-        const float pv = pts[p * L + l];
-        p2 += pv * pv;
-        zp += z[l] * pv;
-      }
-      const float den = maxn(1.0f - k.two_c * zp + k.c_sq * p2 * z2, kMinNorm);
-      const float alpha = (1.0f - k.two_c * zp + k.c * z2) / den;
-      const float betaa = (1.0f - k.c * p2) / den;
-      const float sc_diff = -alpha * p2 + betaa * zp;
-      const float dn2 = minn(maxn(alpha * alpha * p2 - 2.0f * alpha * betaa * zp +
-                                        betaa * betaa * z2, kMinNorm), k.max_d2);
-      const float p_norm = sqrtf(maxn(p2, kMinNorm2));
-      const float dist =
-          arsinh_g(k.two_sqrt_c * sc_diff / maxn((1.0f - k.c * dn2) * p_norm, kMinNorm)) /
-          k.sqrt_c;
-      hd[r][p] = gelu(dist + pb[p]);
-    }
-
-    // kl = log q(z | mu, scale) - log p(z | 0, prior_scale)
-    float zero[kMaxLatent], prior[kMaxLatent];
-    for (int l = 0; l < L; ++l) {
-      zero[l] = 0.0f;
-      prior[l] = k.prior_scale;
-    }
-    kl_row[r] = wn_log_prob(mu, mu2, scale, z, L, k) - wn_log_prob(zero, 0.0f, prior, z, L, k);
+    for (int o = 0; o < kCluster; ++o) s += *hopper::cluster_map(&S.recp[tid], (uint32_t)o);
+    rows_out[(size_t)(v.row0 + tid) * 2] = -s;
+    rows_out[(size_t)(v.row0 + tid) * 2 + 1] = S.logd[tid][0] - S.logd[tid][1];
   }
-  __syncthreads();
-
-  // 6. h4 = gelu(hd w4^T + b4): one thread per (row, output)
-  {
-    const int r = tid / kH1, j = tid % kH1;
-    if (r < nrows) {
-      float s = 0.0f;
-      for (int i = 0; i < kH2; ++i) s += hd[r][i] * w4[j * kH2 + i];
-      h4[r][j] = gelu(s + b4[j]);
-    }
-  }
-  __syncthreads();
-
-  // 7. logits of each pixel and its RelaxedBernoulli(T = 1) log density
-  float lp_acc[kRows];
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) lp_acc[r] = 0.0f;
-  for (int i = tid; i < D; i += kThreads) {
-    const float* wr = w5 + (size_t)i * kH1;
-    float o[kRows];
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) o[r] = 0.0f;
-    for (int j = 0; j < kH1; ++j) {
-      const float w = wr[j];
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) o[r] += h4[r][j] * w;
-    }
-    const float bias = b5[i];
-    for (int r = 0; r < nrows; ++r) {
-      const float xhat = 1.0f / (1.0f + expf(-(o[r] + bias)));
-      const float pc = minn(maxn(xhat, kProbLo), kProbHi);
-      const float logits = logf(pc) - log1pf(-pc);
-      const float xc = minn(maxn(xs[r * D + i], kTiny), kXHi);
-      const float y = logf(xc) - log1pf(-xc);
-      const float diff = logits - y;
-      const float base = diff - 2.0f * softplus(diff);
-      lp_acc[r] += base - logf(xc) - log1pf(-xc);
-    }
-  }
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    const float v = warp_sum(lp_acc[r]);
-    if (lane == 0) red[warp][r] = v;
-  }
-  __syncthreads();
-  if (tid < nrows) {
-    float s = 0.0f;
-    for (int w = 0; w < kWarps; ++w) s += red[w][tid];
-    rows_out[(size_t)(row0 + tid) * 2] = -s;
-    rows_out[(size_t)(row0 + tid) * 2 + 1] = kl_row[tid];
-  }
+  hopper::cluster_sync();  // no CTA leaves while rank 0 reads its shared memory
 }
 
 // One block: the batch means of (recon + beta kl, recon, kl), in a fixed order.
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(256)
 flagship_mean_kernel(const float* __restrict__ rows, int B, float beta,
                      float* __restrict__ out) {
-  __shared__ float st[3][kThreads];
+  __shared__ float st[3][256];
+  hopper::grid_dependency_wait();
   float tot = 0.0f, rec = 0.0f, kl = 0.0f;
-  for (int i = threadIdx.x; i < B; i += kThreads) {
+  for (int i = threadIdx.x; i < B; i += 256) {
     const float rr = rows[2 * (size_t)i], kk = rows[2 * (size_t)i + 1];
     tot += rr + beta * kk;
     rec += rr;
@@ -393,7 +76,7 @@ flagship_mean_kernel(const float* __restrict__ rows, int B, float beta,
   st[1][threadIdx.x] = rec;
   st[2][threadIdx.x] = kl;
   __syncthreads();
-  for (int half = kThreads / 2; half > 0; half >>= 1) {
+  for (int half = 128; half > 0; half >>= 1) {
     if (threadIdx.x < half) {
       for (int q = 0; q < 3; ++q) st[q][threadIdx.x] += st[q][threadIdx.x + half];
     }
@@ -409,6 +92,15 @@ flagship_mean_kernel(const float* __restrict__ rows, int B, float beta,
 
 }  // namespace
 
+// bytes of dynamic shared memory the rows kernel takes for D pixels
+extern "C" long flagship_fused_smem_bytes(int D) { return (long)rows_smem_bytes(D, false); }
+
+// clusters of the rows kernel the card holds at once for D pixels
+extern "C" int flagship_fused_max_clusters(int D) {
+  return hopper::max_active_clusters(flagship_rows_kernel, kThreads, rows_smem_bytes(D, false),
+                                     kCluster);
+}
+
 // x (B, D), eps (B, L), params: a host array of the 14 device pointers in
 // _params_tuple's order (nn.Linear (out, in) layout), rows (B, 2) scratch,
 // out (3,): contiguous f32 on the current device. Returns the cudaError_t
@@ -420,35 +112,19 @@ extern "C" int flagship_fused_launch(const void* x, const void* eps,
                                      void* stream) {
   if (B <= 0 || D <= 0 || L <= 0 || L > kMaxLatent) return (int)cudaErrorInvalidValue;
   Params prm;
-  for (int i = 0; i < 14; ++i) prm.p[i] = static_cast<const float*>(params[i]);
-  Consts k;
-  const double sqrt_c = sqrt(c);
-  k.c = (float)c;
-  k.two_c = (float)(2.0 * c);
-  k.c_sq = (float)(c * c);
-  k.sqrt_c = (float)sqrt_c;
-  k.two_sqrt_c = (float)(2.0 * sqrt_c);
-  k.two_over_sqrt_c = (float)(2.0 / sqrt_c);
-  k.max_norm = (float)((1.0 - 4e-3) / sqrt_c);
-  k.d_max = (float)(2.0 / sqrt_c * atanh(1.0 - 4e-3));
-  k.max_d2 = (float)((1.0 - 1e-4) * (1.0 - 1e-4) / c);
-  k.beta = (float)beta;
-  k.prior_scale = (float)prior_scale;
-  k.lsr_coef = (float)(L - 1);
+  for (int i = 0; i < kNParams; ++i) prm.p[i] = static_cast<const float*>(params[i]);
+  const Consts k = make_consts(c, beta, prior_scale, L, B);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const size_t smem = sizeof(float) * (size_t)kRows * D;
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        flagship_rows_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  const int blocks = (B + kRows - 1) / kRows;
-  flagship_rows_kernel<<<blocks, kThreads, smem, s>>>(
-      static_cast<const float*>(x), static_cast<const float*>(eps), prm,
-      static_cast<float*>(rows), B, D, L, k);
-  cudaError_t e = cudaGetLastError();
+  const size_t smem = rows_smem_bytes(D, false);
+  static size_t allowed[hopper::kMaxDevices] = {};
+  cudaError_t e = hopper::allow_smem(flagship_rows_kernel, smem, allowed);
   if (e != cudaSuccess) return (int)e;
-  flagship_mean_kernel<<<1, kThreads, 0, s>>>(static_cast<const float*>(rows), B,
-                                              k.beta, static_cast<float*>(out));
-  return (int)cudaGetLastError();
+  const int clusters = (B + kRows - 1) / kRows;
+  e = hopper::launch(flagship_rows_kernel, dim3(clusters * kCluster), dim3(kThreads), smem, s,
+                     kCluster, static_cast<const float*>(x), static_cast<const float*>(eps), prm,
+                     static_cast<float*>(rows), B, D, L, k);
+  if (e != cudaSuccess) return (int)e;
+  e = hopper::launch(flagship_mean_kernel, dim3(1), dim3(256), 0, s, 1,
+                     static_cast<const float*>(rows), B, k.beta, static_cast<float*>(out));
+  return (int)e;
 }

@@ -24,366 +24,97 @@
 //
 // Why the TPU design does not carry over: the TPU kernel holds the batch,
 // the weights and both moments in VMEM in one grid cell and lets Mosaic
-// lower the autodiff's matmuls. Here:
-//   1. train_rows_kernel: kRows batch rows per block, as K2: x staged in
-//      shared memory, w1 and w5 read in place; the forward, then the
-//      backward down to per-row activation gradients (dlogit, da4, da3,
-//      the per-row point gradients, dmu_e, dsigma_e, da2, da1), written
-//      with the activations the weight gradients need to a scratch in
-//      device memory. The 2-D latent chain runs one thread per row, the 16
-//      gyroplane epilogues one thread per (row, plane).
+// lower the autodiff's matmuls. Here, three launches, each starting while
+// the one before drains (programmatic dependent launch):
+//   1. train_rows_kernel: clusters of 8 CTAs over 18 batch rows each, the
+//      weights cut across a cluster's CTAs and held in shared memory (K2's
+//      forward, flagship_common.cuh), then the backward down to per-row
+//      activation gradients: each CTA's share of d logit w5 over its pixels,
+//      summed across the cluster in rank order over distributed shared
+//      memory, then (redundantly in every CTA) d a4, d a3 with the 16
+//      epilogues' backward from the forward's values kept in registers,
+//      beside them the two densities' backward, the latent
+//      chain's backward one lane per row, d a2, and d a1 for the CTA's own
+//      8 units. The per-row gradients and activations the weight gradients
+//      need go to a scratch in device memory, each written by one CTA.
 //   2. train_grad_kernel: every weight and bias gradient as a sum over the
-//      batch in b order, 32 x 32 output tiles per block with the operands
-//      staged in shared memory, and per-block partial sums of g^2 in a
-//      fixed order. No atomics: a step gives the same bits every run.
-//   3. train_finalize_kernel (one block): the loss means, sum g^2, ok,
-//      count + 1 (written back) and the bias corrections, in f32.
-//   4. train_update_kernel: one thread per element of the 13 Euclidean
-//      tensors, one per row of the gyroplane points; each thread reads its
-//      own elements before it writes them, so the update is in place.
-// Plain f32 on the CUDA cores, built with -fmad=false so each product and
-// sum rounds as the plain PyTorch version's separate elementwise ops do.
+//      batch, 32 x 32 output tiles per block of 512 threads: two groups of
+//      256 take alternate chunks of 32 rows, each from a ring of 4 chunks
+//      in shared memory filled by cp.async (at B = 256 every row is in
+//      flight at once), and add their sums in a fixed order; per-block
+//      partial sums of g^2. One block takes the gyroplane points: their
+//      gradient (column sums) and then their Riemannian step, computed
+//      before the guard is known, beside the other tiles.
+//      The block that finishes last (a ticket counter picks it) sums the
+//      partials and the loss terms in index order: the loss means, sum g^2,
+//      ok, count + 1 (written back) and the bias corrections, in f32. The
+//      ticket only picks the block; the order of every sum is fixed, so a
+//      step gives the same bits every run.
+//   3. train_update_kernel, where ok: Adam on four consecutive elements of
+//      one of the 13 Euclidean tensors per thread (each block within one
+//      tensor; each thread reads its elements before it writes them, so
+//      the update is in place), and the points' step copied in.
+// Plain f32 on the CUDA cores, built with -fmad=false: each product and sum
+// rounds on its own (flagship_common.cuh says in which order).
 
-#include <cuda_runtime.h>
-#include <math.h>
+#include "flagship_common.cuh"
 
 namespace {
 
-constexpr int kH1 = 64;       // first hidden width (and the decoder's)
-constexpr int kH2 = 16;       // second hidden width = number of gyroplanes
-constexpr int kP = kH2;
-constexpr int kMaxLatent = 8;
-constexpr int kRows = 4;      // batch rows per block
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kTile = 32;     // weight-gradient tile
-constexpr int kNParams = 14;
-constexpr int kPts = 8;       // index of the gyroplane points
+using namespace flagship;
+
+constexpr int kTile = 32;     // weight-gradient tile (and its b chunk)
+constexpr int kGroups = 2;    // thread groups of a gradient block, over alternate b chunks
+constexpr int kGroupThreads = 256;
+constexpr int kGradThreads = kGroups * kGroupThreads;
+constexpr int kStages = 4;    // b chunks in flight per group
+constexpr size_t kGradSmem = sizeof(float) * 2 * kGroups * kStages * kTile * kTile;
 constexpr int kJobs = 8;
-static_assert(kRows * kH1 == kThreads, "the decoder layer maps one thread per (row, output)");
+constexpr int kUpdThreads = 256;
+constexpr int kUpdRun = 4;    // consecutive elements per update thread
 
-constexpr float kMinNorm = 1e-15f;
-constexpr float kMinNorm2 = 1e-30f;
-constexpr float kAtanhLo = (float)(-1.0 + 1.19e-7);
-constexpr float kAtanhHi = (float)(1.0 - 1.19e-7);
-constexpr float kTanhClamp = 15.0f;
-constexpr float kProbLo = 1e-7f;
-constexpr float kProbHi = (float)(1.0 - 1e-7);
-constexpr float kTiny = 1.1754944e-38f;
-constexpr float kXHi = (float)(1.0 - 1.1920929e-7);
-constexpr float kLog2 = 0.69314718055994530942f;
-constexpr float kGeluC0 = 0.79788456080286535588f;  // sqrt(2 / pi)
-constexpr float kGeluC3 = (float)(3.0 * 0.044715);
-constexpr float kHalfLog2Pi = 0.91893853320467274178f;
-constexpr float kMaxRadius = 10.0f;  // MAX_SAMPLE_RADIUS
+// ---- the backward of the chain's pieces --------------------------------------
 
-struct Params {
-  // w1 b1 w2 b2 wm bm ws bs points pbias w4 b4 w5 b5 (_params_tuple's order)
-  const float* p[kNParams];
-};
-
-struct Consts {
-  float c, two_c, c_sq, sqrt_c, two_sqrt_c, two_over_sqrt_c;
-  float max_norm, d_max, max_d2, beta, prior_scale, lsr_coef;
-  float d_lp, g_kl;  // d loss_total / d lp (= -1/B) and / d kl (= beta/B)
-};
-
-// per-row scratch in device memory, written by the rows kernel
-struct RowsOut {
-  float *rows, *h1, *da1, *h2, *da2, *dmue, *dse, *gpts, *da3, *hd, *h4, *da4, *dout;
-};
-
-// max / min that keep a NaN in their first operand, as XLA's max / min and
-// torch.clamp do (CUDA's fmaxf / fminf would drop it: a NaN pixel would
-// give a finite recon)
-__device__ __forceinline__ float maxn(float a, float b) { return a != a ? a : fmaxf(a, b); }
-__device__ __forceinline__ float minn(float a, float b) { return a != a ? a : fminf(a, b); }
-
-// ---- forward helpers (as K2) ---------------------------------------------
-
-__device__ __forceinline__ float artanh_c(float x) {
-  x = minn(maxn(x, kAtanhLo), kAtanhHi);
-  return 0.5f * (log1pf(x) - log1pf(-x));
+// d dist -> (d zp, d z2, d p2) of the epilogue g
+__device__ void gyro_bwd(const Gyro& g, float d_dist, const Consts& k, float* d_zp_out,
+                         float* d_z2_out, float* d_p2_out) {
+  const float z2 = g.z2, p2 = g.p2, zp = g.zp;
+  const float a_abs = fabsf(g.arg);
+  const float a_small = minn(a_abs, 1e10f);
+  const float d_s =
+      a_abs > 1e10f ? 1.0f / a_abs : le(a_abs, 1e10f) / sqrtf(a_small * a_small + 1.0f);
+  const float d_arg = d_dist / k.sqrt_c * d_s * (g.arg != 0.0f ? 1.0f : 0.0f);
+  const float d_scd = d_arg * k.two_sqrt_c / g.q_den;
+  const float d_qraw = -d_arg * g.arg / g.q_den * ge(g.q_raw, kMinNorm);
+  const float d_e = d_qraw * (-k.c) * g.pn * clip_grad(g.e_raw, kMinNorm, k.max_d2);
+  const float d_al = d_e * (2.0f * g.al * p2 - 2.0f * g.be * zp) - d_scd * p2;
+  const float d_be = d_e * (2.0f * g.be * z2 - 2.0f * g.al * zp) + d_scd * zp;
+  float d_p2 = d_e * g.al * g.al - d_scd * g.al;
+  float d_zp = d_e * (-2.0f * g.al * g.be) + d_scd * g.be;
+  float d_z2 = d_e * g.be * g.be;
+  d_zp = d_zp + d_al * (-k.two_c) / g.den;
+  d_z2 = d_z2 + d_al * k.c / g.den;
+  d_p2 = d_p2 + d_be * (-k.c) / g.den;
+  const float d_den = -(d_al * g.al + d_be * g.be) / g.den * ge(g.den_raw, kMinNorm);
+  d_zp = d_zp + d_den * (-k.two_c);
+  d_p2 = d_p2 + d_den * k.c_sq * z2;
+  d_z2 = d_z2 + d_den * k.c_sq * p2;
+  d_p2 = d_p2 + d_qraw * (1.0f - k.c * g.dn2) * 0.5f / g.pn * ge(p2, kMinNorm2);
+  *d_zp_out = d_zp;
+  *d_z2_out = d_z2;
+  *d_p2_out = d_p2;
 }
 
-__device__ __forceinline__ float arsinh_g(float y) {
-  const float a = fabsf(y);
-  const float a_small = minn(a, 1e10f);
-  const float small = logf(a_small + sqrtf(a_small * a_small + 1.0f));
-  const float big = logf(maxn(a, 1e-30f)) + kLog2;
-  const float s = y > 0.0f ? 1.0f : (y < 0.0f ? -1.0f : 0.0f);
-  return s * (a > 1e10f ? big : small);
-}
-
-__device__ __forceinline__ float tanh_c(float x) {
-  return tanhf(minn(maxn(x, -kTanhClamp), kTanhClamp));
-}
-
-__device__ __forceinline__ float gelu(float x) {
-  return 0.5f * x * (1.0f + tanhf(kGeluC0 * (x + 0.044715f * x * x * x)));
-}
-
-__device__ __forceinline__ float softplus(float x) {
-  return maxn(x, 0.0f) + log1pf(expf(-fabsf(x)));
-}
-
-__device__ __forceinline__ float sigmoid(float x) { return 1.0f / (1.0f + expf(-x)); }
-
-__device__ __forceinline__ float log_sinh_ratio(float t) {
-  const float t_safe = maxn(t, 0.1f);
-  const float big = t_safe + log1pf(-expf(-2.0f * t_safe)) - kLog2 - logf(t_safe);
-  const float t2 = t * t;
-  const float small = t2 / 6.0f - t2 * t2 / 180.0f + t2 * t2 * t2 / 2835.0f;
-  return t < 0.2f ? small : big;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
-
-// ---- derivative helpers (JAX's autodiff conventions) ---------------------
-
-// d max(x, lo) / dx: 1, 1/2 at a tie, 0
-__device__ __forceinline__ float ge(float x, float lo) {
-  return x > lo ? 1.0f : (x == lo ? 0.5f : 0.0f);
-}
-// d min(x, hi) / dx: 1, 1/2 at a tie, 0
-__device__ __forceinline__ float le(float x, float hi) {
-  return x < hi ? 1.0f : (x == hi ? 0.5f : 0.0f);
-}
-// d clip(x, lo, hi) / dx, clip = min(max(x, lo), hi)
-__device__ __forceinline__ float clip_grad(float x, float lo, float hi) {
-  return ge(x, lo) * le(maxn(x, lo), hi);
-}
-
-__device__ __forceinline__ float gelu_grad(float x) {
-  const float t = tanhf(kGeluC0 * (x + 0.044715f * x * x * x));
-  return 0.5f * (1.0f + t) + 0.5f * x * (1.0f - t * t) * kGeluC0 * (1.0f + kGeluC3 * x * x);
-}
-
-__device__ __forceinline__ float artanh_grad(float x) {
-  const float xc = minn(maxn(x, kAtanhLo), kAtanhHi);
-  return 0.5f * (1.0f / (1.0f + xc) + 1.0f / (1.0f - xc)) * clip_grad(x, kAtanhLo, kAtanhHi);
-}
-
-__device__ __forceinline__ float tanh_grad(float x, float th) {
-  return (1.0f - th * th) * clip_grad(x, -kTanhClamp, kTanhClamp);
-}
-
-__device__ __forceinline__ float lsr_grad(float t) {
-  const float t_safe = maxn(t, 0.1f);
-  const float e = expf(-2.0f * t_safe);
-  const float big = (1.0f + 2.0f * e / (1.0f - e) - 1.0f / t_safe) * ge(t, 0.1f);
-  const float t2 = t * t;
-  const float small =
-      (1.0f / 6.0f - 2.0f * t2 / 180.0f + 3.0f * t2 * t2 / 2835.0f) * 2.0f * t;
-  return t < 0.2f ? small : big;
-}
-
-// ---- Mobius addition and its backward -----------------------------------
-
-struct Mob {
-  float a2, b2, ab, ca, cb, den_raw, den;
-};
-
-// out = a (+) b on the c-ball, for L-vectors
-__device__ void mob_fwd(const float* a, const float* b, float* out, int L, const Consts& k,
-                        Mob& s) {
-  float a2 = 0.0f, b2 = 0.0f, ab = 0.0f;
+// d_z (in: the gyroplanes' cotangent of z), G (the densities' backward) ->
+// d mu_e, d sigma_e (the heads)
+__device__ void latent_bwd(const Row& R, float* d_z, const DensGrad& G, int L, const Consts& k,
+                           float* d_mue, float* d_se) {
+  float d_scale[kMaxLatent];
+  float d_mu2 = G.d_mu2;
   for (int l = 0; l < L; ++l) {
-    a2 += a[l] * a[l];
-    b2 += b[l] * b[l];
-    ab += a[l] * b[l];
+    d_z[l] = d_z[l] + G.d_z[0][l] + G.d_z[1][l];
+    d_scale[l] = G.d_scale[l];
   }
-  s.a2 = a2;
-  s.b2 = b2;
-  s.ab = ab;
-  s.ca = 1.0f + k.two_c * ab + k.c * b2;
-  s.cb = 1.0f - k.c * a2;
-  s.den_raw = 1.0f + k.two_c * ab + k.c_sq * a2 * b2;
-  s.den = maxn(s.den_raw, kMinNorm);
-  for (int l = 0; l < L; ++l) out[l] = (s.ca * a[l] + s.cb * b[l]) / s.den;
-}
-
-// (d a, d b) for the cotangent g of out = a (+) b
-__device__ void mob_bwd(const float* a, const float* b, const float* out, const Mob& s,
-                        const float* g, float* da, float* db, int L, const Consts& k) {
-  float d_den = 0.0f, d_ca = 0.0f, d_cb = 0.0f;
-  for (int l = 0; l < L; ++l) d_den += g[l] * out[l];
-  d_den = -d_den / s.den * ge(s.den_raw, kMinNorm);
-  for (int l = 0; l < L; ++l) {
-    const float d_num = g[l] / s.den;
-    d_ca += d_num * a[l];
-    d_cb += d_num * b[l];
-  }
-  const float d_ab = k.two_c * (d_ca + d_den);
-  const float d_b2 = k.c * d_ca + k.c_sq * s.a2 * d_den;
-  const float d_a2 = -k.c * d_cb + k.c_sq * s.b2 * d_den;
-  for (int l = 0; l < L; ++l) {
-    const float d_num = g[l] / s.den;
-    const float ga = d_num * s.ca + 2.0f * a[l] * d_a2 + b[l] * d_ab;
-    const float gb = d_num * s.cb + 2.0f * b[l] * d_b2 + a[l] * d_ab;
-    da[l] = ga;
-    db[l] = gb;
-  }
-}
-
-// ---- the wrapped-normal log density and its backward ---------------------
-
-struct WN {
-  Mob mob;
-  float neg[kMaxLatent], sub[kMaxLatent], vv[kMaxLatent], uu[kMaxLatent];
-  float s_sub, sub_n, om_raw, om, lam, xa, at, kk, t;
-};
-
-__device__ float wn_fwd(const float* loc, float loc2, const float* sc, const float* z, int L,
-                        const Consts& k, WN& w) {
-  for (int l = 0; l < L; ++l) w.neg[l] = -loc[l];
-  mob_fwd(w.neg, z, w.sub, L, k, w.mob);
-  float s = 0.0f;
-  for (int l = 0; l < L; ++l) s += w.sub[l] * w.sub[l];
-  w.s_sub = s;
-  w.sub_n = sqrtf(maxn(s, kMinNorm2));
-  w.om_raw = 1.0f - k.c * loc2;
-  w.om = maxn(w.om_raw, kMinNorm);
-  w.lam = 2.0f / w.om;
-  w.xa = k.sqrt_c * w.sub_n;
-  w.at = artanh_c(w.xa);
-  w.kk = 2.0f / (k.sqrt_c * w.lam);
-  float npdf = 0.0f;
-  for (int l = 0; l < L; ++l) {
-    w.vv[l] = w.kk * w.at * w.sub[l] / w.sub_n;
-    w.uu[l] = w.vv[l] * w.lam;
-    npdf += -(w.uu[l] * w.uu[l]) / (2.0f * sc[l] * sc[l]) - logf(sc[l]) - kHalfLog2Pi;
-  }
-  w.t = k.sqrt_c * (k.two_over_sqrt_c * w.at);
-  return npdf - k.lsr_coef * log_sinh_ratio(w.t);
-}
-
-// cotangent g of the density -> d loc, d loc2, d sc (if d_sc), d z
-__device__ void wn_bwd(const WN& w, const float* sc, const float* z, float g, int L,
-                       const Consts& k, float* d_loc, float* d_loc2, float* d_sc, float* d_z) {
-  float d_sub[kMaxLatent], d_neg[kMaxLatent];
-  float d_lam = 0.0f, d_k = 0.0f, d_at2 = 0.0f, d_subn = 0.0f;
-  const float d_t = -g * k.lsr_coef * lsr_grad(w.t);
-  float d_at = d_t * k.sqrt_c * k.two_over_sqrt_c;
-  for (int l = 0; l < L; ++l) {
-    const float d_uu = g * -(w.uu[l] / (sc[l] * sc[l]));
-    if (d_sc) d_sc[l] = g * (w.uu[l] * w.uu[l] / (sc[l] * sc[l] * sc[l]) - 1.0f / sc[l]);
-    const float d_vv = d_uu * w.lam;
-    d_lam += d_uu * w.vv[l];
-    d_k += d_vv * w.at * w.sub[l] / w.sub_n;
-    d_at2 += d_vv * w.kk * w.sub[l] / w.sub_n;
-    d_sub[l] = d_vv * (w.kk * w.at) / w.sub_n;
-    d_subn += d_vv * w.vv[l];
-  }
-  d_at = d_at + d_at2;
-  d_subn = -d_subn / w.sub_n;
-  d_lam = d_lam - d_k * w.kk / w.lam;
-  d_subn = d_subn + d_at * artanh_grad(w.xa) * k.sqrt_c;
-  const float m_sub = ge(w.s_sub, kMinNorm2);
-  for (int l = 0; l < L; ++l) d_sub[l] = d_sub[l] + d_subn / w.sub_n * w.sub[l] * m_sub;
-  *d_loc2 = -d_lam * w.lam / w.om * ge(w.om_raw, kMinNorm) * (-k.c);
-  mob_bwd(w.neg, z, w.sub, w.mob, d_sub, d_neg, d_z, L, k);
-  for (int l = 0; l < L; ++l) d_loc[l] = -d_neg[l];
-}
-
-// ---- the per-row latent chain: expmap0, project, scale, the truncated
-// rsample, Mobius addition, project, both log densities -------------------
-
-struct Row {
-  float mue[kMaxLatent], se[kMaxLatent], e[kMaxLatent];
-  float mu0[kMaxLatent], mu[kMaxLatent], sp[kMaxLatent], scale[kMaxLatent];
-  float v0[kMaxLatent], v[kMaxLatent], u[kMaxLatent], second[kMaxLatent];
-  float z0[kMaxLatent], z[kMaxLatent];
-  float s_mue, mu_n, th, s_mu0, n_mu0, r1, f1, mu2, q, rr;
-  float s_v0, vn, r2, f2, om_raw, om, lam_mu, s_u, u_n, w_arg, tu;
-  float s_z0, nz, r3, f3, kl;
-  Mob mz;
-  WN wq, wp;
-};
-
-__device__ void latent_fwd(Row& R, int L, const Consts& k) {
-  float s = 0.0f;
-  for (int l = 0; l < L; ++l) s += R.mue[l] * R.mue[l];
-  R.s_mue = s;
-  R.mu_n = sqrtf(maxn(s, kMinNorm2));
-  R.th = tanh_c(k.sqrt_c * R.mu_n);
-  s = 0.0f;
-  for (int l = 0; l < L; ++l) {
-    R.mu0[l] = R.th * R.mue[l] / (k.sqrt_c * R.mu_n);
-    s += R.mu0[l] * R.mu0[l];
-  }
-  R.s_mu0 = s;
-  R.n_mu0 = sqrtf(maxn(s, kMinNorm2));
-  R.r1 = k.max_norm / R.n_mu0;
-  R.f1 = minn(R.r1, 1.0f);
-  float mu2 = 0.0f;
-  for (int l = 0; l < L; ++l) {
-    R.mu[l] = R.mu0[l] * R.f1;
-    mu2 += R.mu[l] * R.mu[l];
-    R.sp[l] = softplus(R.se[l]);
-    R.scale[l] = minn(maxn(R.sp[l] + 1e-3f, 1e-3f), 10.0f);
-  }
-  R.mu2 = mu2;
-  R.q = sqrtf(maxn(mu2, kMinNorm2));
-  const float dist0 = k.two_over_sqrt_c * artanh_c(k.sqrt_c * R.q);
-  R.rr = k.d_max - dist0;
-  const float r_allowed = minn(maxn(R.rr, 1e-2f), kMaxRadius);
-  s = 0.0f;
-  for (int l = 0; l < L; ++l) {
-    R.v0[l] = R.scale[l] * R.e[l];
-    s += R.v0[l] * R.v0[l];
-  }
-  R.s_v0 = s;
-  R.vn = sqrtf(maxn(s, 1e-24f));
-  R.r2 = r_allowed / R.vn;
-  R.f2 = minn(R.r2, 1.0f);
-  R.om_raw = 1.0f - k.c * mu2;
-  R.om = maxn(R.om_raw, kMinNorm);
-  R.lam_mu = 2.0f / R.om;
-  s = 0.0f;
-  for (int l = 0; l < L; ++l) {
-    R.v[l] = R.v0[l] * R.f2 / 2.0f;
-    R.u[l] = R.v[l] * R.om;
-    s += R.u[l] * R.u[l];
-  }
-  R.s_u = s;
-  R.u_n = sqrtf(maxn(s, kMinNorm2));
-  R.w_arg = k.sqrt_c * R.lam_mu * R.u_n / 2.0f;
-  R.tu = tanh_c(R.w_arg);
-  for (int l = 0; l < L; ++l) R.second[l] = R.tu * R.u[l] / (k.sqrt_c * R.u_n);
-  mob_fwd(R.mu, R.second, R.z0, L, k, R.mz);
-  s = 0.0f;
-  for (int l = 0; l < L; ++l) s += R.z0[l] * R.z0[l];
-  R.s_z0 = s;
-  R.nz = sqrtf(maxn(s, kMinNorm2));
-  R.r3 = k.max_norm / R.nz;
-  R.f3 = minn(R.r3, 1.0f);
-  for (int l = 0; l < L; ++l) R.z[l] = R.z0[l] * R.f3;
-
-  // kl = log q(z | mu, scale) - log p(z | 0, prior_scale)
-  float zero[kMaxLatent], prior[kMaxLatent];
-  for (int l = 0; l < L; ++l) {
-    zero[l] = 0.0f;
-    prior[l] = k.prior_scale;
-  }
-  R.kl = wn_fwd(R.mu, R.mu2, R.scale, R.z, L, k, R.wq) -
-         wn_fwd(zero, 0.0f, prior, R.z, L, k, R.wp);
-}
-
-// d_z (in: the gyroplanes' cotangent of z) -> d mu_e, d sigma_e (the heads)
-__device__ void latent_bwd(Row& R, float* d_z, int L, const Consts& k, float* d_mue,
-                           float* d_se) {
-  float d_locq[kMaxLatent], d_scale[kMaxLatent], d_zq[kMaxLatent], d_zpr[kMaxLatent];
-  float d_tmp[kMaxLatent], prior[kMaxLatent];
-  float d_mu2, d_tmp2;
-  wn_bwd(R.wq, R.scale, R.z, k.g_kl, L, k, d_locq, &d_mu2, d_scale, d_zq);
-  for (int l = 0; l < L; ++l) prior[l] = k.prior_scale;
-  wn_bwd(R.wp, prior, R.z, -k.g_kl, L, k, d_tmp, &d_tmp2, nullptr, d_zpr);
-  for (int l = 0; l < L; ++l) d_z[l] = d_z[l] + d_zq[l] + d_zpr[l];
 
   // z = project(mu (+) second)
   float d_f3 = 0.0f;
@@ -434,7 +165,7 @@ __device__ void latent_bwd(Row& R, float* d_z, int L, const Consts& k, float* d_
   d_mu2 = d_mu2 + d_q * 0.5f / R.q * ge(R.mu2, kMinNorm2);
   float d_f1 = 0.0f;
   for (int l = 0; l < L; ++l) {
-    d_mu[l] = d_mu[l] + d_locq[l] + 2.0f * R.mu[l] * d_mu2;
+    d_mu[l] = d_mu[l] + G.d_locq[l] + 2.0f * R.mu[l] * d_mu2;
     d_f1 += d_mu[l] * R.mu0[l];
   }
   // mu = project(expmap0(mu_e))
@@ -457,331 +188,146 @@ __device__ void latent_bwd(Row& R, float* d_z, int L, const Consts& k, float* d_
   }
 }
 
-// ---- the gyroplane epilogue of one (row, plane) and its backward ---------
+// ---- 1. one cluster per kRows rows: the forward, then the backward to
+// per-row gradients --------------------------------------------------------------
 
-struct Gyro {
-  float den_raw, den, al, be, scd, e_raw, dn2, pn, q_raw, q_den, arg;
-};
-
-__device__ float gyro_fwd(float z2, float p2, float zp, const Consts& k, Gyro& g) {
-  g.den_raw = 1.0f - k.two_c * zp + k.c_sq * p2 * z2;
-  g.den = maxn(g.den_raw, kMinNorm);
-  g.al = (1.0f - k.two_c * zp + k.c * z2) / g.den;
-  g.be = (1.0f - k.c * p2) / g.den;
-  g.scd = -g.al * p2 + g.be * zp;
-  g.e_raw = g.al * g.al * p2 - 2.0f * g.al * g.be * zp + g.be * g.be * z2;
-  g.dn2 = minn(maxn(g.e_raw, kMinNorm), k.max_d2);
-  g.pn = sqrtf(maxn(p2, kMinNorm2));
-  g.q_raw = (1.0f - k.c * g.dn2) * g.pn;
-  g.q_den = maxn(g.q_raw, kMinNorm);
-  g.arg = k.two_sqrt_c * g.scd / g.q_den;
-  return arsinh_g(g.arg) / k.sqrt_c;
-}
-
-// d dist -> (d zp, d z2, d p2)
-__device__ void gyro_bwd(const Gyro& g, float z2, float p2, float zp, float d_dist,
-                         const Consts& k, float* d_zp_out, float* d_z2_out, float* d_p2_out) {
-  const float a_abs = fabsf(g.arg);
-  const float a_small = minn(a_abs, 1e10f);
-  const float d_s =
-      a_abs > 1e10f ? 1.0f / a_abs : le(a_abs, 1e10f) / sqrtf(a_small * a_small + 1.0f);
-  const float d_arg = d_dist / k.sqrt_c * d_s * (g.arg != 0.0f ? 1.0f : 0.0f);
-  const float d_scd = d_arg * k.two_sqrt_c / g.q_den;
-  const float d_qraw = -d_arg * g.arg / g.q_den * ge(g.q_raw, kMinNorm);
-  const float d_e = d_qraw * (-k.c) * g.pn * clip_grad(g.e_raw, kMinNorm, k.max_d2);
-  const float d_al = d_e * (2.0f * g.al * p2 - 2.0f * g.be * zp) - d_scd * p2;
-  const float d_be = d_e * (2.0f * g.be * z2 - 2.0f * g.al * zp) + d_scd * zp;
-  float d_p2 = d_e * g.al * g.al - d_scd * g.al;
-  float d_zp = d_e * (-2.0f * g.al * g.be) + d_scd * g.be;
-  float d_z2 = d_e * g.be * g.be;
-  d_zp = d_zp + d_al * (-k.two_c) / g.den;
-  d_z2 = d_z2 + d_al * k.c / g.den;
-  d_p2 = d_p2 + d_be * (-k.c) / g.den;
-  const float d_den = -(d_al * g.al + d_be * g.be) / g.den * ge(g.den_raw, kMinNorm);
-  d_zp = d_zp + d_den * (-k.two_c);
-  d_p2 = d_p2 + d_den * k.c_sq * z2;
-  d_z2 = d_z2 + d_den * k.c_sq * p2;
-  d_p2 = d_p2 + d_qraw * (1.0f - k.c * g.dn2) * 0.5f / g.pn * ge(p2, kMinNorm2);
-  *d_zp_out = d_zp;
-  *d_z2_out = d_z2;
-  *d_p2_out = d_p2;
-}
-
-// ---- 1. per block: kRows rows, forward and backward to per-row gradients
-
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 1)
 train_rows_kernel(const float* __restrict__ x, const float* __restrict__ eps, Params prm,
                   RowsOut so, int B, int D, int L, Consts k) {
-  extern __shared__ float dyn[];  // x rows (kRows, D), then d logit (kRows, D)
-  float* xs = dyn;
-  float* dos = dyn + kRows * D;
-  __shared__ float a1s[kRows][kH1], h1s[kRows][kH1];
-  __shared__ float a2s[kRows][kH2], h2s[kRows][kH2];
-  __shared__ float a3s[kRows][kP], hds[kRows][kP];
-  __shared__ float a4s[kRows][kH1], h4s[kRows][kH1], da4s[kRows][kH1];
-  __shared__ float zs[kRows][kMaxLatent];
-  __shared__ float dzp[kRows][kP], dz2[kRows][kP];
-  __shared__ float dmue[kRows][kMaxLatent], dse[kRows][kMaxLatent];
-  __shared__ float da2s[kRows][kH2];
-  __shared__ float red[kWarps][kRows];
-  __shared__ Row rs[kRows];
+  Shared& S = *reinterpret_cast<Shared*>(hopper::dyn_smem());
+  const Slices v = carve(S, B, D, true);
+  Gyro g;
+  cluster_forward<true>(S, v, x, eps, prm, so, D, L, k, g);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int rank = v.rank, row0 = v.row0, nrows = v.nrows;
 
-  const float* __restrict__ w1 = prm.p[0];
-  const float* __restrict__ b1 = prm.p[1];
-  const float* __restrict__ w2 = prm.p[2];
-  const float* __restrict__ b2 = prm.p[3];
-  const float* __restrict__ wm = prm.p[4];
-  const float* __restrict__ bm = prm.p[5];
-  const float* __restrict__ ws = prm.p[6];
-  const float* __restrict__ bs = prm.p[7];
-  const float* __restrict__ pts = prm.p[8];
-  const float* __restrict__ pb = prm.p[9];
-  const float* __restrict__ w4 = prm.p[10];
-  const float* __restrict__ b4 = prm.p[11];
-  const float* __restrict__ w5 = prm.p[12];
-  const float* __restrict__ b5 = prm.p[13];
-
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int row0 = blockIdx.x * kRows;
-  const int nrows = min(kRows, B - row0);
-
-  // 1. the block's rows of x (rows past the batch end read as 0)
-  const float* xb = x + (size_t)row0 * D;
-  for (int i = tid; i < kRows * D; i += kThreads) xs[i] = i < nrows * D ? xb[i] : 0.0f;
-  __syncthreads();
-
-  // 2. a1 = x w1^T + b1: one warp per output, lanes over the inputs
-  for (int j = warp; j < kH1; j += kWarps) {
-    const float* wr = w1 + (size_t)j * D;
-    float acc[kRows];
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) acc[r] = 0.0f;
-    for (int i = lane; i < D; i += 32) {
-      const float w = wr[i];
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) acc[r] += xs[r * D + i] * w;
+  // 9. this CTA's share of d logit w5 over its pixels: three rows per thread
+  if (tid < kRows / 3 * kH1) {
+    const int j = tid & 63, r = 3 * (tid >> 6);
+    const float* d0 = v.dos + r * v.p5r;
+    float s0 = 0.0f, s1 = 0.0f, s2 = 0.0f;
+    for (int i = 0; i < v.npix; ++i) {
+      const float w = v.w5s[i * kW5Stride + j];
+      s0 += d0[i] * w;
+      s1 += d0[v.p5r + i] * w;
+      s2 += d0[2 * v.p5r + i] * w;
     }
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) acc[r] = warp_sum(acc[r]);
-    if (lane == 0) {
-      for (int r = 0; r < nrows; ++r) {
-        const float a = acc[r] + b1[j];
-        a1s[r][j] = a;
-        h1s[r][j] = gelu(a);
-        so.h1[(size_t)(row0 + r) * kH1 + j] = h1s[r][j];
-      }
-    }
+    S.da4p[r][j] = s0;
+    S.da4p[r + 1][j] = s1;
+    S.da4p[r + 2][j] = s2;
   }
-  __syncthreads();
-
-  // 3. a2 = h1 w2^T + b2: one thread per (row, output)
-  if (tid < kRows * kH2) {
-    const int r = tid / kH2, j = tid % kH2;
-    if (r < nrows) {
-      float s = 0.0f;
-      for (int i = 0; i < kH1; ++i) s += h1s[r][i] * w2[j * kH1 + i];
-      const float a = s + b2[j];
-      a2s[r][j] = a;
-      h2s[r][j] = gelu(a);
-      so.h2[(size_t)(row0 + r) * kH2 + j] = h2s[r][j];
-    }
-  }
-  __syncthreads();
-
-  // 4. the mean and scale heads: one thread per (head, row, latent)
-  if (tid < 2 * kRows * L) {
-    const int head = tid / (kRows * L);
-    const int r = (tid / L) % kRows, l = tid % L;
-    if (r < nrows) {
-      const float* w = head == 0 ? wm : ws;
-      float s = 0.0f;
-      for (int i = 0; i < kH2; ++i) s += h2s[r][i] * w[l * kH2 + i];
-      if (head == 0) rs[r].mue[l] = s + bm[l];
-      else rs[r].se[l] = s + bs[l];
-    }
-  }
-  __syncthreads();
-
-  // 5. the latent chain and the kl, one thread per row
-  if (tid < nrows) {
-    Row& R = rs[tid];
-    for (int l = 0; l < L; ++l) R.e[l] = eps[(size_t)(row0 + tid) * L + l];
-    latent_fwd(R, L, k);
-    for (int l = 0; l < L; ++l) zs[tid][l] = R.z[l];
-  }
-  __syncthreads();
-
-  // 6. the gyroplane distances -> gelu(dist + bias): one thread per (row, plane)
-  if (tid < kRows * kP) {
-    const int r = tid / kP, p = tid % kP;
-    if (r < nrows) {
-      float z2 = 0.0f, p2 = 0.0f, zp = 0.0f;
-      for (int l = 0; l < L; ++l) {
-        const float pv = pts[p * L + l];
-        z2 += zs[r][l] * zs[r][l];
-        p2 += pv * pv;
-        zp += zs[r][l] * pv;
-      }
-      Gyro g;
-      const float a = gyro_fwd(z2, p2, zp, k, g) + pb[p];
-      a3s[r][p] = a;
-      hds[r][p] = gelu(a);
-      so.hd[(size_t)(row0 + r) * kP + p] = hds[r][p];
-    }
-  }
-  __syncthreads();
-
-  // 7. a4 = hd w4^T + b4: one thread per (row, output)
-  {
-    const int r = tid / kH1, j = tid % kH1;
-    if (r < nrows) {
-      float s = 0.0f;
-      for (int i = 0; i < kH2; ++i) s += hds[r][i] * w4[j * kH2 + i];
-      const float a = s + b4[j];
-      a4s[r][j] = a;
-      h4s[r][j] = gelu(a);
-      so.h4[(size_t)(row0 + r) * kH1 + j] = h4s[r][j];
-    }
-  }
-  __syncthreads();
-
-  // 8. per pixel: the logit, the RelaxedBernoulli(T = 1) log density and
-  //    d loss / d logit
-  float lp_acc[kRows];
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) lp_acc[r] = 0.0f;
-  for (int i = tid; i < D; i += kThreads) {
-    const float* wr = w5 + (size_t)i * kH1;
-    float o[kRows];
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) o[r] = 0.0f;
-    for (int j = 0; j < kH1; ++j) {
-      const float w = wr[j];
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) o[r] += h4s[r][j] * w;
-    }
-    const float bias = b5[i];
-    for (int r = 0; r < nrows; ++r) {
-      const float xhat = 1.0f / (1.0f + expf(-(o[r] + bias)));
-      const float pc = minn(maxn(xhat, kProbLo), kProbHi);
-      const float logits = logf(pc) - log1pf(-pc);
-      const float xc = minn(maxn(xs[r * D + i], kTiny), kXHi);
-      const float y = logf(xc) - log1pf(-xc);
-      const float diff = logits - y;
-      const float base = diff - 2.0f * softplus(diff);
-      lp_acc[r] += base - logf(xc) - log1pf(-xc);
-      const float d_diff = k.d_lp - 2.0f * k.d_lp * sigmoid(diff);
-      const float d_pc = d_diff / pc + d_diff / (1.0f - pc);
-      const float d_o = d_pc * clip_grad(xhat, kProbLo, kProbHi) * xhat * (1.0f - xhat);
-      dos[r * D + i] = d_o;
-      so.dout[(size_t)(row0 + r) * D + i] = d_o;
-    }
-  }
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    const float v = warp_sum(lp_acc[r]);
-    if (lane == 0) red[warp][r] = v;
-  }
-  __syncthreads();
-  if (tid < nrows) {
+  hopper::cluster_sync();
+  // each row's recon (rank 0), and d a4 = (d logit w5) gelu'(a4) in every
+  // CTA: the CTAs' shares added in rank order
+  if (rank == 0 && tid < nrows) {
     float s = 0.0f;
-    for (int w = 0; w < kWarps; ++w) s += red[w][tid];
+    for (int o = 0; o < kCluster; ++o) s += *hopper::cluster_map(&S.recp[tid], (uint32_t)o);
     so.rows[(size_t)(row0 + tid) * 2] = -s;
-    so.rows[(size_t)(row0 + tid) * 2 + 1] = rs[tid].kl;
+    so.rows[(size_t)(row0 + tid) * 2 + 1] = S.logd[tid][0] - S.logd[tid][1];
   }
-
-  // 9. d a4 = (d logit w5) gelu'(a4): one thread per (row, unit), over the pixels
-  {
-    const int r = tid / kH1, j = tid % kH1;
-    if (r < nrows) {
-      float s = 0.0f;
-      for (int i = 0; i < D; ++i) s += dos[r * D + i] * w5[(size_t)i * kH1 + j];
-      const float d = s * gelu_grad(a4s[r][j]);
-      da4s[r][j] = d;
-      so.da4[(size_t)(row0 + r) * kH1 + j] = d;
-    }
+  for (int e = tid; e < kRows * kH1; e += kThreads) {
+    const int r = e >> 6, j = e & 63;
+    float part[kCluster];
+#pragma unroll
+    for (int o = 0; o < kCluster; ++o) part[o] = *hopper::cluster_map(&S.da4p[r][j], (uint32_t)o);
+    float s = 0.0f;
+#pragma unroll
+    for (int o = 0; o < kCluster; ++o) s += part[o];
+    const float d = s * gelu_grad(S.a4[r][j]);
+    S.da4[r][j] = d;
+    if (rank == 0 && r < nrows) so.da4[(size_t)(row0 + r) * kH1 + j] = d;
   }
+  hopper::cluster_arrive();  // done reading the other CTAs' shared memory
   __syncthreads();
 
-  // 10. d a3 = (d a4 w4) gelu'(a3), then the epilogue's backward: one
-  //     thread per (row, plane); the per-row gradient of the points
+  // 10. d a3 = (d a4 w4) gelu'(a3) and the epilogue's backward, one thread
+  //     per (row, plane), from the forward's values in g; the per-row
+  //     gradient of the points. Beside them, one thread per (row,
+  //     density): the two log densities' backward (cotangent +-beta / B).
   if (tid < kRows * kP) {
-    const int r = tid / kP, p = tid % kP;
-    if (r < nrows) {
-      float s = 0.0f;
-      for (int j = 0; j < kH1; ++j) s += da4s[r][j] * w4[j * kH2 + p];
-      const float d_a3 = s * gelu_grad(a3s[r][p]);
+    const int r = tid >> 4, p = tid & 15;
+    float s = 0.0f;
+    for (int j = 0; j < kH1; ++j) s += S.da4[r][j] * S.w4[j][p];
+    const float d_a3 = s * gelu_grad(S.a3[r][p]);
+    float d_zp, d_z2, d_p2;
+    gyro_bwd(g, d_a3, k, &d_zp, &d_z2, &d_p2);
+    S.dzp[r][p] = d_zp;
+    S.dz2[r][p] = d_z2;
+    if (rank == 0 && r < nrows) {
       so.da3[(size_t)(row0 + r) * kP + p] = d_a3;
-      float z2 = 0.0f, p2 = 0.0f, zp = 0.0f;
-      for (int l = 0; l < L; ++l) {
-        const float pv = pts[p * L + l];
-        z2 += zs[r][l] * zs[r][l];
-        p2 += pv * pv;
-        zp += zs[r][l] * pv;
-      }
-      Gyro g;
-      gyro_fwd(z2, p2, zp, k, g);
-      float d_zp, d_z2, d_p2;
-      gyro_bwd(g, z2, p2, zp, d_a3, k, &d_zp, &d_z2, &d_p2);
-      dzp[r][p] = d_zp;
-      dz2[r][p] = d_z2;
       float* gp = so.gpts + ((size_t)(row0 + r) * kP + p) * L;
-      for (int l = 0; l < L; ++l) gp[l] = 2.0f * d_p2 * pts[p * L + l] + d_zp * zs[r][l];
+      for (int l = 0; l < L; ++l) gp[l] = 2.0f * d_p2 * S.pts[p * L + l] + d_zp * S.z[r][l];
+    }
+  } else if (tid < kRows * kP + 2 * kRows) {
+    const int r = (tid - kRows * kP) >> 1, prior = tid & 1;
+    const Row& R = S.rs[r];
+    float sc[kMaxLatent], d_loc[kMaxLatent], d_loc2, d_sc[kMaxLatent], d_z[kMaxLatent];
+    for (int l = 0; l < L; ++l) sc[l] = prior ? k.prior_scale : R.scale[l];
+    wn_bwd(S.wn[r][prior], sc, R.z, prior ? -k.g_kl : k.g_kl, L, k, d_loc, &d_loc2, d_sc, d_z);
+    DensGrad& G = S.dg[r];
+    for (int l = 0; l < L; ++l) G.d_z[prior][l] = d_z[l];
+    if (!prior) {
+      for (int l = 0; l < L; ++l) {
+        G.d_locq[l] = d_loc[l];
+        G.d_scale[l] = d_sc[l];
+      }
+      G.d_mu2 = d_loc2;
     }
   }
   __syncthreads();
 
-  // 11. the latent chain's backward, one thread per row
-  if (tid < nrows) {
-    Row& R = rs[tid];
+  // 11. the latent chain's backward, one lane per row
+  if (tid < kRows) {
+    const Row& R = S.rs[tid];
     float d_z[kMaxLatent], d_mu_e[kMaxLatent], d_s_e[kMaxLatent];
     float sz2 = 0.0f;
-    for (int p = 0; p < kP; ++p) sz2 += dz2[tid][p];
+    for (int p = 0; p < kP; ++p) sz2 += S.dz2[tid][p];
     for (int l = 0; l < L; ++l) {
       float s = 0.0f;
-      for (int p = 0; p < kP; ++p) s += dzp[tid][p] * pts[p * L + l];
+      for (int p = 0; p < kP; ++p) s += S.dzp[tid][p] * S.pts[p * L + l];
       d_z[l] = s + 2.0f * R.z[l] * sz2;
     }
-    latent_bwd(R, d_z, L, k, d_mu_e, d_s_e);
+    latent_bwd(R, d_z, S.dg[tid], L, k, d_mu_e, d_s_e);
     for (int l = 0; l < L; ++l) {
-      dmue[tid][l] = d_mu_e[l];
-      dse[tid][l] = d_s_e[l];
-      so.dmue[(size_t)(row0 + tid) * L + l] = d_mu_e[l];
-      so.dse[(size_t)(row0 + tid) * L + l] = d_s_e[l];
+      S.dmue[tid][l] = d_mu_e[l];
+      S.dse[tid][l] = d_s_e[l];
+    }
+    if (rank == 0 && tid < nrows) {
+      for (int l = 0; l < L; ++l) {
+        so.dmue[(size_t)(row0 + tid) * L + l] = d_mu_e[l];
+        so.dse[(size_t)(row0 + tid) * L + l] = d_s_e[l];
+      }
     }
   }
   __syncthreads();
 
   // 12. d a2 = (d mu_e wm + d sigma_e ws) gelu'(a2): one thread per (row, unit)
   if (tid < kRows * kH2) {
-    const int r = tid / kH2, j = tid % kH2;
-    if (r < nrows) {
-      float sm = 0.0f, ss = 0.0f;
-      for (int l = 0; l < L; ++l) {
-        sm += dmue[r][l] * wm[l * kH2 + j];
-        ss += dse[r][l] * ws[l * kH2 + j];
-      }
-      const float d = (sm + ss) * gelu_grad(a2s[r][j]);
-      da2s[r][j] = d;
-      so.da2[(size_t)(row0 + r) * kH2 + j] = d;
+    const int r = tid >> 4, j = tid & 15;
+    float sm = 0.0f, ss = 0.0f;
+    for (int l = 0; l < L; ++l) {
+      sm += S.dmue[r][l] * S.wm[l * kH2 + j];
+      ss += S.dse[r][l] * S.ws[l * kH2 + j];
     }
+    const float d = (sm + ss) * gelu_grad(S.a2[r][j]);
+    S.da2[r][j] = d;
+    if (rank == 0 && r < nrows) so.da2[(size_t)(row0 + r) * kH2 + j] = d;
   }
   __syncthreads();
 
-  // 13. d a1 = (d a2 w2) gelu'(a1): one thread per (row, unit)
-  {
-    const int r = tid / kH1, j = tid % kH1;
-    if (r < nrows) {
-      float s = 0.0f;
-      for (int i = 0; i < kH2; ++i) s += da2s[r][i] * w2[i * kH1 + j];
-      so.da1[(size_t)(row0 + r) * kH1 + j] = s * gelu_grad(a1s[r][j]);
-    }
+  // 13. d a1 = (d a2 w2) gelu'(a1) for this CTA's 8 units
+  if (tid < kRows * kUnits) {
+    const int r = tid >> 3, u = tid & 7, j = rank * kUnits + u;
+    float s = 0.0f;
+    for (int i = 0; i < kH2; ++i) s += S.da2[r][i] * S.w2[i][j];
+    if (r < nrows) so.da1[(size_t)(row0 + r) * kH1 + j] = s * gelu_grad(S.a1[r][u]);
   }
+  hopper::launch_dependents();
+  hopper::cluster_wait();  // no CTA leaves while another reads its shared memory
 }
 
-// ---- 2. weight and bias gradients: out[m, n] = sum_b a[b, m] b[b, n] ------
+// ---- 2. weight and bias gradients, out[m, n] = sum_b a[b, m] b[b, n], the
+// gyroplane points' step, and in the last block the finalize ----------------------
 
 struct Job {
   const float* a;  // (B, M), or null for a row of ones (M = 1)
@@ -789,6 +335,7 @@ struct Job {
   float* w;        // (M, N)
   float* bias;     // (M): sum_b a[b, m], or null
   int M, N, tiles_n, tile0;
+  bool points;     // the points' job: one block, column sums, then their step
 };
 
 struct Jobs {
@@ -796,140 +343,25 @@ struct Jobs {
   int n_tiles;
 };
 
-__global__ void __launch_bounds__(kThreads)
-train_grad_kernel(Jobs jobs, int B, float* __restrict__ partials) {
-  __shared__ float as[kTile][kTile + 1];
-  __shared__ float bsm[kTile][kTile + 1];
-  __shared__ float red[kThreads];
-  int ji = 0;
-  while (ji + 1 < kJobs && (int)blockIdx.x >= jobs.j[ji + 1].tile0) ++ji;
-  const Job jb = jobs.j[ji];
-  const int t = blockIdx.x - jb.tile0;
-  const int m0 = (t / jb.tiles_n) * kTile, n0 = (t % jb.tiles_n) * kTile;
-  const int ncols = jb.N + (jb.bias ? 1 : 0);  // column N is the bias (b = 1)
-  const int tm = threadIdx.x >> 3, tn = (threadIdx.x & 7) * 4;
-  float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-  for (int b0 = 0; b0 < B; b0 += kTile) {
-    for (int e = threadIdx.x; e < kTile * kTile; e += kThreads) {
-      const int bb = e / kTile, cc = e % kTile, b = b0 + bb;
-      const int mm = m0 + cc, nn = n0 + cc;
-      float av = 0.0f, bv = 0.0f;
-      if (b < B) {
-        if (mm < jb.M) av = jb.a ? jb.a[(size_t)b * jb.M + mm] : 1.0f;
-        if (nn < jb.N) bv = jb.b[(size_t)b * jb.N + nn];
-        else if (nn < ncols) bv = 1.0f;
-      }
-      as[bb][cc] = av;
-      bsm[bb][cc] = bv;
-    }
-    __syncthreads();
-    const int nb = min(kTile, B - b0);
-    for (int bb = 0; bb < nb; ++bb) {
-      const float a = as[bb][tm];
-#pragma unroll
-      for (int q = 0; q < 4; ++q) acc[q] += a * bsm[bb][tn + q];
-    }
-    __syncthreads();
-  }
-  float g2 = 0.0f;
-  const int m = m0 + tm;
-#pragma unroll
-  for (int q = 0; q < 4; ++q) {
-    const int n = n0 + tn + q;
-    if (m < jb.M && n < ncols) {
-      if (n < jb.N) jb.w[(size_t)m * jb.N + n] = acc[q];
-      else jb.bias[m] = acc[q];
-      g2 += acc[q] * acc[q];
-    }
-  }
-  red[threadIdx.x] = g2;
-  __syncthreads();
-  for (int half = kThreads / 2; half > 0; half >>= 1) {
-    if ((int)threadIdx.x < half) red[threadIdx.x] += red[threadIdx.x + half];
-    __syncthreads();
-  }
-  if (threadIdx.x == 0) partials[blockIdx.x] = red[0];
-}
-
-// ---- 3. one block: loss means, the guard, count and the bias corrections
-
-__global__ void __launch_bounds__(kThreads)
-train_finalize_kernel(const float* __restrict__ rows, int B, float beta,
-                      const float* __restrict__ partials, int n_part, int* count, float b1,
-                      float b2, float* __restrict__ scal, float* __restrict__ metrics) {
-  __shared__ float st[4][kThreads];
-  float tot = 0.0f, rec = 0.0f, kl = 0.0f, g2 = 0.0f;
-  for (int i = threadIdx.x; i < B; i += kThreads) {
-    const float rr = rows[2 * (size_t)i], kk = rows[2 * (size_t)i + 1];
-    tot += rr + beta * kk;
-    rec += rr;
-    kl += kk;
-  }
-  for (int i = threadIdx.x; i < n_part; i += kThreads) g2 += partials[i];
-  st[0][threadIdx.x] = tot;
-  st[1][threadIdx.x] = rec;
-  st[2][threadIdx.x] = kl;
-  st[3][threadIdx.x] = g2;
-  __syncthreads();
-  for (int half = kThreads / 2; half > 0; half >>= 1) {
-    if ((int)threadIdx.x < half) {
-      for (int q = 0; q < 4; ++q) st[q][threadIdx.x] += st[q][threadIdx.x + half];
-    }
-    __syncthreads();
-  }
-  if (threadIdx.x == 0) {
-    const float n = (float)B;
-    const float lt = st[0][0] / n, rm = st[1][0] / n, km = st[2][0] / n;
-    const bool ok = isfinite(lt) && isfinite(st[3][0]);
-    const int cnt = *count + 1;  // advances on a skipped step too, as JAX's K3
-    *count = cnt;
-    const float cf = (float)cnt;
-    scal[0] = 1.0f - powf(b1, cf);
-    scal[1] = 1.0f - powf(b2, cf);
-    scal[2] = ok ? 1.0f : 0.0f;
-    metrics[0] = lt;
-    metrics[1] = rm;
-    metrics[2] = km;
-    metrics[3] = ok ? 0.0f : 1.0f;
-  }
-}
-
-// ---- 4. the Riemannian Adam update, in place where ok ---------------------
-
-struct Upd {
-  float* p[kNParams];
-  float* m[kNParams];
-  float* v[kNParams];
-  const float* g;         // the gradients, packed in params order
-  int off[kNParams + 1];  // element offsets of the 14 tensors
+struct Final {
+  const float* rows;  // (B, 2)
+  int* count;
+  unsigned* ticket;   // 0 between launches
+  float* scal;        // bias corrections and ok, for the update
+  float* metrics;     // (loss_total, recon, kl, skipped)
+  float beta, b1, b2;
+  // the points' step: their params and moments, and where its result goes
+  const float *pts, *pts_m, *pts_v;
+  float* cand;        // (3, kP, L): new points, exp_avg, exp_avg_sq
+  float lr, omb1, omb2, adam_eps;
 };
 
-__global__ void __launch_bounds__(kThreads)
-train_update_kernel(Upd u, int L, const float* __restrict__ scal, float lr, float b1,
-                    float omb1, float b2, float omb2, float adam_eps, Consts k) {
-  if (scal[2] == 0.0f) return;  // not ok: params and moments stay as they are
-  const float bc1 = scal[0], bc2 = scal[1];
-  const int n_total = u.off[kNParams];
-  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx < n_total) {
-    int s = 0;
-    while (idx >= u.off[s + 1]) ++s;
-    if (s == kPts) return;
-    const int e = idx - u.off[s];
-    const float p = u.p[s][e], g = u.g[idx], m = u.m[s][e], v = u.v[s][e];
-    const float nm = b1 * m + omb1 * g;
-    const float nv = b2 * v + omb2 * g * g;
-    u.p[s][e] = p - lr * (nm / bc1) / (sqrtf(nv / bc2) + adam_eps);
-    u.m[s][e] = nm;
-    u.v[s][e] = nv;
-    return;
-  }
-  const int r = idx - n_total;  // one row of the gyroplane points
-  if (r >= kP) return;
-  float* pp = u.p[kPts] + r * L;
-  float* mp = u.m[kPts] + r * L;
-  float* vp = u.v[kPts] + r * L;
-  const float* gp = u.g + u.off[kPts] + r * L;
+// The Riemannian Adam step of one gyroplane point (p, m, v, its gradient g;
+// L each) with bias corrections bc1, bc2 -> new p, m, v: g / lambda^2, the
+// expmap retraction, projection, exp_avg transported by gyr[new_p, -p]
+__device__ void point_step(const float* pp, const float* mp, const float* vp, const float* gp,
+                           int L, const Final& f, float bc1, float bc2, const Consts& k,
+                           float* np_out, float* nm_out, float* nv_out) {
   float p[kMaxLatent], nm[kMaxLatent], uu[kMaxLatent], second[kMaxLatent];
   float np[kMaxLatent], neg_p[kMaxLatent], t1[kMaxLatent], t2[kMaxLatent], t3[kMaxLatent];
   float gyr[kMaxLatent];
@@ -943,23 +375,23 @@ train_update_kernel(Upd u, int L, const float* __restrict__ scal, float lr, floa
   float su = 0.0f;
   for (int l = 0; l < L; ++l) {
     const float g_r = gp[l] / (lam * lam);
-    nm[l] = b1 * mp[l] + omb1 * g_r;
-    const float nv = b2 * vp[l] + omb2 * (lam * lam) * g_r * g_r;
-    vp[l] = nv;
-    const float dir = (nm[l] / bc1) / (sqrtf(nv / bc2) + adam_eps);
-    uu[l] = -lr * dir;
+    nm[l] = f.b1 * mp[l] + f.omb1 * g_r;
+    const float nv = f.b2 * vp[l] + f.omb2 * (lam * lam) * g_r * g_r;
+    nv_out[l] = nv;
+    const float dir = (nm[l] / bc1) / (sqrtf(nv / bc2) + f.adam_eps);
+    uu[l] = -f.lr * dir;
     su += uu[l] * uu[l];
   }
   const float u_n = sqrtf(maxn(su, kMinNorm2));
   const float tu = tanh_c(k.sqrt_c * lam * u_n / 2.0f);
   for (int l = 0; l < L; ++l) second[l] = tu * uu[l] / (k.sqrt_c * u_n);
   mob_fwd(p, second, np, L, k, ms);
-  float s = 0.0f;
-  for (int l = 0; l < L; ++l) s += np[l] * np[l];
-  const float f = minn(k.max_norm / sqrtf(maxn(s, kMinNorm2)), 1.0f);
+  float s2 = 0.0f;
+  for (int l = 0; l < L; ++l) s2 += np[l] * np[l];
+  const float fac = minn(k.max_norm / sqrtf(maxn(s2, kMinNorm2)), 1.0f);
   float np2 = 0.0f;
   for (int l = 0; l < L; ++l) {
-    np[l] = np[l] * f;
+    np[l] = np[l] * fac;
     np2 += np[l] * np[l];
     neg_p[l] = -p[l];
   }
@@ -971,29 +403,273 @@ train_update_kernel(Upd u, int L, const float* __restrict__ scal, float lr, floa
   mob_fwd(t1, t3, gyr, L, k, ms);
   const float lam_new = 2.0f / maxn(1.0f - k.c * np2, kMinNorm);
   for (int l = 0; l < L; ++l) {
-    pp[l] = np[l];
-    mp[l] = gyr[l] * lam / lam_new;
+    np_out[l] = np[l];
+    nm_out[l] = gyr[l] * lam / lam_new;
   }
 }
 
-// ---- the scratch layout ---------------------------------------------------
+__global__ void __launch_bounds__(kGradThreads)
+train_grad_kernel(Jobs jobs, int B, int L, float* __restrict__ partials, Final fin, Consts k) {
+  // per group of 256 threads, kStages chunks of 32 rows of both operands:
+  // a ring in dynamic shared memory
+  typedef float Ring[kStages][kTile][kTile];
+  Ring* as = reinterpret_cast<Ring*>(hopper::dyn_smem());
+  Ring* bsm = as + kGroups;
+  __shared__ float red[kGradThreads / 32];
+  __shared__ float gpts[kP * kMaxLatent];
+  __shared__ bool last;
+  int ji = 0;
+  while (ji + 1 < kJobs && (int)blockIdx.x >= jobs.j[ji + 1].tile0) ++ji;
+  const Job jb = jobs.j[ji];
+  const int t = blockIdx.x - jb.tile0;
+  const int m0 = (t / jb.tiles_n) * kTile, n0 = (t % jb.tiles_n) * kTile;
+  // the bias: column N of the b operand (all ones) where N % 32 != 0, so
+  // that it lies inside the last column tile; else one more sum per row
+  // of the last column tile, kept by the threads at its first column
+  const bool bias_col = jb.bias && jb.N % kTile != 0;
+  const bool bias_sum = jb.bias && !bias_col && n0 + kTile == jb.N;
+  const int ncols = jb.N + (bias_col ? 1 : 0);
+  const int tid = threadIdx.x;
+  hopper::grid_dependency_wait();  // the rows kernel's scratch
+
+  float g2 = 0.0f;
+  if (jb.points) {
+    // the points' gradient, column sums: thread (part, j) sums rows b = part
+    // mod parts of column j, then the parts add in order
+    const int n = jb.N, parts = kGradThreads / n;
+    float* psum = &as[0][0][0][0];
+    if (tid < parts * n) {
+      float s = 0.0f;
+      for (int b = tid / n; b < B; b += parts) s += jb.b[(size_t)b * n + tid % n];
+      psum[tid] = s;
+    }
+    __syncthreads();
+    for (int j = tid; j < n; j += kGradThreads) {
+      float s = 0.0f;
+      for (int q = 0; q < parts; ++q) s += psum[q * n + j];
+      jb.w[j] = s;
+      gpts[j] = s;
+      g2 += s * s;
+    }
+    __syncthreads();
+    // their step, before the guard is known (the update kernel keeps it
+    // only where ok); count + 1 as the finalize will write it
+    if (tid < kP) {
+      const float cf = (float)(*fin.count + 1);
+      const float bc1 = 1.0f - powf(fin.b1, cf), bc2 = 1.0f - powf(fin.b2, cf);
+      const int n = kP * L;
+      point_step(fin.pts + tid * L, fin.pts_m + tid * L, fin.pts_v + tid * L, gpts + tid * L, L,
+                 fin, bc1, bc2, k, fin.cand + tid * L, fin.cand + n + tid * L,
+                 fin.cand + 2 * n + tid * L);
+    }
+  } else {
+    // two groups of 256 threads take alternate chunks of 32 rows; each
+    // thread sums a 1 x 4 strip of the 32 x 32 tile
+    const int grp = tid / kGroupThreads, gt = tid % kGroupThreads;
+    const int tm = gt >> 3, tn = (gt & 7) * 4;
+    // rows [b0, b0 + 32) of both operands into the group's stage buf:
+    // cp.async where the element exists, else the ones of a bias or null
+    // operand, else 0
+    auto stage = [&](int buf, int b0) {
+      for (int e = gt; e < kTile * kTile; e += kGroupThreads) {
+        const int bb = e >> 5, cc = e & 31, b = b0 + bb;
+        const int mm = m0 + cc, nn = n0 + cc;
+        float* ad = &as[grp][buf][bb][cc];
+        float* bd = &bsm[grp][buf][bb][cc];
+        if (b < B && mm < jb.M && jb.a) hopper::cp_async4(ad, jb.a + (size_t)b * jb.M + mm);
+        else *ad = (b < B && mm < jb.M) ? 1.0f : 0.0f;
+        if (b < B && nn < jb.N) hopper::cp_async4(bd, jb.b + (size_t)b * jb.N + nn);
+        else *bd = (b < B && nn < ncols) ? 1.0f : 0.0f;
+      }
+    };
+    float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    float accb = 0.0f;  // the bias sum, where bias_sum and tn == 0
+    const bool keeps_bias = bias_sum && tn == 0;
+    const int n_chunks = (B + kTile - 1) / kTile;
+    const int n_iter = (n_chunks + kGroups - 1) / kGroups;
+    for (int q = 0; q < kStages - 1; ++q) {
+      const int c = q * kGroups + grp;
+      if (c < n_chunks) stage(q, c * kTile);
+      hopper::cp_async_commit();
+    }
+    for (int q = 0; q < n_iter; ++q) {
+      hopper::cp_async_wait<kStages - 2>();  // the group's chunk q has landed
+      __syncthreads();                       // for every thread; chunk q - 1 is summed
+      const int next = q + kStages - 1, cn = next * kGroups + grp;
+      if (cn < n_chunks) stage(next % kStages, cn * kTile);
+      hopper::cp_async_commit();
+      if (q * kGroups + grp < n_chunks) {
+        const int buf = q % kStages;
+#pragma unroll 8
+        for (int bb = 0; bb < kTile; ++bb) {
+          const float a = as[grp][buf][bb][tm];
+          const float4 bv = *reinterpret_cast<const float4*>(&bsm[grp][buf][bb][tn]);
+          acc[0] += a * bv.x;
+          acc[1] += a * bv.y;
+          acc[2] += a * bv.z;
+          acc[3] += a * bv.w;
+          if (keeps_bias) accb += a;
+        }
+      }
+    }
+    hopper::cp_async_wait<0>();
+    __syncthreads();
+    // group 0's sums plus group 1's, in that order
+    float* part = &as[0][0][0][0];
+    if (grp == 1) {
+#pragma unroll
+      for (int q = 0; q < 4; ++q) part[gt * 4 + q] = acc[q];
+      if (keeps_bias) part[kTile * kTile + tm] = accb;
+    }
+    __syncthreads();
+    if (grp == 0) {
+      const int m = m0 + tm;
+      if (keeps_bias && m < jb.M) {
+        const float v = accb + part[kTile * kTile + tm];
+        jb.bias[m] = v;
+        g2 += v * v;
+      }
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const float v = acc[q] + part[gt * 4 + q];
+        const int n = n0 + tn + q;
+        if (m < jb.M && n < ncols) {
+          if (n < jb.N) jb.w[(size_t)m * jb.N + n] = v;
+          else jb.bias[m] = v;
+          g2 += v * v;
+        }
+      }
+    }
+  }
+  g2 = warp_sum(g2);
+  if ((tid & 31) == 0) red[tid >> 5] = g2;
+  __syncthreads();
+  if (tid == 0) {
+    float s = 0.0f;
+    for (int w = 0; w < kGradThreads / 32; ++w) s += red[w];
+    partials[blockIdx.x] = s;
+    __threadfence();
+    last = atomicAdd(fin.ticket, 1u) == gridDim.x - 1;
+  }
+  __syncthreads();
+  hopper::launch_dependents();
+  if (!last) return;
+
+  // the last block: loss means, sum g^2, the guard, count and the bias
+  // corrections, every sum in index order
+  __threadfence();
+  __shared__ float st[4][kGradThreads];
+  float tot = 0.0f, rec = 0.0f, kl = 0.0f, gs = 0.0f;
+  for (int i = tid; i < B; i += kGradThreads) {
+    const float rr = fin.rows[2 * (size_t)i], kk = fin.rows[2 * (size_t)i + 1];
+    tot += rr + fin.beta * kk;
+    rec += rr;
+    kl += kk;
+  }
+  for (int i = tid; i < (int)gridDim.x; i += kGradThreads) gs += __ldcg(partials + i);
+  st[0][tid] = tot;
+  st[1][tid] = rec;
+  st[2][tid] = kl;
+  st[3][tid] = gs;
+  __syncthreads();
+  for (int half = kGradThreads / 2; half > 0; half >>= 1) {
+    if (tid < half) {
+      for (int q = 0; q < 4; ++q) st[q][tid] += st[q][tid + half];
+    }
+    __syncthreads();
+  }
+  if (tid == 0) {
+    const float n = (float)B;
+    const float lt = st[0][0] / n, rm = st[1][0] / n, km = st[2][0] / n;
+    const bool ok = isfinite(lt) && isfinite(st[3][0]);
+    const int cnt = *fin.count + 1;  // advances on a skipped step too, as JAX's K3
+    *fin.count = cnt;
+    const float cf = (float)cnt;
+    fin.scal[0] = 1.0f - powf(fin.b1, cf);
+    fin.scal[1] = 1.0f - powf(fin.b2, cf);
+    fin.scal[2] = ok ? 1.0f : 0.0f;
+    fin.metrics[0] = lt;
+    fin.metrics[1] = rm;
+    fin.metrics[2] = km;
+    fin.metrics[3] = ok ? 0.0f : 1.0f;
+    *fin.ticket = 0u;
+  }
+}
+
+// ---- 3. the Riemannian Adam update, in place where ok ----------------------------
+
+struct Upd {
+  float* p[kNParams];
+  float* m[kNParams];
+  float* v[kNParams];
+  const float* g;              // the gradients, packed in params order
+  const float* cand;           // the points' step (train_grad_kernel)
+  int off[kNParams + 1];       // element offsets of the 14 tensors
+  int blk[kNParams + 1];       // first block of each tensor (the points: one block)
+};
+
+__global__ void __launch_bounds__(kUpdThreads)
+train_update_kernel(Upd u, const float* __restrict__ scal, float lr, float b1, float omb1,
+                    float b2, float omb2, float adam_eps) {
+  int s = 0;  // the block's tensor
+  while (s + 1 < kNParams && (int)blockIdx.x >= u.blk[s + 1]) ++s;
+  hopper::grid_dependency_wait();  // the gradients, the points' step and the guard
+  if (scal[2] == 0.0f) return;  // not ok: params and moments stay as they are
+  const int n = u.off[s + 1] - u.off[s];
+  if (s == kPts) {  // the points' step, computed by train_grad_kernel
+    for (int e = threadIdx.x; e < n; e += kUpdThreads) {
+      u.p[s][e] = u.cand[e];
+      u.m[s][e] = u.cand[n + e];
+      u.v[s][e] = u.cand[2 * n + e];
+    }
+    return;
+  }
+  const float bc1 = scal[0], bc2 = scal[1];
+  const int e0 = ((blockIdx.x - u.blk[s]) * kUpdThreads + threadIdx.x) * kUpdRun;
+  float p[kUpdRun], g[kUpdRun], m[kUpdRun], v[kUpdRun];
+#pragma unroll
+  for (int q = 0; q < kUpdRun; ++q) {  // every load before any store
+    if (e0 + q < n) {
+      p[q] = u.p[s][e0 + q];
+      g[q] = u.g[u.off[s] + e0 + q];
+      m[q] = u.m[s][e0 + q];
+      v[q] = u.v[s][e0 + q];
+    }
+  }
+#pragma unroll
+  for (int q = 0; q < kUpdRun; ++q) {
+    if (e0 + q < n) {
+      const float nm = b1 * m[q] + omb1 * g[q];
+      const float nv = b2 * v[q] + omb2 * g[q] * g[q];
+      u.p[s][e0 + q] = p[q] - lr * (nm / bc1) / (sqrtf(nv / bc2) + adam_eps);
+      u.m[s][e0 + q] = nm;
+      u.v[s][e0 + q] = nv;
+    }
+  }
+}
+
+// ---- the scratch layout -------------------------------------------------------
 
 struct Layout {
   size_t rows, h1, da1, h2, da2, dmue, dse, gpts, da3, hd, h4, da4, dout;
-  size_t grads, partials, scal, total;
-  int sizes[kNParams];
+  size_t grads, partials, scal, ticket, cand, total;
   int off[kNParams + 1];
 };
 
-Layout make_layout(int B, int D, int L, int n_tiles) {
+int tiles(int M, int ncols) { return ((M + kTile - 1) / kTile) * ((ncols + kTile - 1) / kTile); }
+
+// blocks of train_grad_kernel: the tiles of build_jobs' eight jobs
+int count_tiles(int D, int L) {
+  return tiles(kH1, D) + tiles(kH2, kH1) + 2 * tiles(L, kH2) + 1 + tiles(1, kP) + tiles(kH1, kP) +
+         tiles(D, kH1);
+}
+
+Layout make_layout(int B, int D, int L) {
   Layout y;
   const int sizes[kNParams] = {kH1 * D, kH1, kH2 * kH1, kH2, L * kH2, L, L * kH2, L,
                                kP * L, kP, kH1 * kH2, kH1, D * kH1, D};
   y.off[0] = 0;
-  for (int i = 0; i < kNParams; ++i) {
-    y.sizes[i] = sizes[i];
-    y.off[i + 1] = y.off[i] + sizes[i];
-  }
+  for (int i = 0; i < kNParams; ++i) y.off[i + 1] = y.off[i] + sizes[i];
   size_t o = 0;
   auto take = [&o](size_t n) {
     const size_t at = o;
@@ -1015,24 +691,26 @@ Layout make_layout(int B, int D, int L, int n_tiles) {
   y.da4 = take(b * kH1);
   y.dout = take(b * D);
   y.grads = take((size_t)y.off[kNParams]);
-  y.partials = take((size_t)n_tiles);
+  y.partials = take((size_t)count_tiles(D, L));
   y.scal = take(4);
+  y.ticket = take(1);
+  y.cand = take(3 * (size_t)kP * L);
   y.total = o;
   return y;
 }
 
 void set_job(Job& j, const float* a, const float* b, float* w, float* bias, int M, int N,
-             int& tile0) {
+             int& tile0, bool points = false) {
   j.a = a;
   j.b = b;
   j.w = w;
   j.bias = bias;
   j.M = M;
   j.N = N;
-  const int ncols = N + (bias ? 1 : 0);
-  j.tiles_n = (ncols + kTile - 1) / kTile;
+  j.points = points;
+  j.tiles_n = j.points ? 1 : (N + kTile - 1) / kTile;  // a bias needs no tile of its own
   j.tile0 = tile0;
-  tile0 += ((M + kTile - 1) / kTile) * j.tiles_n;
+  tile0 += j.points ? 1 : ((M + kTile - 1) / kTile) * j.tiles_n;
 }
 
 // the eight gradient jobs over the scratch layout y at base; the gradients
@@ -1046,7 +724,7 @@ Jobs build_jobs(const float* x, float* base, const Layout& y, int D, int L) {
   set_job(js.j[1], base + y.da2, base + y.h1, gp(2), gp(3), kH2, kH1, t);
   set_job(js.j[2], base + y.dmue, base + y.h2, gp(4), gp(5), L, kH2, t);
   set_job(js.j[3], base + y.dse, base + y.h2, gp(6), gp(7), L, kH2, t);
-  set_job(js.j[4], nullptr, base + y.gpts, gp(8), nullptr, 1, kP * L, t);
+  set_job(js.j[4], nullptr, base + y.gpts, gp(8), nullptr, 1, kP * L, t, true);
   set_job(js.j[5], nullptr, base + y.da3, gp(9), nullptr, 1, kP, t);
   set_job(js.j[6], base + y.da4, base + y.hd, gp(10), gp(11), kH1, kP, t);
   set_job(js.j[7], base + y.dout, base + y.h4, gp(12), gp(13), D, kH1, t);
@@ -1054,37 +732,37 @@ Jobs build_jobs(const float* x, float* base, const Layout& y, int D, int L) {
   return js;
 }
 
-int tiles(int M, int ncols) { return ((M + kTile - 1) / kTile) * ((ncols + kTile - 1) / kTile); }
-
-// blocks of train_grad_kernel: the tiles of build_jobs' eight jobs
-int count_tiles(int D, int L) {
-  return tiles(kH1, D + 1) + tiles(kH2, kH1 + 1) + 2 * tiles(L, kH2 + 1) + tiles(1, kP * L) +
-         tiles(1, kP) + tiles(kH1, kP + 1) + tiles(D, kH1 + 1);
-}
-
-Layout full_layout(int B, int D, int L) { return make_layout(B, D, L, count_tiles(D, L)); }
-
 }  // namespace
 
-// floats of scratch the launch needs for (B, D, L)
+// floats of scratch the launch needs for (B, D, L); the wrapper zeroes it
+// once (the ticket counter must start at 0; the kernel leaves it at 0)
 extern "C" long flagship_train_scratch_floats(int B, int D, int L) {
-  return (long)full_layout(B, D, L).total;
+  return (long)make_layout(B, D, L).total;
+}
+
+// bytes of dynamic shared memory the rows kernel takes for D pixels
+extern "C" long flagship_train_smem_bytes(int D) { return (long)rows_smem_bytes(D, true); }
+
+// clusters of the rows kernel the card holds at once for D pixels
+extern "C" int flagship_train_max_clusters(int D) {
+  return hopper::max_active_clusters(train_rows_kernel, kThreads, rows_smem_bytes(D, true),
+                                     kCluster);
 }
 
 // x (B, D), eps (B, L), ops: a host array of 42 device pointers (the 14
 // params in _params_tuple's order and nn.Linear (out, in) layout, then
 // their exp_avg, then their exp_avg_sq), count: a device int32, scratch:
-// flagship_train_scratch_floats(B, D, L) floats, metrics (4,): contiguous
-// f32 on the current device. Updates params, moments and count in place
-// and writes (loss_total, recon, kl, skipped). Returns the cudaError_t of
-// the launches (0 = success).
+// flagship_train_scratch_floats(B, D, L) floats, zeroed before the first
+// launch, metrics (4,): contiguous f32 on the current device. Updates
+// params, moments and count in place and writes (loss_total, recon, kl,
+// skipped). Returns the cudaError_t of the launches (0 = success).
 extern "C" int flagship_train_launch(const void* x, const void* eps, void* const* ops,
                                      void* count, void* scratch, void* metrics, int B, int D,
                                      int L, double c, double beta, double prior_scale,
                                      double lr, double b1, double b2, double adam_eps,
                                      void* stream) {
   if (B <= 0 || D <= 0 || L <= 0 || L > kMaxLatent) return (int)cudaErrorInvalidValue;
-  const Layout y = full_layout(B, D, L);
+  const Layout y = make_layout(B, D, L);
   float* base = static_cast<float*>(scratch);
   const float* xf = static_cast<const float*>(x);
   Params prm;
@@ -1095,8 +773,15 @@ extern "C" int flagship_train_launch(const void* x, const void* eps, void* const
     upd.m[i] = static_cast<float*>(ops[kNParams + i]);
     upd.v[i] = static_cast<float*>(ops[2 * kNParams + i]);
   }
+  upd.blk[0] = 0;
   for (int i = 0; i <= kNParams; ++i) upd.off[i] = y.off[i];
+  for (int i = 0; i < kNParams; ++i) {
+    const int n = y.off[i + 1] - y.off[i];
+    const int per_block = kUpdThreads * kUpdRun;
+    upd.blk[i + 1] = upd.blk[i] + (i == kPts ? 1 : (n + per_block - 1) / per_block);
+  }
   upd.g = base + y.grads;
+  upd.cand = base + y.cand;
   RowsOut so;
   so.rows = base + y.rows;
   so.h1 = base + y.h1;
@@ -1111,48 +796,42 @@ extern "C" int flagship_train_launch(const void* x, const void* eps, void* const
   so.h4 = base + y.h4;
   so.da4 = base + y.da4;
   so.dout = base + y.dout;
-
-  Consts k;
-  const double sqrt_c = sqrt(c);
-  k.c = (float)c;
-  k.two_c = (float)(2.0 * c);
-  k.c_sq = (float)(c * c);
-  k.sqrt_c = (float)sqrt_c;
-  k.two_sqrt_c = (float)(2.0 * sqrt_c);
-  k.two_over_sqrt_c = (float)(2.0 / sqrt_c);
-  k.max_norm = (float)((1.0 - 4e-3) / sqrt_c);
-  k.d_max = (float)(2.0 / sqrt_c * atanh(1.0 - 4e-3));
-  k.max_d2 = (float)((1.0 - 1e-4) * (1.0 - 1e-4) / c);
-  k.beta = (float)beta;
-  k.prior_scale = (float)prior_scale;
-  k.lsr_coef = (float)(L - 1);
-  k.d_lp = (float)(-1.0 / B);
-  k.g_kl = (float)(beta / B);
+  const Consts k = make_consts(c, beta, prior_scale, L, B);
 
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const size_t smem = sizeof(float) * 2 * (size_t)kRows * D;
-  if (smem > 32 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        train_rows_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  train_rows_kernel<<<(B + kRows - 1) / kRows, kThreads, smem, s>>>(
-      xf, static_cast<const float*>(eps), prm, so, B, D, L, k);
-  cudaError_t e = cudaGetLastError();
+  const size_t smem = rows_smem_bytes(D, true);
+  static size_t allowed_rows[hopper::kMaxDevices] = {}, allowed_grad[hopper::kMaxDevices] = {};
+  cudaError_t e = hopper::allow_smem(train_rows_kernel, smem, allowed_rows);
+  if (e != cudaSuccess) return (int)e;
+  const int clusters = (B + kRows - 1) / kRows;
+  e = hopper::launch(train_rows_kernel, dim3(clusters * kCluster), dim3(kThreads), smem, s,
+                     kCluster, xf, static_cast<const float*>(eps), prm, so, B, D, L, k);
   if (e != cudaSuccess) return (int)e;
   const Jobs js = build_jobs(xf, base, y, D, L);
-  train_grad_kernel<<<js.n_tiles, kThreads, 0, s>>>(js, B, base + y.partials);
-  e = cudaGetLastError();
+  Final fin;
+  fin.rows = base + y.rows;
+  fin.count = static_cast<int*>(count);
+  fin.ticket = reinterpret_cast<unsigned*>(base + y.ticket);
+  fin.scal = base + y.scal;
+  fin.metrics = static_cast<float*>(metrics);
+  fin.beta = k.beta;
+  fin.b1 = (float)b1;
+  fin.b2 = (float)b2;
+  fin.pts = static_cast<const float*>(ops[kPts]);
+  fin.pts_m = static_cast<const float*>(ops[kNParams + kPts]);
+  fin.pts_v = static_cast<const float*>(ops[2 * kNParams + kPts]);
+  fin.cand = base + y.cand;
+  fin.lr = (float)lr;
+  fin.omb1 = (float)(1.0 - b1);
+  fin.omb2 = (float)(1.0 - b2);
+  fin.adam_eps = (float)adam_eps;
+  e = hopper::allow_smem(train_grad_kernel, kGradSmem, allowed_grad);
   if (e != cudaSuccess) return (int)e;
-  train_finalize_kernel<<<1, kThreads, 0, s>>>(base + y.rows, B, k.beta, base + y.partials,
-                                                js.n_tiles, static_cast<int*>(count),
-                                                (float)b1, (float)b2, base + y.scal,
-                                                static_cast<float*>(metrics));
-  e = cudaGetLastError();
+  e = hopper::launch(train_grad_kernel, dim3(js.n_tiles), dim3(kGradThreads), kGradSmem, s, 1, js,
+                     B, L, base + y.partials, fin, k);
   if (e != cudaSuccess) return (int)e;
-  const int n_upd = y.off[kNParams] + kP;
-  train_update_kernel<<<(n_upd + kThreads - 1) / kThreads, kThreads, 0, s>>>(
-      upd, L, base + y.scal, (float)lr, (float)b1, (float)(1.0 - b1), (float)b2,
-      (float)(1.0 - b2), (float)adam_eps, k);
-  return (int)cudaGetLastError();
+  e = hopper::launch(train_update_kernel, dim3(upd.blk[kNParams]), dim3(kUpdThreads), 0, s, 1,
+                     upd, static_cast<const float*>(base + y.scal), (float)lr, (float)b1,
+                     (float)(1.0 - b1), (float)b2, (float)(1.0 - b2), (float)adam_eps);
+  return (int)e;
 }

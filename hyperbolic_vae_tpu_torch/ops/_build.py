@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` into
 ``_build/lib<name>-<hash>.so`` (a directory git ignores), keyed by a
-hash of the source and the flags, so an edited source rebuilds and an
-unchanged one loads what is there. A file lock per kernel serialises its
+hash of the source, of every header it includes from ``csrc`` (followed
+through their own includes) and of the flags, so an edited source or
+header rebuilds and an unchanged one loads what is there. A file lock per kernel serialises its
 build across processes (pytest workers) and a thread lock per kernel
 across threads (the HTTP dispatcher), so the first users of a kernel
 build it once, while different kernels build side by side
@@ -19,6 +20,7 @@ import ctypes
 import fcntl
 import hashlib
 import os
+import re
 import subprocess
 import threading
 import time
@@ -49,6 +51,26 @@ def _nvcc() -> str:
     return str(Path(CUDA_HOME) / "bin" / "nvcc")
 
 
+_INCLUDE = re.compile(r'^\s*#\s*include\s*"([^"]+)"', re.M)
+
+
+def source_digest(src: Path) -> str:
+    """Hash of src, of the headers it includes with quotes (resolved beside
+    the including file), recursively, and of NVCC_FLAGS."""
+    h = hashlib.sha256()
+    seen, todo = set(), [src]
+    while todo:
+        f = todo.pop(0)
+        if f in seen:
+            continue
+        seen.add(f)
+        text = f.read_bytes()
+        h.update(f.name.encode() + b"\0" + text)
+        todo += [f.parent / m for m in _INCLUDE.findall(text.decode()) if (f.parent / m).is_file()]
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
 def load_library(name: str) -> ctypes.CDLL:
     """The loaded library for ``csrc/<name>.cu``, built if needed."""
     with _locks_guard:
@@ -57,8 +79,7 @@ def load_library(name: str) -> ctypes.CDLL:
         if name in _libs:
             return _libs[name]
         src = CSRC / f"{name}.cu"
-        digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-        so = BUILD_DIR / f"lib{name}-{digest}.so"
+        so = BUILD_DIR / f"lib{name}-{source_digest(src)}.so"
         BUILD_DIR.mkdir(exist_ok=True)
         with open(BUILD_DIR / f".lock-{name}", "w") as lockf:
             fcntl.flock(lockf, fcntl.LOCK_EX)

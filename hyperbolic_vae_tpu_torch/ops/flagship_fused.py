@@ -61,8 +61,15 @@ from hyperbolic_vae_tpu_torch.ops.gyroplane import LaunchCounter
 _LOG_2PI = math.log(2.0 * math.pi)
 HIDDEN = (64, 16)  # the widths the kernel is written for
 MAX_LATENT = 8  # the kernel keeps per-row latent vectors in registers
-_ROWS_PER_BLOCK = 4  # csrc/flagship_fused.cu kRows
-_MAX_SMEM = 200 * 1024  # bytes of x the kernel may stage per block
+# the rows kernels' shared memory (csrc/flagship_common.cuh rows_smem_bytes):
+# per CTA of a cluster, the cluster's rows of x and the CTA's w1 slice
+# (padded to a multiple of 4 floats), its w5 slice in rows of 68 floats,
+# and per row its pixels' log density terms (and in K3 d loss / d logit),
+# after a fixed part of at most _SMEM_FIXED bytes
+_CLUSTER = 8  # kCluster: CTAs per cluster
+_CLUSTER_ROWS = 18  # kRows: batch rows per cluster
+_SMEM_FIXED = 72 * 1024  # kFixedSmem
+_MAX_SMEM = 232448  # 227 KB: the most shared memory one H100 block may opt in to
 
 
 def params_tuple(model) -> tuple:
@@ -225,19 +232,33 @@ def _check_operands(what: str, tensors, device) -> None:
             raise ValueError(f"{what}: tensors must be contiguous")
 
 
-def _check_batch(what: str, x, eps, latent_dim: int, data_numel: int, smem_per_pixel: int) -> None:
-    """x (B > 0, data_numel) and eps (B, latent_dim), contiguous f32 on one
-    CUDA device, for a kernel that stages ``smem_per_pixel`` bytes per
-    pixel of each of its rows in shared memory."""
-    _check_operands(what, (x, eps), x.device)
+def _rows_smem_bytes(data_numel: int, train: bool) -> int:
+    """Bytes of shared memory a rows kernel (K3's if ``train``) needs per
+    CTA for ``data_numel`` pixels, with the fixed part at its bound."""
+    d4 = (data_numel + 3) // 4 * 4
+    p5 = -(-data_numel // _CLUSTER)
+    p5r = (p5 + 3) // 4 * 4
+    floats = (_CLUSTER_ROWS + 64 // _CLUSTER) * d4 + 68 * p5 + (2 if train else 1) * _CLUSTER_ROWS * p5r
+    return _SMEM_FIXED + 4 * floats
+
+
+def _check_shapes(what: str, x, eps, latent_dim: int, data_numel: int, train: bool) -> None:
+    """x (B > 0, data_numel) and eps (B, latent_dim) for a rows kernel whose
+    staged rows and weight slices must fit one block's shared memory."""
     if not 1 <= latent_dim <= MAX_LATENT:
         raise ValueError(f"{what}: latent_dim {latent_dim} outside [1, {MAX_LATENT}]")
-    if smem_per_pixel * _ROWS_PER_BLOCK * data_numel > _MAX_SMEM:
+    if _rows_smem_bytes(data_numel, train) > _MAX_SMEM:
         raise ValueError(f"{what}: data_numel {data_numel} exceeds shared memory")
     if x.dim() != 2 or x.shape[1] != data_numel or x.shape[0] == 0:
         raise ValueError(f"{what}: x must be (B > 0, {data_numel}), got {tuple(x.shape)}")
     if tuple(eps.shape) != (x.shape[0], latent_dim):
         raise ValueError(f"{what}: eps must be ({x.shape[0]}, {latent_dim}), got {tuple(eps.shape)}")
+
+
+def _check_batch(what: str, x, eps, latent_dim: int, data_numel: int, train: bool) -> None:
+    """``_check_shapes``, then x and eps contiguous f32 on one CUDA device."""
+    _check_shapes(what, x, eps, latent_dim, data_numel, train)
+    _check_operands(what, (x, eps), x.device)
 
 
 def flagship_fused_cuda(
@@ -247,7 +268,7 @@ def flagship_fused_cuda(
     """The CUDA kernel: x (B, data_numel), eps (B, latent_dim) and the 14
     parameter tensors (``params_tuple`` order and layout), all contiguous
     f32 on one CUDA device -> (3,) f32: (loss_total, mean recon, mean kl)."""
-    _check_batch("flagship kernel", x, eps, latent_dim, data_numel, 4)
+    _check_batch("flagship kernel", x, eps, latent_dim, data_numel, False)
     _check_operands("flagship kernel", params, x.device)
     B = x.shape[0]
     if len(params) != 14:
@@ -792,8 +813,7 @@ def flagship_train_cuda(
     order and layout) and ``count`` (0-d int32), all contiguous on one CUDA
     device. Updates params, moments and count in place, with no host sync,
     and returns metrics (4,) f32 = (loss_total, recon, kl, skipped)."""
-    # csrc/flagship_train.cu stages x and d loss / d logit of its rows
-    _check_batch("flagship train kernel", x, eps, latent_dim, data_numel, 8)
+    _check_batch("flagship train kernel", x, eps, latent_dim, data_numel, True)
     B = x.shape[0]
     if not len(params) == len(m) == len(v) == _N_PARAMS:
         raise ValueError("flagship train kernel: 14 parameters and 14 of each moment")
@@ -803,7 +823,9 @@ def flagship_train_cuda(
     scratch = _train_scratch.get(key)
     if scratch is None:
         n = lib.flagship_train_scratch_floats(B, data_numel, latent_dim)
-        scratch = _train_scratch[key] = torch.empty(n, dtype=torch.float32, device=x.device)
+        # zeroed once: it holds the gradient kernel's ticket counter, which
+        # every launch leaves at 0
+        scratch = _train_scratch[key] = torch.zeros(n, dtype=torch.float32, device=x.device)
     out = torch.empty(4, dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream

@@ -200,8 +200,55 @@ def test_unsupported_models_and_devices_raise():
                                x.to("meta"), eps.to("meta"), **ff.fused_config(m))
 
 
+@pytest.mark.parametrize("b", [1, 37, 1024])
+def test_wrapper_checks_accept_the_flagship_batch(b):
+    """The K2 wrapper's shape and shared-memory checks take the flagship's
+    784 pixels at any batch (clusters of 16 rows; the last one ragged) and
+    need no build: they run on CPU tensors."""
+    x, eps = torch.rand(b, 784), torch.randn(b, 2)
+    ff._check_shapes("k2", x, eps, 2, 784, False)
+    assert ff._rows_smem_bytes(784, False) <= ff._MAX_SMEM
+    with pytest.raises(ValueError, match="eps must be"):
+        ff._check_shapes("k2", x, torch.randn(b + 1, 2), 2, 784, False)
+    with pytest.raises(ValueError, match="CUDA"):
+        ff._check_batch("k2", x, eps, 2, 784, False)
+
+
+def test_wrapper_raises_for_pixels_over_the_shared_memory():
+    """The largest data_numel whose staged rows and weight slices fit one
+    block passes; one pixel more raises before any launch."""
+    d = 784
+    while ff._rows_smem_bytes(d + 1, False) <= ff._MAX_SMEM:
+        d += 1
+    assert 1000 < d < 2000
+    ff._check_shapes("k2", torch.rand(2, d), torch.randn(2, 2), 2, d, False)
+    from hyperbolic_vae_tpu_torch.models import GyroplaneVAE
+
+    m = GyroplaneVAE(data_shape=(d + 4,), device="cpu")
+    cfg = ff.fused_config(m)
+    with pytest.raises(ValueError, match="shared memory"):
+        ff.flagship_fused_cuda(ff.params_tuple(m), torch.rand(2, d + 4), torch.randn(2, 2), **cfg)
+
+
+def test_build_hash_follows_included_headers(tmp_path):
+    """An edited header changes the hash a source builds under, so a
+    library built against the old header is not loaded."""
+    from hyperbolic_vae_tpu_torch.ops import _build
+
+    for f in _build.CSRC.iterdir():
+        (tmp_path / f.name).write_bytes(f.read_bytes())
+    src = tmp_path / "flagship_train.cu"
+    before = _build.source_digest(src)
+    assert before == _build.source_digest(_build.CSRC / "flagship_train.cu")
+    hdr = tmp_path / "hopper.cuh"
+    hdr.write_text(hdr.read_text() + "\n// edited\n")
+    assert _build.source_digest(src) != before
+    assert _build.source_digest(tmp_path / "gyroplane.cu") == _build.source_digest(
+        _build.CSRC / "gyroplane.cu")
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("b", [1, 37, 256])
+@pytest.mark.parametrize("b", [1, 37, 256, 1024])
 def test_kernel_matches_plain_on_card(b):
     """K2 against the plain version on the card (the module's mirror
     tolerances), for the seeded flagship at c = 1 and latent 2; one launch

@@ -344,6 +344,23 @@ def test_make_fused_train_step_checks_its_arguments():
                                lr=1e-3, **ff.fused_config(m))
 
 
+@pytest.mark.parametrize("b", [1, 37, 1024])
+def test_wrapper_checks_accept_the_flagship_batch(b):
+    """K3's shape and shared-memory checks take 784 pixels at any batch and
+    raise, before any launch, for pixels past what one block can stage (K3
+    stages d loss / d logit too, so its limit is below K2's)."""
+    x, eps = torch.rand(b, 784), torch.randn(b, 2)
+    ff._check_shapes("k3", x, eps, 2, 784, True)
+    d = 784
+    while ff._rows_smem_bytes(d + 1, True) <= ff._MAX_SMEM:
+        d += 1
+    assert d < max(e for e in range(784, 4000) if ff._rows_smem_bytes(e, False) <= ff._MAX_SMEM)
+    with pytest.raises(ValueError, match="shared memory"):
+        ff._check_shapes("k3", torch.rand(b, d + 1), eps, 2, d + 1, True)
+    with pytest.raises(ValueError, match="latent_dim"):
+        ff._check_shapes("k3", x, torch.randn(b, 9), 9, 784, True)
+
+
 # ---------------------------------------------------------------------- #
 # On the card.
 
@@ -380,7 +397,7 @@ def _run_kernel(cfg, cuda, count0, x=None):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b", [1, 37, 256])
+@pytest.mark.parametrize("b", [1, 37, 256, 1024])
 def test_kernel_matches_plain_on_card(b):
     """K3 against the plain version from non-zero moments: metrics by the
     K2 tolerances, params and moments rtol 5e-3 atol 3e-4, count + 1."""
