@@ -15,24 +15,35 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
      at the path's batch: called from Python (median of 51 means of 20
      back-to-back calls) and replayed from a CUDA graph (device time
      alone; for K2 and K3 also per internal kernel, from torch.profiler).
-     K1 (gyroplane distances), K2 (the fused forward + ELBO) and K3 (the
-     whole training step).
+     K1 (gyroplane distances, beside an empty kernel of its launch shape:
+     the launch floor), K2 (the fused forward + ELBO) and K3 (the whole
+     training step, lr read from device memory).
   3. Serve: the flagship GyroplaneVAE at its published width (random
      weights from a seed, carried through ``state_dict_from_jax_params``)
      behind ``Inferencer`` and ``InferenceServer`` on 127.0.0.1, answering
      real HTTP requests on synthetic MNIST.
   4. Train, at the flagship's published width on synthetic MNIST
      (54,000 train and 6,000 val rows, batch 256): (a) five steps of the
-     fused loss, backward and RiemannianAdam on the card against the same
-     five steps on the CPU; (b) a two-epoch ``Trainer.fit`` with the fused
-     ``loss_fn`` (K2 in every step and val batch); (c) one epoch of the
-     default path (``model.loss``, K1 in every decoder forward); (d) one
-     step split into the K2 forward, the autograd backward and the
-     optimizer; (e) the device's busy and idle share over 20 steps of
-     each path, from torch.profiler.
-  Each path (serve, fused train, default train) zeroes the launch
-  counters just before it and reads them just after.
-  5. Summary: a ``{"kernels": [...]}`` line, then, as the last line,
+     fused loss, backward and RiemannianAdam, and (a3) five K3 steps, on
+     the card against the same steps on the CPU; then ``Trainer.fit``,
+     whose chunk program runs as CUDA graphs, on each path: two epochs of
+     the fused ``loss_fn`` (K2 in every step and val batch), two of K3
+     (``train_step_fn``; K2 for val), one of the default path (K1 in every
+     decoder forward), each against the eager run of the same program
+     (bit for bit), with wall time, device busy time and idle share a
+     step (torch.profiler) of both; (f) five K3 epochs in one chunk
+     (K = 5) against K = 1 and the eager run, with the in-graph plateau
+     dropping lr inside the chunk, and with a cosine lr schedule; (d) one
+     eager step split into the K2 forward, the autograd backward and the
+     optimizer, and one K3 step synchronised.
+  Each path (serve, fused train, K3 train, default train) zeroes the
+  launch counters just before it and reads them just after; the graph
+  runner adds each captured kernel's launches on every replay.
+  5. North star: the reference protocol (at most 300 epochs, patience 10,
+     ReduceLROnPlateau(0.2, 20, 5e-5), lr 1e-3, batch 256) on the graphed
+     K3 path with ``epochs_per_dispatch=10``; fails unless the best
+     val/loss_total is within 1 % of the JAX flagship's -923.698.
+  6. Summary: a ``{"kernels": [...]}`` line, then, as the last line,
      ``{"ok": true, "device": {...}}``.
 
 Prints no result and exits 1 when CUDA is unavailable.
@@ -40,6 +51,7 @@ Prints no result and exits 1 when CUDA is unavailable.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import statistics
 import subprocess
@@ -231,12 +243,14 @@ def kernel_phase() -> dict:
     plain_a, ms_a, ms_b, plain_b = (_time_ms(f) for f in (plain, kernel, kernel, plain))
     ms, plain_ms = (ms_a + ms_b) / 2, (plain_a + plain_b) / 2
     graph_ms, plain_graph_ms = _graph_ms(kernel), _graph_ms(plain)
+    floor_ms = _graph_ms(_empty_launch())
     n_bytes = 4 * (BATCH * D + P * D + P + BATCH * P)
     n_ops = BATCH * P * (2 * D + GYRO_EPILOGUE_OPS) + 2 * D * (BATCH + P)
     t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S * 1e3, n_ops / F32_FLOP_PER_S * 1e3
     print(f"kernel gyroplane_distances at B={BATCH}: called from Python {ms_a:.5f} ms, "
           f"{ms_b:.5f} ms; plain {plain_a:.5f} ms, {plain_b:.5f} ms; replayed from a "
-          f"CUDA graph {graph_ms:.5f} ms, plain {plain_graph_ms:.5f} ms; "
+          f"CUDA graph {graph_ms:.5f} ms, plain {plain_graph_ms:.5f} ms; an empty kernel of its "
+          f"launch shape replayed the same way (the launch floor) {floor_ms:.5f} ms; "
           f"{n_bytes} bytes, {n_ops} flops", flush=True)
     return {
         "name": "gyroplane_distances",
@@ -248,6 +262,7 @@ def kernel_phase() -> dict:
         "ms": ms,
         "kernel_ms": ms,
         "graph_ms": graph_ms,
+        "launch_floor_ms": floor_ms,
         "plain_graph_ms": plain_graph_ms,
         "plain_ms": plain_ms,
         "bound_ms": max(t_bytes, t_ops),
@@ -255,6 +270,25 @@ def kernel_phase() -> dict:
         # no single PyTorch call computes gyroplane distances
         "library_ms": None,
     }
+
+
+def _empty_launch():
+    """A call of ``gyroplane_empty_launch``: an empty kernel with K1's grid
+    at the decode shape (B = 256, P = 16, D = 2)."""
+    import ctypes
+
+    import torch
+
+    from hyperbolic_vae_tpu_torch.ops import _build
+
+    fn = _build.load_library("gyroplane").gyroplane_empty_launch
+    fn.argtypes, fn.restype = [ctypes.c_int] * 3 + [ctypes.c_void_p], ctypes.c_int
+
+    def call():
+        if fn(BATCH, P, D, torch.cuda.current_stream().cuda_stream) != 0:
+            _fail("the empty kernel did not launch")
+
+    return call
 
 
 def _k2_close(out, ref, beta: float) -> bool:
@@ -437,10 +471,12 @@ def k3_phase() -> dict:
     from hyperbolic_vae_tpu_torch.models import GyroplaneVAE
     from hyperbolic_vae_tpu_torch.ops import flagship_fused as ff
 
+    lr = torch.full((), 1e-3, dtype=torch.float32, device="cuda")  # K3 reads it on the card
+
     def run_kernel(params, mom, vel, x, eps, count, cfg):
         kp, km, kv = ([t.clone() for t in ts] for ts in (params, mom, vel))
         kc = count.clone()
-        out = ff.flagship_train_cuda(kp, km, kv, x, eps, kc, lr=1e-3, **cfg)
+        out = ff.flagship_train_cuda(kp, km, kv, x, eps, kc, lr=lr, **cfg)
         torch.cuda.synchronize()
         return out, kp, km, kv, kc
 
@@ -461,7 +497,7 @@ def k3_phase() -> dict:
                 for b in (1, 37, 256, 1024):
                     x, eps, params, mom, vel, count = _k3_inputs(m, b, lat, True, b)
                     out, kp, km, kv, kc = run_kernel(params, mom, vel, x, eps, count, cfg)
-                    ref = ff.flagship_train_step_torch(params, mom, vel, x, eps, lr=1e-3,
+                    ref = ff.flagship_train_step_torch(params, mom, vel, x, eps, lr=lr,
                                                        count=count, **cfg)
                     if int(kc) != 4 or int(ref[4]) != 4:
                         _fail(f"K3 {tag} B={b}: count {int(kc)}, want 4")
@@ -473,7 +509,7 @@ def k3_phase() -> dict:
                             _fail(f"K3 {tag} B={b}: metrics {out.tolist()} vs {ref[3].tolist()}")
                         exact = ff.flagship_train_step_torch(
                             *([t.double() for t in ts] for ts in (params, mom, vel)),
-                            x.double(), eps.double(), lr=1e-3, count=count, **cfg)
+                            x.double(), eps.double(), lr=lr, count=count, **cfg)
                         k_err = ((out[:3].double() - exact[3][:3]).abs() / exact[3][:3].abs()).tolist()
                         p_err = ((ref[3][:3].double() - exact[3][:3]).abs() / exact[3][:3].abs()).tolist()
                         if any(ke > 2.0 * pe + 1e-6 for ke, pe in zip(k_err, p_err)):
@@ -489,7 +525,7 @@ def k3_phase() -> dict:
                             if exact is None:
                                 exact = ff.flagship_train_step_torch(
                                     *([t.double() for t in ts] for ts in (params, mom, vel)),
-                                    x.double(), eps.double(), lr=1e-3, count=count, **cfg)
+                                    x.double(), eps.double(), lr=lr, count=count, **cfg)
                             k_err = float((a.double() - exact[j][i]).abs().max())
                             p_err = float((w.double() - exact[j][i]).abs().max())
                             if k_err > 2.0 * p_err + 3e-4:
@@ -531,10 +567,10 @@ def k3_phase() -> dict:
     x, eps, params, mom, vel, count = _k3_inputs(m, BATCH, D, True, 1)
 
     def kernel():
-        return ff.flagship_train_cuda(params, mom, vel, x, eps, count, lr=1e-3, **cfg)
+        return ff.flagship_train_cuda(params, mom, vel, x, eps, count, lr=lr, **cfg)
 
     def plain():
-        return ff.flagship_train_step_torch(params, mom, vel, x, eps, lr=1e-3, count=count, **cfg)
+        return ff.flagship_train_step_torch(params, mom, vel, x, eps, lr=lr, count=count, **cfg)
 
     plain_a, ms_a, ms_b, plain_b = (_time_ms(f) for f in (plain, kernel, kernel, plain))
     ms, plain_ms = (ms_a + ms_b) / 2, (plain_a + plain_b) / 2
@@ -691,20 +727,16 @@ def serve_phase() -> dict:
 
 
 def _launches() -> dict:
-    from hyperbolic_vae_tpu_torch.ops import flagship_fused as ff
-    from hyperbolic_vae_tpu_torch.ops import gyroplane as g
+    from hyperbolic_vae_tpu_torch.ops import launch_counters
 
-    return {"gyroplane_distances": g.launches.count, "flagship_fused": ff.launches.count,
-            "flagship_train": ff.train_launches.count}
+    return {name: c.count for name, c in launch_counters().items()}
 
 
 def _reset_launches() -> None:
-    from hyperbolic_vae_tpu_torch.ops import flagship_fused as ff
-    from hyperbolic_vae_tpu_torch.ops import gyroplane as g
+    from hyperbolic_vae_tpu_torch.ops import launch_counters
 
-    g.launches.reset()
-    ff.launches.reset()
-    ff.train_launches.reset()
+    for c in launch_counters().values():
+        c.reset()
 
 
 def train_phase(n_train: int = 60000, n_test: int = 10000, device: str = "cuda") -> dict:
@@ -721,8 +753,9 @@ def train_phase(n_train: int = 60000, n_test: int = 10000, device: str = "cuda")
     from hyperbolic_vae_tpu_torch.interop import gyroplane_vae_from_state_dict
     from hyperbolic_vae_tpu_torch.models import GyroplaneVAE
     from hyperbolic_vae_tpu_torch.ops import flagship_fused as ff
-    from hyperbolic_vae_tpu_torch.optim import RiemannianAdam
+    from hyperbolic_vae_tpu_torch.optim import RiemannianAdam, cosine_schedule
     from hyperbolic_vae_tpu_torch.train import Trainer
+    from hyperbolic_vae_tpu_torch.train.cuda_graph import run_eagerly
     from hyperbolic_vae_tpu_torch.train.epoch_program import train_step
 
     t0 = time.perf_counter()
@@ -780,7 +813,8 @@ def train_phase(n_train: int = 60000, n_test: int = 10000, device: str = "cuda")
                 mom, vel = zip(*(opt.moments(p) for p in params))
                 xd, ed = xb.to(mod.device), eps.to(mod.device)
                 if mod.device.type == "cuda":
-                    ff.flagship_train_cuda(params, mom, vel, xd, ed, opt.count, lr=1e-3, **cfg)
+                    ff.flagship_train_cuda(params, mom, vel, xd, ed, opt.count,
+                                           lr=opt.param_groups[0]["lr"], **cfg)
                     continue
                 new = ff.flagship_train_step_torch(params, mom, vel, xd, ed, lr=1e-3,
                                                    count=opt.count, **cfg)
@@ -803,32 +837,34 @@ def train_phase(n_train: int = 60000, n_test: int = 10000, device: str = "cuda")
     steps = dm.x_train.shape[0] // BATCH
     n_val = dm.x_val.shape[0]
     per_epoch = steps + n_val // BATCH + (1 if n_val % BATCH else 0)
-    out = {}
-    for path, epochs in (("train_fused", 2), ("train_k3", 2), ("train_default", 1)):
+
+    def fit(path, epochs, k=1, eager=False, **kw):
+        """A fresh flagship (seed 0) trained by ``Trainer.fit`` on ``path``:
+        graphed on the card, or the eager run of the same program."""
         model = GyroplaneVAE(generator=torch.Generator().manual_seed(0), device=device)
-        trainer = Trainer(model, max_epochs=epochs, early_stopping_patience=None, shuffle="row",
+        kw.setdefault("early_stopping_patience", None)
+        trainer = Trainer(model, max_epochs=epochs, shuffle="row", epochs_per_dispatch=k,
                           loss_fn=ff.make_fused_loss_fn(model) if path != "train_default" else None,
                           train_step_fn=ff.make_fused_train_step(model) if path == "train_k3" else None,
-                          device=device)
+                          device=device, **kw)
         sync()
-        _reset_launches()
         t0 = time.perf_counter()
-        res = trainer.fit(dm)
+        with run_eagerly() if eager else contextlib.nullcontext():
+            res = trainer.fit(dm)
         sync()
-        wall = time.perf_counter() - t0
+        return res, trainer, time.perf_counter() - t0
+
+    out = {}
+    for path, epochs in (("train_fused", 2), ("train_k3", 2), ("train_default", 1)):
+        # the main path's run: graphed on the card, counted through replays
+        _reset_launches()
+        res, trainer, wall = fit(path, epochs)
         out[path] = _launches()
         hist = res.history
         for row in hist:
             if not all(np.isfinite(v) for v in row.values()):
                 _fail(f"{path}: non-finite metrics {row}")
         print(f"{path}: history {json.dumps(hist)}", flush=True)
-        print(f"{path}: {epochs} epochs in {wall:.3f} s ({wall / epochs:.3f} s/epoch, "
-              f"{wall / epochs / per_epoch * 1e3:.4f} ms per step or val batch), "
-              f"{epochs * steps * BATCH / wall:.1f} train samples/s over the whole fit; "
-              f"Trainer samples_per_sec (epochs after the first) {res.samples_per_sec:.1f}; "
-              f"launches {json.dumps(out[path])}", flush=True)
-        if path != "train_default" and hist[1]["val/loss_total"] >= hist[0]["val/loss_total"]:
-            _fail(f"{path}: val/loss_total did not fall from epoch 0 to 1")
         if path == "train_fused":
             want = {"flagship_fused": epochs * per_epoch, "gyroplane_distances": 0,
                     "flagship_train": 0}
@@ -840,6 +876,46 @@ def train_phase(n_train: int = 60000, n_test: int = 10000, device: str = "cuda")
                     "flagship_train": 0}
         if out[path] != want:
             _fail(f"{path}: launches {out[path]}, want {want}")
+        if path != "train_default" and hist[1]["val/loss_total"] >= hist[0]["val/loss_total"]:
+            _fail(f"{path}: val/loss_total did not fall from epoch 0 to 1")
+        # the eager run of the same program: the same history, bit for bit
+        eres, etrainer, ewall = fit(path, epochs, eager=True)
+        _same_fit(path, res, eres, "graphed", "eager")
+        graph = _profile_train(trainer.program, device)
+        eager = _profile_train(etrainer.program, device)
+        print(f"{path}: {epochs} epochs graphed in {wall:.3f} s ({wall / epochs:.4f} s/epoch with the "
+              f"capture), eager {ewall:.3f} s ({ewall / epochs:.4f} s/epoch); launches "
+              f"{json.dumps(out[path])}; {trainer.program.program.graph_launches} graph launches "
+              f"an epoch (eager: {sum(s.repeat * len(s.pieces) for s in etrainer.program.program.segments)} "
+              f"pieces an epoch)", flush=True)
+        for label, p in (("graphed", graph), ("eager", eager)):
+            print(f"{path} {label}: {p['what']}: wall {p['wall_ms']:.4f} ms/step, device busy "
+                  f"{p['busy_ms']:.4f} ms/step, idle share {p['idle']}, {p['kernels']:.1f} kernels/step; "
+                  f"{BATCH / p['wall_ms'] * 1e3:.1f} train samples/s", flush=True)
+
+    # (f) K3 path, five epochs: K = 5 against K = 1 (graphed) and against the
+    # eager run, with the in-graph plateau halving lr inside the chunk
+    # (monitor train/skipped_steps, always 0, patience 0), then a cosine lr
+    # schedule in one chunk of five
+    drop = dict(monitor="train/skipped_steps", plateau_patience=0, plateau_factor=0.5)
+    r5, _, w5 = fit("train_k3", 5, k=5, **drop)
+    r1, _, w1 = fit("train_k3", 5, k=1, **drop)
+    e5, _, _ = fit("train_k3", 5, k=5, eager=True, **drop)
+    _same_fit("train_k3 plateau", r5, r1, "K=5", "K=1")
+    _same_fit("train_k3 plateau", r5, e5, "graphed", "eager")
+    lrs = [h["lr"] for h in r5.history]
+    if lrs != [float(np.float32(v)) for v in (1e-3, 1e-3, 5e-4, 2.5e-4, 1.25e-4)]:
+        _fail(f"train_k3 plateau: lr column {lrs}: want a halving after each epoch from the second")
+    print(f"train_k3 plateau: K=5 ({w5:.3f} s) == K=1 ({w1:.3f} s) == eager, bit for bit; "
+          f"lr column {lrs}", flush=True)
+    sched = cosine_schedule(1e-3, total_epochs=5, warmup_epochs=1, min_lr=1e-5)
+    c5, _, _ = fit("train_k3", 5, k=5, lr_schedule=sched)
+    ce5, _, _ = fit("train_k3", 5, k=5, eager=True, lr_schedule=sched)
+    _same_fit("train_k3 cosine", c5, ce5, "graphed", "eager")
+    lrs = [h["lr"] for h in c5.history]
+    if lrs != [float(sched(e)) for e in range(5)]:
+        _fail(f"train_k3 cosine: lr column {lrs} is not the schedule's")
+    print(f"train_k3 cosine: graphed == eager, bit for bit; lr column {lrs}", flush=True)
 
     # (d) one step split into its parts (host clock, synchronised around each)
     model = GyroplaneVAE(generator=torch.Generator().manual_seed(0), device=device)
@@ -885,49 +961,112 @@ def train_phase(n_train: int = 60000, n_test: int = 10000, device: str = "cuda")
     print(f"train (d3): one K3 step (median ms of 50, synchronised) {statistics.median(k3_ms):.4f}",
           flush=True)
 
-    # (e) the device's busy and idle share over 20 back-to-back steps of each
-    # path, from torch.profiler (the profiler's own host cost inflates the
-    # wall time, so the idle share is an upper bound)
+    return out
+
+
+def _same_fit(what: str, a, b, la: str, lb: str) -> None:
+    """Fails unless two fits' histories and final and best parameters are
+    equal bit for bit."""
+    import torch
+
+    if len(a.history) != len(b.history) or any(
+            not np.array_equal(x[k], y[k], equal_nan=True) for x, y in zip(a.history, b.history)
+            for k in x):
+        _fail(f"{what}: {la} history {a.history} differs from {lb} {b.history}")
+    for d in ("params", "best_params"):
+        for k, v in getattr(a, d).items():
+            w = getattr(b, d)[k]
+            if not torch.equal(v, w):
+                _fail(f"{what}: {la} {d}[{k}] differs from {lb} by {float((v - w).abs().max())}")
+
+
+def _profile_train(prog, device) -> dict:
+    """Per step of a fitted program, after the fit: the wall time (host
+    clock, synchronised), then the device's busy time (the kernels' time
+    from torch.profiler, whose tracing slows the host, so the window is
+    run again under it) and the idle share 1 - busy / wall. On the K3 path
+    the window is one train epoch (one graph on the card), else the
+    epoch's begin and 20 steps (20 replays of the step graph; fewer if an
+    epoch has fewer)."""
+    import torch
     from torch.profiler import ProfilerActivity, profile
 
-    for path in ("fused", "default", "k3"):
-        if path == "k3":
-            step_fn = lambda: k3_step(model, opt, xb, gen)  # noqa: E731
-        elif path == "fused":
-            step_fn = lambda: train_step(model, opt, xb, gen, loss_fn)  # noqa: E731
-        else:
-            step_fn = lambda: train_step(model, opt, xb, gen)  # noqa: E731
-        for _ in range(5):
-            step_fn()
+    on_card = str(device).startswith("cuda")
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    gp = prog.program
+    whole = "train epoch" in [s.name for s in gp.segments]
+    n = prog.ep.steps if whole else min(20, prog.ep.steps)
+
+    def window():
+        if whole:
+            gp.replay("train epoch")
+            return
+        gp.replay("begin epoch")
         sync()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for _ in range(20):
-                step_fn()
-            sync()
-            wall_ms = (time.perf_counter() - t0) * 1e3 / 20
-        # the kernels' own rows (device events): not the host ops that launched
-        # them, nor ranges such as Optimizer.step that enclose other kernels
-        rows = [(e.key, getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0)),
-                 e.count) for e in prof.key_averages()
-                if str(e.device_type).endswith("CUDA") and not getattr(e, "is_user_annotation", False)
-                and "#" not in e.key]
-        rows = [r for r in rows if r[1] > 0]
-        busy_ms = sum(r[1] for r in rows) / 1e3 / 20
-        if not rows:
-            print(f"train step profile ({path}): device time not measured (the profiler saw "
-                  f"none); wall {wall_ms:.4f} ms/step", flush=True)
-            continue
-        top = sorted(rows, key=lambda r: -r[1])[:6]
-        ours = {name: sum(t for k, t, _ in rows if tag in k) / 1e3 / 20
-                for name, tag in (("K2", "flagship_"), ("K1", "gyroplane_kernel"),
-                                  ("K3", "train_"))}
-        print(f"train step profile ({path}, 20 steps under torch.profiler): wall {wall_ms:.4f} ms/step, "
-              f"device busy {busy_ms:.4f} ms/step, idle share {1 - busy_ms / wall_ms:.4f}, "
-              f"{sum(r[2] for r in rows) / 20:.1f} kernels/step, of which K3 {ours['K3']:.4f} ms, "
-              f"K2 {ours['K2']:.4f} ms and K1 {ours['K1']:.4f} ms a step; top: " + "; ".join(
-                  f"{k[:60]} {t / 1e3 / 20:.4f} ms x{n / 20:.0f}" for k, t, n in top), flush=True)
-    return out
+        for _ in range(n):
+            gp.replay("train step")
+
+    window()  # warm
+    sync()
+    t0 = time.perf_counter()
+    window()
+    sync()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / n
+    with profile(activities=[ProfilerActivity.CUDA if on_card else ProfilerActivity.CPU]) as prof:
+        window()
+        sync()
+    rows = [(getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0)), e.count)
+            for e in prof.key_averages() if str(e.device_type).endswith("CUDA")
+            and not getattr(e, "is_user_annotation", False) and "#" not in e.key]
+    rows = [r for r in rows if r[0] > 0]
+    busy_ms = sum(r[0] for r in rows) / 1e3 / n
+    what = f"one train epoch ({n} steps)" if whole else f"{n} train steps"
+    if not rows:
+        return {"what": what, "wall_ms": wall_ms, "busy_ms": float("nan"), "kernels": float("nan"),
+                "idle": "not measured (the profiler saw no kernel)"}
+    return {"what": what, "wall_ms": wall_ms, "busy_ms": busy_ms,
+            "kernels": sum(r[1] for r in rows) / n, "idle": f"{1 - busy_ms / wall_ms:.4f}"}
+
+
+def northstar_phase(device: str = "cuda") -> dict:
+    """The reference protocol on the graphed K3 path: at most 300 epochs,
+    early stopping patience 10, ReduceLROnPlateau(0.2, 20, 5e-5), batch 256,
+    lr 1e-3, ``epochs_per_dispatch=10``, synthetic MNIST at
+    ``runs/flagship_r5``'s sizes (54,000 train, 6,000 val rows). Fails
+    unless the best val/loss_total is within 1 % of the JAX flagship's
+    -923.698, i.e. <= -914.46."""
+    import torch
+
+    from hyperbolic_vae_tpu_torch.data import make_data_module
+    from hyperbolic_vae_tpu_torch.models import GyroplaneVAE
+    from hyperbolic_vae_tpu_torch.ops import flagship_fused as ff
+    from hyperbolic_vae_tpu_torch.train import Trainer
+
+    dm = make_data_module(batch_size=BATCH, synthetic=True)
+    model = GyroplaneVAE(generator=torch.Generator().manual_seed(0), device=device)
+    trainer = Trainer(model, lr=1e-3, max_epochs=300, early_stopping_patience=10,
+                      plateau_factor=0.2, plateau_patience=20, plateau_min_lr=5e-5,
+                      epochs_per_dispatch=10, loss_fn=ff.make_fused_loss_fn(model),
+                      train_step_fn=ff.make_fused_train_step(model), device=device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = trainer.fit(dm)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    best_epoch = min(range(len(res.history)), key=lambda e: res.history[e]["val/loss_total"])
+    lrs = sorted({h["lr"] for h in res.history}, reverse=True)
+    print(f"northstar: {res.epochs_run} epochs in {wall:.3f} s ({wall / res.epochs_run * 1e3:.3f} ms "
+          f"an epoch, {res.samples_per_sec:.1f} train samples/s after the first chunk); best "
+          f"val/loss_total {res.best_metric:.4f} at epoch {best_epoch} (JAX flagship -923.698, "
+          f"within 1 %: <= -914.46); lr values {lrs}; last row {json.dumps(res.history[-1])}",
+          flush=True)
+    if not res.best_metric <= -914.46:
+        _fail(f"northstar: best val/loss_total {res.best_metric} is not within 1 % of -923.698")
+    return {"epochs": res.epochs_run, "wall_s": wall, "best": res.best_metric}
 
 
 def _rows_kernel_fit() -> None:
@@ -982,6 +1121,7 @@ def main() -> int:
     kernels = [kernel_phase(), k2_phase(), k3_phase()]
     paths = {"serve": serve_phase()}
     paths.update(train_phase())
+    northstar_phase()
     for k in kernels:
         k["launches_by_path"] = {p: n[k["name"]] for p, n in paths.items()}
         k["launches"] = sum(k["launches_by_path"].values())

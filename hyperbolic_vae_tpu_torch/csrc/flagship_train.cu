@@ -353,7 +353,8 @@ struct Final {
   // the points' step: their params and moments, and where its result goes
   const float *pts, *pts_m, *pts_v;
   float* cand;        // (3, kP, L): new points, exp_avg, exp_avg_sq
-  float lr, omb1, omb2, adam_eps;
+  const float* lr;    // 0-d, in device memory: the controller writes it between steps
+  float omb1, omb2, adam_eps;
 };
 
 // The Riemannian Adam step of one gyroplane point (p, m, v, its gradient g;
@@ -372,6 +373,7 @@ __device__ void point_step(const float* pp, const float* mp, const float* vp, co
     p2 += p[l] * p[l];
   }
   const float lam = 2.0f / maxn(1.0f - k.c * p2, kMinNorm);
+  const float lr = *f.lr;
   float su = 0.0f;
   for (int l = 0; l < L; ++l) {
     const float g_r = gp[l] / (lam * lam);
@@ -379,7 +381,7 @@ __device__ void point_step(const float* pp, const float* mp, const float* vp, co
     const float nv = f.b2 * vp[l] + f.omb2 * (lam * lam) * g_r * g_r;
     nv_out[l] = nv;
     const float dir = (nm[l] / bc1) / (sqrtf(nv / bc2) + f.adam_eps);
-    uu[l] = -f.lr * dir;
+    uu[l] = -lr * dir;
     su += uu[l] * uu[l];
   }
   const float u_n = sqrtf(maxn(su, kMinNorm2));
@@ -609,8 +611,8 @@ struct Upd {
 };
 
 __global__ void __launch_bounds__(kUpdThreads)
-train_update_kernel(Upd u, const float* __restrict__ scal, float lr, float b1, float omb1,
-                    float b2, float omb2, float adam_eps) {
+train_update_kernel(Upd u, const float* __restrict__ scal, const float* __restrict__ lr_ptr,
+                    float b1, float omb1, float b2, float omb2, float adam_eps) {
   int s = 0;  // the block's tensor
   while (s + 1 < kNParams && (int)blockIdx.x >= u.blk[s + 1]) ++s;
   hopper::grid_dependency_wait();  // the gradients, the points' step and the guard
@@ -624,7 +626,7 @@ train_update_kernel(Upd u, const float* __restrict__ scal, float lr, float b1, f
     }
     return;
   }
-  const float bc1 = scal[0], bc2 = scal[1];
+  const float bc1 = scal[0], bc2 = scal[1], lr = *lr_ptr;
   const int e0 = ((blockIdx.x - u.blk[s]) * kUpdThreads + threadIdx.x) * kUpdRun;
   float p[kUpdRun], g[kUpdRun], m[kUpdRun], v[kUpdRun];
 #pragma unroll
@@ -753,13 +755,15 @@ extern "C" int flagship_train_max_clusters(int D) {
 // params in _params_tuple's order and nn.Linear (out, in) layout, then
 // their exp_avg, then their exp_avg_sq), count: a device int32, scratch:
 // flagship_train_scratch_floats(B, D, L) floats, zeroed before the first
-// launch, metrics (4,): contiguous f32 on the current device. Updates
-// params, moments and count in place and writes (loss_total, recon, kl,
-// skipped). Returns the cudaError_t of the launches (0 = success).
+// launch, metrics (4,), lr: a device f32 read by the kernels (so a CUDA
+// graph of the step follows the value a controller writes there): contiguous
+// on the current device. Updates params, moments and count in place and
+// writes (loss_total, recon, kl, skipped). Returns the cudaError_t of the
+// launches (0 = success).
 extern "C" int flagship_train_launch(const void* x, const void* eps, void* const* ops,
                                      void* count, void* scratch, void* metrics, int B, int D,
                                      int L, double c, double beta, double prior_scale,
-                                     double lr, double b1, double b2, double adam_eps,
+                                     const void* lr, double b1, double b2, double adam_eps,
                                      void* stream) {
   if (B <= 0 || D <= 0 || L <= 0 || L > kMaxLatent) return (int)cudaErrorInvalidValue;
   const Layout y = make_layout(B, D, L);
@@ -821,7 +825,7 @@ extern "C" int flagship_train_launch(const void* x, const void* eps, void* const
   fin.pts_m = static_cast<const float*>(ops[kNParams + kPts]);
   fin.pts_v = static_cast<const float*>(ops[2 * kNParams + kPts]);
   fin.cand = base + y.cand;
-  fin.lr = (float)lr;
+  fin.lr = static_cast<const float*>(lr);
   fin.omb1 = (float)(1.0 - b1);
   fin.omb2 = (float)(1.0 - b2);
   fin.adam_eps = (float)adam_eps;
@@ -831,7 +835,7 @@ extern "C" int flagship_train_launch(const void* x, const void* eps, void* const
                      B, L, base + y.partials, fin, k);
   if (e != cudaSuccess) return (int)e;
   e = hopper::launch(train_update_kernel, dim3(upd.blk[kNParams]), dim3(kUpdThreads), 0, s, 1,
-                     upd, static_cast<const float*>(base + y.scal), (float)lr, (float)b1,
-                     (float)(1.0 - b1), (float)b2, (float)(1.0 - b2), (float)adam_eps);
+                     upd, static_cast<const float*>(base + y.scal), static_cast<const float*>(lr),
+                     (float)b1, (float)(1.0 - b1), (float)b2, (float)(1.0 - b2), (float)adam_eps);
   return (int)e;
 }

@@ -129,7 +129,23 @@ cudaError_t launch(const float* x, const float* points, const float* bias,
   return cudaGetLastError();
 }
 
+// does nothing: the floor under gyroplane_kernel's time (see below)
+__global__ void empty_kernel() {}
+
 }  // namespace
+
+// An empty kernel launched with gyroplane_kernel's grid, block and shared
+// memory for (B, P, D): what one launch of that shape costs on the card
+// with no work in it, the floor under K1's time. Returns the cudaError_t.
+extern "C" int gyroplane_empty_launch(int B, int P, int D, void* stream) {
+  if (B <= 0 || P <= 0 || D <= 0) return (int)cudaErrorInvalidValue;
+  const long long total = (long long)B * P;
+  long long blocks = (total + 255) / 256;
+  if (blocks > 132 * 16) blocks = 132 * 16;
+  const size_t smem = sizeof(float) * ((size_t)P * D + P);
+  empty_kernel<<<(unsigned)blocks, 256, smem, static_cast<cudaStream_t>(stream)>>>();
+  return (int)cudaGetLastError();
+}
 
 // x (B, D), points (P, D), bias (P,) or null, out (B, P): contiguous f32 on
 // the current device. Returns the cudaError_t of the launch (0 = success).

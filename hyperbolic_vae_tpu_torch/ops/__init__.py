@@ -17,6 +17,16 @@ from hyperbolic_vae_tpu_torch.ops.gyroplane import (
     gyroplane_distances_fast,
 )
 
+
+
+def launch_counters() -> dict:
+    """Each CUDA kernel's launch counter, by kernel name."""
+    from hyperbolic_vae_tpu_torch.ops import flagship_fused, gyroplane
+
+    return {"gyroplane_distances": gyroplane.launches, "flagship_fused": flagship_fused.launches,
+            "flagship_train": flagship_fused.train_launches}
+
+
 __all__ = [
     "FusedFlagshipLoss",
     "flagship_forward_torch",
@@ -28,6 +38,7 @@ __all__ = [
     "gyroplane_distances",
     "gyroplane_distances_cuda",
     "gyroplane_distances_fast",
+    "launch_counters",
     "make_fused_loss_fn",
     "make_fused_train_step",
     "params_tuple",

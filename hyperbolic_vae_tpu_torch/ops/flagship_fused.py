@@ -726,7 +726,7 @@ def riemannian_adam_update_inline(p, g, m, v, lr, bc1, bc2, is_manifold: bool, *
 @torch.no_grad()
 def flagship_train_step_torch(
     params: Sequence[torch.Tensor], m: Sequence[torch.Tensor], v: Sequence[torch.Tensor],
-    x: torch.Tensor, eps: torch.Tensor, *, lr: float, count, c: float, beta: float,
+    x: torch.Tensor, eps: torch.Tensor, *, lr, count, c: float, beta: float,
     prior_scale: float, latent_dim: int, data_numel: int,
     b1: float = 0.9, b2: float = 0.999, adam_eps: float = 1e-8,
 ):
@@ -735,7 +735,8 @@ def flagship_train_step_torch(
     skipped), count + 1). A step whose loss or sum of squared gradients is
     not finite keeps params and moments bit for bit and counts 1 skipped;
     ``count`` advances either way, as in JAX's K3. ``count`` is an int or
-    an int32 0-d tensor; lr and the bias corrections enter in f32."""
+    an int32 0-d tensor, ``lr`` a number or a 0-d tensor (the optimizer's,
+    as the kernel reads it); lr and the bias corrections enter in f32."""
     grads, (lt, rm, km) = flagship_grads_torch(
         params, x, eps, c=c, beta=beta, prior_scale=prior_scale,
         latent_dim=latent_dim, data_numel=data_numel)
@@ -744,7 +745,7 @@ def flagship_train_step_torch(
     new_count = torch.as_tensor(count, dtype=torch.int32, device=x.device) + 1
     cf = new_count.to(torch.float32)  # the bias corrections in f32, as JAX's K3
     bc1, bc2 = 1.0 - torch.pow(b1, cf), 1.0 - torch.pow(b2, cf)
-    lr_t = torch.full((), lr, dtype=torch.float32, device=x.device)
+    lr_t = _lr_tensor(lr, x.device)
     new_p, new_m, new_v = [], [], []
     for i in range(_N_PARAMS):
         p_i, m_i, v_i = riemannian_adam_update_inline(
@@ -755,6 +756,14 @@ def flagship_train_step_torch(
         new_v.append(torch.where(ok, v_i, v[i]))
     metrics = torch.stack([lt, rm, km, 1.0 - ok.to(lt.dtype)])
     return tuple(new_p), tuple(new_m), tuple(new_v), metrics, new_count
+
+
+def _lr_tensor(lr, device) -> torch.Tensor:
+    """lr as a 0-d f32 tensor on ``device``: the tensor itself when it is
+    one already (the optimizer's, which a controller writes in place)."""
+    if isinstance(lr, torch.Tensor):
+        return lr.to(device=device, dtype=torch.float32).reshape(())
+    return torch.full((), float(lr), dtype=torch.float32, device=device)
 
 
 # ---------------------------------------------------------------------- #
@@ -773,7 +782,7 @@ def _train_library():
 
         lib = load_library("flagship_train")
         lib.flagship_train_launch.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [
-            ctypes.c_double] * 7 + [ctypes.c_void_p]
+            ctypes.c_double] * 3 + [ctypes.c_void_p] + [ctypes.c_double] * 3 + [ctypes.c_void_p]
         lib.flagship_train_launch.restype = ctypes.c_int
         lib.flagship_train_scratch_floats.argtypes = [ctypes.c_int] * 3
         lib.flagship_train_scratch_floats.restype = ctypes.c_long
@@ -804,16 +813,23 @@ def _train_operands(tensors, count, device, data_numel: int, latent_dim: int):
 
 def flagship_train_cuda(
     params: Sequence[torch.Tensor], m: Sequence[torch.Tensor], v: Sequence[torch.Tensor],
-    x: torch.Tensor, eps: torch.Tensor, count: torch.Tensor, *, lr: float, c: float,
+    x: torch.Tensor, eps: torch.Tensor, count: torch.Tensor, *, lr, c: float,
     beta: float, prior_scale: float, latent_dim: int, data_numel: int,
     b1: float = 0.9, b2: float = 0.999, adam_eps: float = 1e-8,
 ) -> torch.Tensor:
     """The CUDA kernel of one training step: x (B, data_numel), eps (B,
     latent_dim), the 14 parameters and their two moments (``params_tuple``
     order and layout) and ``count`` (0-d int32), all contiguous on one CUDA
-    device. Updates params, moments and count in place, with no host sync,
-    and returns metrics (4,) f32 = (loss_total, recon, kl, skipped)."""
+    device. ``lr`` is a 0-d f32 tensor on that device, which the kernel
+    reads when it runs (so a CUDA graph of the step follows what a
+    controller writes there), or a number, staged into one. Updates params,
+    moments and count in place, with no host sync, and returns metrics (4,)
+    f32 = (loss_total, recon, kl, skipped)."""
     _check_batch("flagship train kernel", x, eps, latent_dim, data_numel, True)
+    if not isinstance(lr, torch.Tensor):
+        lr = _lr_tensor(lr, x.device)
+    if lr.device != x.device or lr.dtype != torch.float32 or lr.dim() != 0:
+        raise ValueError("flagship train kernel: lr must be a 0-d f32 tensor on the device")
     B = x.shape[0]
     if not len(params) == len(m) == len(v) == _N_PARAMS:
         raise ValueError("flagship train kernel: 14 parameters and 14 of each moment")
@@ -832,7 +848,7 @@ def flagship_train_cuda(
         err = lib.flagship_train_launch(
             x.data_ptr(), eps.data_ptr(), ptrs, count.data_ptr(), scratch.data_ptr(),
             out.data_ptr(), B, data_numel, latent_dim, float(c), float(beta),
-            float(prior_scale), float(lr), float(b1), float(b2), float(adam_eps), stream)
+            float(prior_scale), lr.data_ptr(), float(b1), float(b2), float(adam_eps), stream)
     if err != 0:
         raise RuntimeError(f"flagship train kernel launch failed: cudaError {err}")
     train_launches.add()

@@ -84,15 +84,18 @@ def gyroplane_distances(
 
 class LaunchCounter:
     """Counts a kernel's launches (thread-safe: the HTTP dispatcher thread
-    and the caller's thread may both launch)."""
+    and the caller's thread may both launch). A CUDA graph replay launches
+    what was captured without calling the wrapper, so the graph runner
+    (``train/cuda_graph.py``) adds each captured kernel's launches itself
+    with ``add(n)`` on every replay."""
 
     def __init__(self):
         self._lock = threading.Lock()
         self.count = 0
 
-    def add(self) -> None:
+    def add(self, n: int = 1) -> None:
         with self._lock:
-            self.count += 1
+            self.count += n
 
     def reset(self) -> None:
         with self._lock:

@@ -17,36 +17,79 @@ parameters, as in JAX's ``RiemannianAdamState``, and lives on the
 parameters' device. Every parameter lands on ``p + (new - p)``, the
 arithmetic of ``optax.apply_updates``.
 
-``step(ok=...)`` takes a boolean 0-d tensor on the device and keeps the
-parameters, both moments and ``count`` unchanged where it is false (the
-Trainer's finite guard), with ``torch.where`` and no host sync.
-``moment_dtype`` and ``ema_decay`` are still to port.
+Nothing here waits for the device or binds a new tensor after
+construction, so a step can be captured in a CUDA graph: each group's
+``lr`` is a 0-d f32 tensor on the device (float64 for float64
+parameters; ``set_lr`` and the Trainer's controller write it in place),
+``count``, the moments and the EMA are updated with
+``copy_``, and ``step(ok=...)`` takes a boolean 0-d tensor on the device
+and keeps the parameters, both moments, the EMA and ``count`` unchanged
+where it is false (the Trainer's finite guard).
+
+``moment_dtype`` (e.g. ``"bfloat16"``) stores both moments in that type
+while every step computes in f32 (JAX ``moment_dtype``). ``ema_decay``
+keeps an f32 EMA of the parameters, from their values at construction:
+Euclidean tensors average linearly, manifold points in the tangent space
+at the origin (logmap0, lerp, expmap0, project), as JAX does;
+``ema_params()`` returns it.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Optional, Union
 
+import numpy as np
 import torch
 
 from hyperbolic_vae_tpu_torch.manifolds import PoincareBall
 from hyperbolic_vae_tpu_torch.nn.layers import is_manifold_param
 
 
+def _dtype(d: Union[str, torch.dtype, None]) -> Optional[torch.dtype]:
+    return getattr(torch, d) if isinstance(d, str) else d
+
+
+def _write(dst: torch.Tensor, value) -> None:
+    """``value`` (a number or a tensor) into the 0-d ``dst``, in place."""
+    if isinstance(value, torch.Tensor):
+        dst.copy_(value)
+    else:
+        dst.fill_(float(value))
+
+
 class RiemannianAdam(torch.optim.Optimizer):
     def __init__(self, params, lr: float = 1e-3, betas=(0.9, 0.999), eps: float = 1e-8,
-                 weight_decay: float = 0.0, ball: Optional[PoincareBall] = None):
+                 weight_decay: float = 0.0, ball: Optional[PoincareBall] = None,
+                 moment_dtype: Union[str, torch.dtype, None] = None,
+                 ema_decay: Optional[float] = None):
         defaults = dict(lr=lr, betas=tuple(betas), eps=eps, weight_decay=weight_decay)
         super().__init__(params, defaults)
         self.ball = ball or PoincareBall(c=1.0)
+        self.moment_dtype = _dtype(moment_dtype)
+        self.ema_decay = ema_decay
         first = self.param_groups[0]["params"][0]
-        self.count = torch.zeros((), dtype=torch.int32, device=first.device)
+        device = first.device
+        self.count = torch.zeros((), dtype=torch.int32, device=device)
+        # f32 on the main path; float64 parameters keep a float64 lr
+        lr_dtype = torch.promote_types(torch.float32, first.dtype)
+        for group in self.param_groups:
+            group["lr"] = torch.full((), float(group["lr"]), dtype=lr_dtype, device=device)
+            for p in group["params"]:
+                self.moments(p)
+                if ema_decay is not None:
+                    self.state[p]["ema"] = p.detach().to(torch.float32, copy=True)
+
+    def set_lr(self, lr) -> None:
+        """Write ``lr`` (a number or a 0-d tensor) into every group's lr
+        tensor, in place."""
+        for group in self.param_groups:
+            _write(group["lr"], lr)
 
     @torch.no_grad()
     def step(self, closure=None, ok: Optional[torch.Tensor] = None):
         """One update from each parameter's ``.grad``. With ``ok`` (a bool
-        0-d tensor), parameters, moments and ``count`` change only where
-        ``ok`` is true."""
+        0-d tensor), parameters, moments, the EMA and ``count`` change only
+        where ``ok`` is true."""
         loss = None
         if closure is not None:
             with torch.enable_grad():
@@ -62,38 +105,64 @@ class RiemannianAdam(torch.optim.Optimizer):
                 if p.grad is None:
                     continue
                 m, v = self.moments(p)
+                # the arithmetic in at least f32 whatever the moments' storage
+                compute = torch.promote_types(torch.float32, p.dtype)
+                mf, vf = m.to(compute), v.to(compute)
                 g = p.grad
                 if wd:
                     g = g + wd * p
                 if is_manifold_param(p):
                     g = self.ball.egrad2rgrad(p, g)
-                    new_m = b1 * m + (1.0 - b1) * g
-                    new_v = b2 * v + (1.0 - b2) * self.ball.component_inner(p, g)
+                    new_m = b1 * mf + (1.0 - b1) * g
+                    new_v = b2 * vf + (1.0 - b2) * self.ball.component_inner(p, g)
                     direction = (new_m / bc1) / (torch.sqrt(new_v / bc2) + eps)
                     new_p, new_m = self.ball.retr_transp(p, -lr * direction, new_m)
                     update = self.ball.project(new_p) - p
                 else:
-                    new_m = b1 * m + (1.0 - b1) * g
-                    new_v = b2 * v + (1.0 - b2) * g * g
+                    new_m = b1 * mf + (1.0 - b1) * g
+                    new_v = b2 * vf + (1.0 - b2) * g * g
                     update = -lr * (new_m / bc1) / (torch.sqrt(new_v / bc2) + eps)
                 new_p = p + update
+                if self.ema_decay is not None:
+                    e = self.state[p]["ema"]
+                    new_e = self._ema(e, new_p.to(torch.float32), is_manifold_param(p))
+                    e.copy_(new_e if ok is None else torch.where(ok, new_e, e))
                 if ok is not None:
                     new_p = torch.where(ok, new_p, p)
-                    new_m = torch.where(ok, new_m, m)
-                    new_v = torch.where(ok, new_v, v)
+                    new_m = torch.where(ok, new_m.to(m.dtype), m)
+                    new_v = torch.where(ok, new_v.to(v.dtype), v)
                 p.copy_(new_p)
                 m.copy_(new_m)
                 v.copy_(new_v)
-        self.count = count if ok is None else torch.where(ok, count, self.count)
+        self.count.copy_(count if ok is None else torch.where(ok, count, self.count))
         return loss
 
+    def _ema(self, e, new_p, manifold: bool):
+        """JAX's ``ema_leaf``: d e + (1 - d) new_p, for manifold points in
+        the tangent space at the origin; the coefficients in f32."""
+        d = float(np.float32(self.ema_decay))
+        omd = float(np.float32(1.0) - np.float32(self.ema_decay))
+        if manifold:
+            t = d * self.ball.logmap0(e) + omd * self.ball.logmap0(new_p)
+            return self.ball.project(self.ball.expmap0(t))
+        return d * e + omd * new_p
+
     def moments(self, p):
-        """(exp_avg, exp_avg_sq) of parameter ``p``, zeros on first use."""
+        """(exp_avg, exp_avg_sq) of parameter ``p``, zeros (in
+        ``moment_dtype`` if set) on first use."""
         state = self.state[p]
-        if not state:
-            state["exp_avg"] = torch.zeros_like(p, memory_format=torch.preserve_format)
-            state["exp_avg_sq"] = torch.zeros_like(p, memory_format=torch.preserve_format)
+        if "exp_avg" not in state:
+            dt = self.moment_dtype or p.dtype
+            state["exp_avg"] = torch.zeros_like(p, dtype=dt, memory_format=torch.preserve_format)
+            state["exp_avg_sq"] = torch.zeros_like(p, dtype=dt, memory_format=torch.preserve_format)
         return state["exp_avg"], state["exp_avg_sq"]
+
+    def ema_params(self) -> Dict[torch.Tensor, torch.Tensor]:
+        """The EMA of each parameter, keyed by the parameter. Raises
+        without ``ema_decay``."""
+        if self.ema_decay is None:
+            raise ValueError("no parameter EMA: construct with ema_decay=...")
+        return {p: self.state[p]["ema"] for g in self.param_groups for p in g["params"]}
 
     def state_dict(self):
         sd = super().state_dict()
@@ -101,15 +170,27 @@ class RiemannianAdam(torch.optim.Optimizer):
         return sd
 
     def load_state_dict(self, state_dict):
+        """Load values into the live tensors (lr, count, moments, EMA), so
+        that what a captured graph reads keeps its address and the moments
+        their storage type."""
         state_dict = dict(state_dict)
         count = state_dict.pop("count")
+        live = [(g["lr"], [dict(self.state[p]) for p in g["params"]]) for g in self.param_groups]
         super().load_state_dict(state_dict)
-        self.count = torch.as_tensor(count, dtype=torch.int32).to(self.count.device).clone()
+        for group, (lr, states) in zip(self.param_groups, live):
+            _write(lr, group["lr"])
+            group["lr"] = lr
+            for p, old in zip(group["params"], states):
+                for k, t in old.items():
+                    t.copy_(self.state[p][k])
+                self.state[p] = old
+        self.count.copy_(torch.as_tensor(count, dtype=torch.int32))
 
     def load_moments(self, moments: dict) -> None:
         """Set ``count`` and each parameter's moments from
         ``{"count": int, "state": {param: {"exp_avg": t, "exp_avg_sq": t}}}``
         (the form ``interop.optimizer_state_from_jax`` returns)."""
-        self.count = torch.as_tensor(moments["count"], dtype=torch.int32).to(self.count.device).clone()
+        self.count.fill_(int(moments["count"]))
         for p, st in moments["state"].items():
-            self.state[p] = {k: t.to(device=p.device, dtype=p.dtype).clone() for k, t in st.items()}
+            for k, t in st.items():
+                self.moments(p)[("exp_avg", "exp_avg_sq").index(k)].copy_(t)

@@ -172,11 +172,12 @@ def _run(args) -> dict:
     mom = [torch.zeros_like(p) for p in params]
     vel = [torch.zeros_like(p) for p in params]
     count = torch.zeros((), dtype=torch.int32, device="cuda")
+    lr = torch.zeros((), dtype=torch.float32, device="cuda")
     calls = {
         "K2": (libs["flagship_fused"], lambda: ff.flagship_fused_cuda(params, x, eps, **cfg),
                TIMELINE_KERNELS["flagship_fused.cu"]),
         "K3": (libs["flagship_train"],
-               lambda: ff.flagship_train_cuda(params, mom, vel, x, eps, count, lr=0.0, **cfg),
+               lambda: ff.flagship_train_cuda(params, mom, vel, x, eps, count, lr=lr, **cfg),
                TIMELINE_KERNELS["flagship_train.cu"]),
     }
     out = {"card": card, "sources": str(src), "mode": args.mode, "B": B}

@@ -1,4 +1,5 @@
+from hyperbolic_vae_tpu_torch.train.checkpoint import CheckpointManager, restore_model
 from hyperbolic_vae_tpu_torch.train.metrics import MetricLogger
 from hyperbolic_vae_tpu_torch.train.trainer import Trainer, TrainResult
 
-__all__ = ["MetricLogger", "TrainResult", "Trainer"]
+__all__ = ["CheckpointManager", "MetricLogger", "TrainResult", "Trainer", "restore_model"]

@@ -1,0 +1,243 @@
+"""The K-epochs-per-dispatch chunk program and its controllers on the
+device.
+
+Port of ``hyperbolic_vae_tpu/train/chunk_program.py``. One chunk runs K
+epochs of (train epoch + full val eval + best-params tracking +
+ReduceLROnPlateau + EarlyStopping) with no host sync; the host fetches
+the chunk's metric rows and the controller state in one transfer at its
+end. The controllers live in 0-d device tensors (``init_ctrl``) and step
+with ``torch.where`` exactly as JAX's in-graph ones (f32 comparisons, the
+relative plateau threshold, reductions only, a step only on a finite
+monitor), so histories are bit-identical for every K.
+
+Epoch by epoch, in pieces (``train/cuda_graph.py`` captures them):
+
+  * ``begin_epoch``: lr = ``lr_schedule(epoch)`` if set, else the plateau
+    lr, written into the optimizer's lr tensor (which K3 reads on the
+    device) and kept for the history; ``beta_schedule(epoch)`` into the
+    model's beta tensor; a copy of the state a stopped epoch restores;
+    then the epoch program's ``begin``;
+  * the epoch program's train steps and val batches;
+  * ``end_epoch``: masked skip, as JAX's production default (an epoch
+    after an in-graph stop runs, then its parameters, optimizer state and
+    metric row are put back / set to NaN); best params by ``torch.where``
+    into static buffers; the controllers; the epoch counter + 1 unless
+    stopped (after a stop it freezes, which is how the host learns how
+    many epochs ran); the epoch's row (train means, val means, lr) into
+    the chunk's rows.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, NamedTuple
+
+import numpy as np
+import torch
+
+from hyperbolic_vae_tpu_torch.optim.schedules import _f32
+from hyperbolic_vae_tpu_torch.train.cuda_graph import GraphedProgram, Segment
+from hyperbolic_vae_tpu_torch.train.epoch_program import EpochProgram
+
+# name -> dtype of each controller tensor, in the order the host fetches them
+CTRL_FIELDS = (
+    ("best_val", torch.float32), ("best_epoch", torch.int32), ("epoch", torch.int32),
+    ("pl_lr", torch.float32), ("pl_best", torch.float32), ("pl_bad", torch.int32),
+    ("es_best", torch.float32), ("es_wait", torch.int32), ("stopped", torch.bool),
+)
+
+
+class ControllerConfig(NamedTuple):
+    pl_factor: float  # f32 values, as JAX's weak-typed constants
+    pl_min_lr: float
+    pl_patience: int
+    pl_keep: float  # 1 - the plateau's relative threshold
+    es_enabled: bool
+    es_patience: int
+    es_min_delta: float
+
+    @classmethod
+    def of(cls, trainer) -> "ControllerConfig":
+        cfg, es = trainer._plateau_cfg, trainer.early_stopping
+        return cls(_f32(cfg["factor"]), _f32(cfg["min_lr"]), int(cfg["patience"]),
+                   _f32(1.0 - trainer.plateau.threshold), trainer._early_patience is not None,
+                   int(trainer._early_patience or 0), _f32(es.min_delta) if es else 0.0)
+
+
+def init_ctrl(trainer, start_epoch: int, device) -> Dict[str, torch.Tensor]:
+    """The controllers' and best tracking's state as 0-d device tensors,
+    seeded from the Trainer's host controllers (JAX ``init_ctrl``)."""
+    es = trainer.early_stopping
+    values = dict(
+        best_val=float("inf"), best_epoch=-1, epoch=start_epoch, pl_lr=trainer.plateau.lr,
+        pl_best=trainer.plateau.best, pl_bad=trainer.plateau.num_bad_epochs,
+        es_best=es.best if es else float("inf"), es_wait=es.wait if es else 0, stopped=False,
+    )
+    return {k: torch.tensor(values[k], dtype=dt, device=device) for k, dt in CTRL_FIELDS}
+
+
+@torch.no_grad()
+def step_controllers(ctrl: Dict[str, torch.Tensor], mon: torch.Tensor, active: torch.Tensor,
+                     cfg: ControllerConfig) -> torch.Tensor:
+    """One epoch of the controllers on the monitored value ``mon`` (0-d
+    f32), in place, as JAX's chunk body: best tracking, ReduceLROnPlateau
+    (mode min, relative threshold, reductions only), early stopping, each
+    stepping only where ``mon`` is finite and the fit ``active``; the epoch
+    counter + 1 where active. Returns ``better`` (0-d bool): this epoch is
+    the new best."""
+    c = ctrl
+    finite = torch.isfinite(mon) & active
+    better = finite & (mon < c["best_val"])
+    c["best_epoch"].copy_(torch.where(better, c["epoch"], c["best_epoch"]))
+    c["best_val"].copy_(torch.where(better, mon, c["best_val"]))
+    improved = mon < c["pl_best"] * cfg.pl_keep
+    pl_best = torch.where(improved, mon, c["pl_best"])
+    pl_bad = torch.where(improved, 0, c["pl_bad"] + 1)
+    trip = pl_bad > cfg.pl_patience
+    # reductions only: an lr below min_lr is never raised to it
+    cand = torch.clamp_min(c["pl_lr"] * cfg.pl_factor, cfg.pl_min_lr)
+    pl_lr = torch.where(trip & (cand < c["pl_lr"]), cand, c["pl_lr"])
+    pl_bad = torch.where(trip, 0, pl_bad)
+    c["pl_best"].copy_(torch.where(finite, pl_best, c["pl_best"]))
+    c["pl_bad"].copy_(torch.where(finite, pl_bad, c["pl_bad"]))
+    c["pl_lr"].copy_(torch.where(finite, pl_lr, c["pl_lr"]))
+    if cfg.es_enabled:
+        es_improved = mon < c["es_best"] - cfg.es_min_delta
+        es_best = torch.where(es_improved, mon, c["es_best"])
+        es_wait = torch.where(es_improved, 0, c["es_wait"] + 1)
+        c["es_best"].copy_(torch.where(finite, es_best, c["es_best"]))
+        c["es_wait"].copy_(torch.where(finite, es_wait, c["es_wait"]))
+        c["stopped"].copy_(c["stopped"] | (finite & (es_wait >= cfg.es_patience)))
+    # the stop epoch itself counts as run
+    c["epoch"].add_(active.to(torch.int32))
+    return better
+
+
+class ChunkProgram:
+    """The fit's device state (the epoch program, the controllers, best
+    params, the chunk's rows) and ``run(k)``, which runs k epochs and
+    returns their rows and the controller state, fetched once.
+
+    ``segments``: on the K3 path (``train_step_fn``) the whole train epoch
+    is one segment, so one graph per epoch; on the autograd paths one
+    step is a segment replayed ``steps`` times. One full val batch is a
+    segment replayed ``eval_steps`` times, then the tail and the epoch's
+    end."""
+
+    def __init__(self, trainer, model, optimizer, x_train, x_val, batch_size: int, generator,
+                 start_epoch: int, *, loss_fn, beta=None):
+        self.trainer, self.optimizer = trainer, optimizer
+        dev = x_train.device
+        self.device = dev
+        self.ep = EpochProgram(
+            model, optimizer, x_train, x_val, batch_size, generator, shuffle=trainer.shuffle,
+            loss_fn=loss_fn, train_step_fn=trainer.train_step_fn,
+            finite_guard=trainer.finite_guard, grad_accum_steps=trainer.grad_accum_steps,
+            grad_clip_norm=trainer.grad_clip_norm)
+        self.ctrl = init_ctrl(trainer, start_epoch, dev)
+        self.params = dict(model.state_dict())
+        self.best = {k: v.detach().clone() for k, v in self.params.items()}
+        self.beta = beta
+        # what an epoch after a stop puts back: params, moments, EMA, count
+        opt_state = [t for p in optimizer.state.values() for t in p.values()]
+        self.masked = list(self.params.values()) + opt_state + [optimizer.count]
+        self.prev = [t.detach().clone() for t in self.masked]
+        self.lr_used = torch.zeros((), dtype=torch.float32, device=dev)
+        self.krow = torch.zeros((), dtype=torch.long, device=dev)
+        self.k_max = trainer.epochs_per_dispatch
+        self.rows = None  # (k_max, n_train + n_val + 1), allocated at the first end_epoch
+        self.mon_src, _, self.mon_key = trainer.monitor.partition("/")
+        self.mon_idx = None
+        self.cfg = ControllerConfig.of(trainer)
+
+        ep = self.ep
+        if trainer.train_step_fn is not None:
+            train = [Segment((self.begin_epoch, *(ep.step,) * ep.steps, ep.end_train), 1,
+                             "train epoch")]
+        else:
+            train = [Segment((self.begin_epoch,), 1, "begin epoch"),
+                     Segment((ep.step,), ep.steps, "train step"),
+                     Segment((ep.end_train,), 1, "train means")]
+        end = (ep.val_tail,) if ep.rem else ()
+        segments = train + [Segment((ep.val_step,), ep.eval_steps, "val batch"),
+                            Segment(end + (ep.end_val, self.end_epoch), 1, "val tail and epoch end")]
+        state = (self.masked + [g["lr"] for g in optimizer.param_groups] + list(self.ctrl.values())
+                 + list(self.best.values()) + [self.krow] + ([beta] if beta is not None else []))
+        self.program = GraphedProgram(segments, device=dev, generator=generator, state=state)
+
+    # ---- pieces ---------------------------------------------------------
+
+    def begin_epoch(self) -> None:
+        c, tr = self.ctrl, self.trainer
+        lr = tr.lr_schedule(c["epoch"]) if tr.lr_schedule is not None else c["pl_lr"]
+        self.lr_used.copy_(lr)
+        self.optimizer.set_lr(self.lr_used)
+        if tr.beta_schedule is not None:
+            self.beta.copy_(tr.beta_schedule(c["epoch"]))
+        with torch.no_grad():
+            for prev, cur in zip(self.prev, self.masked):
+                prev.copy_(cur)
+        self.ep.begin()
+
+    @torch.no_grad()
+    def end_epoch(self) -> None:
+        ep, c = self.ep, self.ctrl
+        if self.rows is None:
+            self._bind_names()
+        active = ~c["stopped"]
+        for cur, prev in zip(self.masked, self.prev):
+            cur.copy_(torch.where(active, cur, prev))
+        t = torch.where(active, ep.t_means, float("nan"))
+        v = torch.where(active, ep.v_means, float("nan"))
+        mon = (t if self.mon_src == "train" else v)[self.mon_idx]
+        better = step_controllers(c, mon, active, self.cfg)
+        for name, b in self.best.items():
+            b.copy_(torch.where(better, self.params[name], b))
+        row = torch.cat([t, v, self.lr_used.view(1)])
+        self.rows.index_copy_(0, self.krow.view(1), row.view(1, -1))
+        self.krow.add_(1)
+
+    def _bind_names(self) -> None:
+        ep = self.ep
+        names = ep.t_names if self.mon_src == "train" else ep.v_names
+        if self.mon_key not in names:
+            keys = [f"train/{k}" for k in ep.t_names] + [f"val/{k}" for k in ep.v_names]
+            raise KeyError(f"monitor {self.trainer.monitor!r} not among the metrics {sorted(keys)}")
+        self.mon_idx = names.index(self.mon_key)
+        self.rows = torch.zeros((self.k_max, len(ep.t_names) + len(ep.v_names) + 1),
+                                dtype=torch.float32, device=self.device)
+
+    # ---- the host's side ------------------------------------------------
+
+    def run(self, k: int):
+        """k (<= epochs_per_dispatch) epochs, then one fetch: (rows (k,
+        n_cols) float64 numpy, the controllers as Python numbers)."""
+        self.krow.zero_()
+        for _ in range(k):
+            self.program.run()
+        ctrl = torch.stack([self.ctrl[name].double() for name, _ in CTRL_FIELDS])
+        flat = torch.cat([self.rows[:k].double().reshape(-1), ctrl]).cpu().numpy()
+        rows = flat[:-len(CTRL_FIELDS)].reshape(k, -1)
+        host = {}
+        for (name, dt), val in zip(CTRL_FIELDS, flat[-len(CTRL_FIELDS):]):
+            host[name] = bool(val) if dt == torch.bool else (int(val) if dt == torch.int32 else float(val))
+        return rows, host
+
+    def row_metrics(self, row: np.ndarray) -> dict:
+        ep = self.ep
+        n_t = len(ep.t_names)
+        out = {f"train/{k}": float(v) for k, v in zip(ep.t_names, row[:n_t])}
+        out.update({f"val/{k}": float(v) for k, v in zip(ep.v_names, row[n_t:-1])})
+        out["lr"] = float(row[-1])
+        return out
+
+    # ---- resume state ---------------------------------------------------
+
+    def state_dict(self) -> dict:
+        return {"ctrl": {k: v.clone() for k, v in self.ctrl.items()},
+                "best": {k: v.clone() for k, v in self.best.items()}}
+
+    def load_state_dict(self, state: dict) -> None:
+        for k, v in state["ctrl"].items():
+            self.ctrl[k].copy_(v)
+        for k, v in state["best"].items():
+            self.best[k].copy_(v)

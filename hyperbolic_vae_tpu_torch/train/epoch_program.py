@@ -1,13 +1,15 @@
 """One training epoch and the split-exact eval, on the device.
 
 Port of ``hyperbolic_vae_tpu/train/epoch_program.py`` (the single-model
-path). JAX compiles the epoch into one ``lax.scan``; here it is a Python
-loop over steps that queues work on the device and never waits for it:
-the batch order is drawn on the device, each step's metrics stay device
-tensors, the finite guard is a device-side flag handed to the optimizer,
-and the caller fetches the epoch means once. The default step also takes
-JAX's gradient accumulation (A microbatches, one eps draw each) and
-global-norm gradient clipping.
+path). JAX compiles the epoch into one ``lax.scan``; here it is
+:class:`EpochProgram`, pieces of work on tensors allocated once that
+queue work on the device and never wait for it: the batch order is drawn
+on the device, each step's metrics go into a preallocated row, the
+finite guard is a device-side flag handed to the optimizer, and the
+caller fetches the means once per chunk. On the card the pieces are
+replayed from CUDA graphs (``train/cuda_graph.py``). The default step
+also takes JAX's gradient accumulation (A microbatches, one eps draw
+each) and global-norm gradient clipping.
 
 Randomness: one ``torch.Generator`` on the device, drawn in a fixed
 order: the epoch's batch order, then one eps (B, latent) per step from
@@ -100,27 +102,107 @@ def batch_indices(n: int, batch_size: int, shuffle: str, generator, device) -> t
     raise ValueError(f"shuffle must be 'row' or 'block', got {shuffle!r}")
 
 
-def train_epoch(model, optimizer, x_all: torch.Tensor, batch_size: int, generator, *,
-                shuffle: str = "row", loss_fn: Callable = default_loss_fn,
-                train_step_fn: Optional[Callable] = None, finite_guard: bool = True,
-                grad_accum_steps: int = 1, grad_clip_norm: Optional[float] = None):
-    """One epoch over ``x_all`` (already on the device). Returns (names,
-    means): the metric names and a device tensor of their epoch means.
-    A ``train_step_fn`` replaces the whole step, its finite guard
-    included: ``finite_guard``, ``grad_accum_steps`` and ``grad_clip_norm``
-    apply to the default step only."""
-    idx = batch_indices(x_all.shape[0], batch_size, shuffle, generator, x_all.device)
-    rows, names = [], None
-    for s in range(idx.shape[0]):
-        batch = x_all.index_select(0, idx[s])
-        if train_step_fn is not None:
-            m = train_step_fn(model, optimizer, batch, generator)
+class EpochProgram:
+    """One epoch over staged splits as pieces on tensors allocated once,
+    each free of host syncs, so that a piece, or a run of them, can be
+    captured in a CUDA graph and replayed (``train/cuda_graph.py``):
+
+      * ``begin``: the epoch's batch order into the static (steps, B)
+        index matrix; the step counters to 0;
+      * ``step``: the batch of the step counter's row, ``index_select``ed
+        into the static batch buffer; one training step (``train_step``,
+        or ``train_step_fn``, which replaces it with its own guard); its
+        metrics into row ``counter`` of the (steps, n_metrics) rows; the
+        counter + 1;
+      * ``end_train``: the epoch's train means;
+      * ``val_step``: one full val batch, the same way, into the val rows;
+      * ``val_tail``: the n % b tail as one batch; ``end_val``: the val
+        means, the tail folded in by sample count (``eval_full``'s math).
+
+    The metric names come from the first step and the first val batch
+    (``t_names``, ``v_names``); their rows are allocated then."""
+
+    def __init__(self, model, optimizer, x_train: torch.Tensor, x_val: torch.Tensor,
+                 batch_size: int, generator, *, shuffle: str = "row",
+                 loss_fn: Callable = default_loss_fn, train_step_fn: Optional[Callable] = None,
+                 finite_guard: bool = True, grad_accum_steps: int = 1,
+                 grad_clip_norm: Optional[float] = None):
+        self.model, self.optimizer, self.generator = model, optimizer, generator
+        self.x_train, self.x_val = x_train, x_val
+        self.shuffle, self.loss_fn, self.train_step_fn = shuffle, loss_fn, train_step_fn
+        self.finite_guard, self.grad_accum_steps = finite_guard, grad_accum_steps
+        self.grad_clip_norm = grad_clip_norm
+        dev = x_train.device
+        self.batch_size = batch_size
+        self.steps = x_train.shape[0] // batch_size
+        n_val = x_val.shape[0]
+        self.eval_batch = min(batch_size, n_val)
+        self.eval_steps = max(n_val // self.eval_batch, 1)
+        self.rem = n_val - self.eval_steps * self.eval_batch
+        self.idx = torch.zeros((self.steps, batch_size), dtype=torch.long, device=dev)
+        self.val_idx = torch.arange(self.eval_steps * self.eval_batch, device=dev).view(
+            self.eval_steps, self.eval_batch)
+        self.batch = torch.empty((batch_size, *x_train.shape[1:]), dtype=x_train.dtype, device=dev)
+        self.val_batch = torch.empty((self.eval_batch, *x_val.shape[1:]), dtype=x_val.dtype,
+                                     device=dev)
+        self.step_ctr = torch.zeros((), dtype=torch.long, device=dev)
+        self.val_ctr = torch.zeros((), dtype=torch.long, device=dev)
+        self.t_names = self.v_names = None
+        self.t_rows = self.v_rows = self.v_tail = self.t_means = self.v_means = None
+
+    def _record(self, which: str, ctr: torch.Tensor, metrics: Dict[str, torch.Tensor]) -> None:
+        row = _stack(metrics)
+        rows = getattr(self, f"{which}_rows")
+        if rows is None:
+            n = self.steps if which == "t" else self.eval_steps
+            rows = torch.zeros((n, row.numel()), dtype=torch.float32, device=ctr.device)
+            setattr(self, f"{which}_rows", rows)
+            setattr(self, f"{which}_names", list(metrics))
+            setattr(self, f"{which}_means", torch.zeros(row.numel(), dtype=torch.float32,
+                                                       device=ctr.device))
+        rows.index_copy_(0, ctr.view(1), row.view(1, -1))
+        ctr.add_(1)
+
+    def begin(self) -> None:
+        self.idx.copy_(batch_indices(self.x_train.shape[0], self.batch_size, self.shuffle,
+                                     self.generator, self.idx.device))
+        self.step_ctr.zero_()
+        self.val_ctr.zero_()
+
+    def step(self) -> None:
+        rows = self.idx.index_select(0, self.step_ctr.view(1)).view(-1)
+        torch.index_select(self.x_train, 0, rows, out=self.batch)
+        if self.train_step_fn is not None:
+            m = self.train_step_fn(self.model, self.optimizer, self.batch, self.generator)
         else:
-            m = train_step(model, optimizer, batch, generator, loss_fn, finite_guard,
-                           grad_accum_steps, grad_clip_norm)
-        names = names or list(m)
-        rows.append(_stack(m))
-    return names, torch.stack(rows).mean(dim=0)
+            m = train_step(self.model, self.optimizer, self.batch, self.generator, self.loss_fn,
+                           self.finite_guard, self.grad_accum_steps, self.grad_clip_norm)
+        self._record("t", self.step_ctr, m)
+
+    def end_train(self) -> None:
+        self.t_means.copy_(self.t_rows.mean(dim=0))
+
+    @torch.no_grad()
+    def val_step(self) -> None:
+        rows = self.val_idx.index_select(0, self.val_ctr.view(1)).view(-1)
+        torch.index_select(self.x_val, 0, rows, out=self.val_batch)
+        self._record("v", self.val_ctr, self.loss_fn(self.model, self.val_batch, self.generator))
+
+    @torch.no_grad()
+    def val_tail(self) -> None:
+        start = self.eval_steps * self.eval_batch
+        tail = _stack(self.loss_fn(self.model, self.x_val[start:], self.generator))
+        if self.v_tail is None:
+            self.v_tail = torch.zeros_like(tail)
+        self.v_tail.copy_(tail)
+
+    def end_val(self) -> None:
+        means = self.v_rows.mean(dim=0)
+        if self.rem:
+            n = self.x_val.shape[0]
+            done = self.eval_steps * self.eval_batch
+            means = means * (done / n) + self.v_tail * (self.rem / n)
+        self.v_means.copy_(means)
 
 
 @torch.no_grad()
