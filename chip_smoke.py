@@ -12,7 +12,8 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
      and how many of their clusters the card holds at once.
   2. Kernels: each kernel against its plain PyTorch version on CUDA
      tensors at its path's shapes, then timed beside it with CUDA events
-     at the path's batch: called from Python (median of 51 means of 20
+     at the path's batch (K1 also at the IWAE decode's 128,000 rows):
+     called from Python (median of 51 means of 20
      back-to-back calls) and replayed from a CUDA graph (device time
      alone; for K2 and K3 also per internal kernel, from torch.profiler).
      K1 (gyroplane distances, beside an empty kernel of its launch shape:
@@ -36,14 +37,20 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
      dropping lr inside the chunk, and with a cosine lr schedule; (d) one
      eager step split into the K2 forward, the autograd backward and the
      optimizer, and one K3 step synchronised.
-  Each path (serve, fused train, K3 train, default train) zeroes the
-  launch counters just before it and reads them just after; the graph
+  Each path (serve, fused train, K3 train, default train, eval) zeroes
+  the launch counters just before it and reads them just after; the graph
   runner adds each captured kernel's launches on every replay.
   5. North star: the reference protocol (at most 300 epochs, patience 10,
      ReduceLROnPlateau(0.2, 20, 5e-5), lr 1e-3, batch 256) on the graphed
      K3 path with ``epochs_per_dispatch=10``; fails unless the best
      val/loss_total is within 1 % of the JAX flagship's -923.698.
-  6. Summary: a ``{"kernels": [...]}`` line, then, as the last line,
+  6. Eval, from the north-star fit's best params on its 10,000-row test
+     split (``eval_phase``): the IWAE bound card vs CPU on host draws;
+     ``evaluate_iwae(k=5000)`` (exactly 400 K1 launches, at least the
+     ELBO) with its wall time and K1's device time; ``encode_split`` and
+     ``evaluate_probe`` card vs CPU; ``evaluate`` under a beta warm-up
+     longer than the fit; the figure callbacks' PNGs from a fit.
+  7. Summary: a ``{"kernels": [...]}`` line, then, as the last line,
      ``{"ok": true, "device": {...}}``.
 
 Prints no result and exits 1 when CUDA is unavailable.
@@ -70,6 +77,7 @@ GYRO_EPILOGUE_OPS = 40
 
 P, D = 16, 2  # the flagship's gyroplanes and latent width
 BATCH = 256   # serving and training batch: the kernels' shape on every full batch
+IWAE_K, IWAE_ROWS = 500, 500 * 256  # evaluate_iwae's k_chunk; its decode, k_chunk x batch_chunk
 DATA = 784    # the flagship's pixels
 # K2's f32 work per row beyond the products: per pixel the sigmoid, the two
 # clips and logits, softplus and the log density (~30); per hidden unit
@@ -181,8 +189,9 @@ def _print_split(label: str, split: dict) -> None:
 
 
 def kernel_phase() -> dict:
-    """K1 against its plain version: B in {1, 256, 4096}, P = 16, D = 2,
-    c in {0.5, 1}, signed and unsigned, with and without bias.
+    """K1 against its plain version: B in {1, 256, 4096, 128,000 (the IWAE
+    decode)}, P = 16, D = 2, c in {0.5, 1, 2}, signed and unsigned, with
+    and without bias.
 
     Interior points: max abs error against the plain version <= 1e-5.
     Near the boundary the analytic epilogue cancels in f32 (den and
@@ -190,15 +199,17 @@ def kernel_phase() -> dict:
     each lie up to ~3e-3 from the float64 evaluation of the same formula
     on the same inputs, and as far from each other. There the check is
     that the kernel is as accurate as the plain version: its max abs error
-    against float64 is at most twice the plain f32 version's, plus 1e-5."""
+    against float64 is at most twice the plain f32 version's, plus 1e-5.
+    Then K1 is timed at the decode's batch (B = 256) and at the IWAE
+    decode's (B = 128,000)."""
     import torch
 
     from hyperbolic_vae_tpu_torch.ops import gyroplane as g
 
     rng = np.random.default_rng(0)
     err_in = err_bd = 0.0
-    for b in (1, 256, 4096):
-        for c in (0.5, 1.0):
+    for b in (1, BATCH, 4096, IWAE_ROWS):
+        for c in (0.5, 1.0, 2.0):
             for region in ("interior", "boundary"):
                 x = torch.from_numpy(_points(rng, b, c, region)).cuda()
                 pts = torch.from_numpy(_points(rng, P, c, region)).cuda()
@@ -227,10 +238,31 @@ def kernel_phase() -> dict:
         _fail(f"gyroplane kernel: interior max abs err {err_in} > 1e-5")
     print(f"kernel gyroplane_distances: max_abs_err vs plain: interior {err_in:.3e}, "
           f"near boundary {err_bd:.3e}", flush=True)
+    at_decode, at_iwae = _k1_times(rng, BATCH), _k1_times(rng, IWAE_ROWS)
+    return {
+        "name": "gyroplane_distances",
+        "route": "cuda",
+        "source": "hyperbolic_vae_tpu_torch/csrc/gyroplane.cu",
+        "replaces": "hyperbolic_vae_tpu/ops/gyroplane.py:187",
+        "max_abs_err": err_in,
+        "max_abs_err_boundary": err_bd,
+        **at_decode,
+        # no single PyTorch call computes gyroplane distances
+        "library_ms": None,
+        "at_iwae_decode": {**at_iwae, "library_ms": None},
+    }
 
-    # timing at the serving batch, as the decoder calls it (signed, bias),
-    # in turns: plain, kernel, kernel, plain
-    x = torch.from_numpy(_points(rng, BATCH, 1.0, "interior")).cuda()
+
+def _k1_times(rng, b: int) -> dict:
+    """K1 at batch b as the decoder calls it (signed, bias), in turns:
+    plain, kernel, kernel, plain from Python; then each replayed from a
+    CUDA graph, beside an empty kernel of K1's launch shape (the launch
+    floor); and the bound."""
+    import torch
+
+    from hyperbolic_vae_tpu_torch.ops import gyroplane as g
+
+    x = torch.from_numpy(_points(rng, b, 1.0, "interior")).cuda()
     pts = torch.from_numpy(_points(rng, P, 1.0, "interior")).cuda()
     bias = torch.from_numpy(rng.uniform(-1, 1, P).astype(np.float32)).cuda()
 
@@ -243,22 +275,17 @@ def kernel_phase() -> dict:
     plain_a, ms_a, ms_b, plain_b = (_time_ms(f) for f in (plain, kernel, kernel, plain))
     ms, plain_ms = (ms_a + ms_b) / 2, (plain_a + plain_b) / 2
     graph_ms, plain_graph_ms = _graph_ms(kernel), _graph_ms(plain)
-    floor_ms = _graph_ms(_empty_launch())
-    n_bytes = 4 * (BATCH * D + P * D + P + BATCH * P)
-    n_ops = BATCH * P * (2 * D + GYRO_EPILOGUE_OPS) + 2 * D * (BATCH + P)
+    floor_ms = _graph_ms(_empty_launch(b))
+    n_bytes = 4 * (b * D + P * D + P + b * P)
+    n_ops = b * P * (2 * D + GYRO_EPILOGUE_OPS) + 2 * D * (b + P)
     t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S * 1e3, n_ops / F32_FLOP_PER_S * 1e3
-    print(f"kernel gyroplane_distances at B={BATCH}: called from Python {ms_a:.5f} ms, "
-          f"{ms_b:.5f} ms; plain {plain_a:.5f} ms, {plain_b:.5f} ms; replayed from a "
-          f"CUDA graph {graph_ms:.5f} ms, plain {plain_graph_ms:.5f} ms; an empty kernel of its "
-          f"launch shape replayed the same way (the launch floor) {floor_ms:.5f} ms; "
-          f"{n_bytes} bytes, {n_ops} flops", flush=True)
+    print(f"kernel gyroplane_distances at B={b}: called from Python {ms_a:.7f} ms, "
+          f"{ms_b:.7f} ms; plain {plain_a:.7f} ms, {plain_b:.7f} ms; replayed from a "
+          f"CUDA graph {graph_ms:.7f} ms, plain {plain_graph_ms:.7f} ms; an empty kernel of its "
+          f"launch shape replayed the same way (the launch floor) {floor_ms:.7f} ms; "
+          f"{n_bytes} bytes, {n_ops} flops: bound {max(t_bytes, t_ops):.7f} ms", flush=True)
     return {
-        "name": "gyroplane_distances",
-        "route": "cuda",
-        "source": "hyperbolic_vae_tpu_torch/csrc/gyroplane.cu",
-        "replaces": "hyperbolic_vae_tpu/ops/gyroplane.py:187",
-        "max_abs_err": err_in,
-        "max_abs_err_boundary": err_bd,
+        "B": b,
         "ms": ms,
         "kernel_ms": ms,
         "graph_ms": graph_ms,
@@ -267,14 +294,12 @@ def kernel_phase() -> dict:
         "plain_ms": plain_ms,
         "bound_ms": max(t_bytes, t_ops),
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-        # no single PyTorch call computes gyroplane distances
-        "library_ms": None,
     }
 
 
-def _empty_launch():
+def _empty_launch(b: int):
     """A call of ``gyroplane_empty_launch``: an empty kernel with K1's grid
-    at the decode shape (B = 256, P = 16, D = 2)."""
+    at (b, P = 16, D = 2)."""
     import ctypes
 
     import torch
@@ -285,7 +310,7 @@ def _empty_launch():
     fn.argtypes, fn.restype = [ctypes.c_int] * 3 + [ctypes.c_void_p], ctypes.c_int
 
     def call():
-        if fn(BATCH, P, D, torch.cuda.current_stream().cuda_stream) != 0:
+        if fn(b, P, D, torch.cuda.current_stream().cuda_stream) != 0:
             _fail("the empty kernel did not launch")
 
     return call
@@ -1066,7 +1091,147 @@ def northstar_phase(device: str = "cuda") -> dict:
           flush=True)
     if not res.best_metric <= -914.46:
         _fail(f"northstar: best val/loss_total {res.best_metric} is not within 1 % of -923.698")
-    return {"epochs": res.epochs_run, "wall_s": wall, "best": res.best_metric}
+    return trainer, dm, res.best_params
+
+
+def eval_phase(trainer, dm, best, k: int = 5000) -> dict:
+    """The flagship's evaluation path on the card, from the north-star fit's
+    trainer and best params ``best``, on its 10,000-row test split:
+
+      (a) ``iwae_from_eps`` on 256 test rows with K = 500 draws made on the
+          host, on the card and on the CPU (the plain K1): rtol 1e-5,
+          atol 1e-3 on the (B,) bound;
+      (b) ``Trainer.evaluate_iwae(k=5000)``: the eval path's run, exactly
+          400 K1 launches (40 batch chunks x 10 k chunks of 500) and no
+          other kernel; finite and at least the ELBO that ``Trainer.evaluate``
+          gives on the split; its wall time, then K1's device time in a
+          second run under torch.profiler;
+      (c) ``encode_split`` and ``evaluate_probe(k=10)``, card against CPU:
+          embeddings within 1e-5, accuracies within 1 / n_test;
+      (d) ``evaluate`` of a trainer whose beta warm-up (10 epochs) is longer
+          than its max_epochs (2): equal, bit for bit, to ``evaluate`` of
+          the model with the static beta beta_schedule(2);
+      (e) a one-epoch K3 fit with ``GenerateCallback``, ``LatentGridCallback``
+          and ``LatentInterpolationCallback`` at every_n_epochs=1 into a
+          temporary log_dir: PNGs that decode to their mosaics' shapes.
+
+    Returns the launches of (b) by kernel."""
+    import copy
+    import tempfile
+    from pathlib import Path
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from hyperbolic_vae_tpu_torch.interop import gyroplane_vae_from_state_dict
+    from hyperbolic_vae_tpu_torch.models import GyroplaneVAE
+    from hyperbolic_vae_tpu_torch.ops import flagship_fused as ff
+    from hyperbolic_vae_tpu_torch.optim import beta_warmup_schedule
+    from hyperbolic_vae_tpu_torch.train import (
+        GenerateCallback,
+        LatentGridCallback,
+        LatentInterpolationCallback,
+        Trainer,
+    )
+    from hyperbolic_vae_tpu_torch.train.metrics import read_png
+
+    n_test = dm.x_test.shape[0]
+    best_cpu = {k: v.cpu() for k, v in best.items()}
+    card = copy.deepcopy(trainer.model)
+    card.load_state_dict(best)
+    cpu = gyroplane_vae_from_state_dict(best_cpu, device="cpu")
+
+    # (a) the bound on host-drawn eps, card against CPU
+    eps = np.random.default_rng(9).normal(size=(IWAE_K, BATCH, D)).astype(np.float32)
+    xb = torch.from_numpy(dm.x_test[:BATCH])
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        on_card = card.iwae_from_eps(xb.cuda(), torch.from_numpy(eps).cuda()).cpu()
+        on_cpu = cpu.iwae_from_eps(xb, torch.from_numpy(eps))
+    err = float((on_card - on_cpu).abs().max())
+    print(f"eval (a): iwae_from_eps at K={IWAE_K}, B={BATCH}, card vs CPU max abs diff {err:.3e} "
+          f"(rtol 1e-5, atol 1e-3; {time.perf_counter() - t0:.2f} s with the CPU's)", flush=True)
+    if not (torch.isfinite(on_card).all() and torch.allclose(on_card, on_cpu, rtol=1e-5, atol=1e-3)):
+        _fail(f"eval (a): the bound on the card differs from the CPU's by {err}")
+
+    # (b) the eval path's run: evaluate_iwae at k = 5000
+    torch.cuda.synchronize()
+    _reset_launches()
+    t0 = time.perf_counter()
+    bound = trainer.evaluate_iwae(dm, best, k=k)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _launches()
+    elbo = -trainer.evaluate(dm, best)["test/loss_total"]
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        trainer.evaluate_iwae(dm, best, k=k)
+        torch.cuda.synchronize()
+    k1_ms = busy_ms = 0.0
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0))
+        if str(e.device_type).endswith("CUDA") and us > 0 and "#" not in e.key:
+            busy_ms += us / 1e3
+            if "gyroplane" in e.key:
+                k1_ms += us / 1e3
+    share = f"{k1_ms / busy_ms:.6f}" if busy_ms else "not measured (the profiler saw no kernel)"
+    print(f"eval (b): evaluate_iwae k={k} on {n_test} test rows: {bound:.4f} nats a row (ELBO "
+          f"{elbo:.4f}); wall {wall:.3f} s; launches {json.dumps(launches)}; under torch.profiler "
+          f"K1 {k1_ms:.4f} ms of {busy_ms:.3f} ms of kernel time (share {share})", flush=True)
+    want = {"gyroplane_distances": -(-n_test // BATCH) * -(-k // IWAE_K), "flagship_fused": 0,
+            "flagship_train": 0}
+    if launches != want:
+        _fail(f"eval (b): launches {launches}, want {want}")
+    if not (np.isfinite(bound) and bound >= elbo):
+        _fail(f"eval (b): the bound {bound} is not finite or below the ELBO {elbo}")
+
+    # (c) embeddings and probes, card against CPU
+    cpu_trainer = Trainer(cpu, seed=trainer.seed, device="cpu")
+    z_card, y_card = trainer.encode_split(dm, best, "test")
+    z_cpu, y_cpu = cpu_trainer.encode_split(dm, best_cpu, "test")
+    err = float(np.abs(z_card - z_cpu).max())
+    t0 = time.perf_counter()
+    acc = trainer.evaluate_probe(dm, best, k=10)
+    probe_s = time.perf_counter() - t0
+    acc_cpu = cpu_trainer.evaluate_probe(dm, best_cpu, k=10)
+    print(f"eval (c): encode_split test embeddings card vs CPU max abs diff {err:.3e}; probe on "
+          f"the card {json.dumps(acc)} in {probe_s:.3f} s, on the CPU {json.dumps(acc_cpu)}",
+          flush=True)
+    if z_card.shape != (n_test, D) or err > 1e-5 or not np.array_equal(y_card, y_cpu):
+        _fail(f"eval (c): embeddings {z_card.shape} differ card vs CPU by {err}")
+    if acc.keys() != acc_cpu.keys() or any(abs(acc[k] - acc_cpu[k]) > 1.0 / n_test + 1e-12
+                                           for k in acc):
+        _fail(f"eval (c): probe accuracies differ card vs CPU: {acc} vs {acc_cpu}")
+
+    # (d) evaluate under a beta warm-up longer than the fit
+    sched = beta_warmup_schedule(1.0, warmup_epochs=10)
+    model = GyroplaneVAE(device="cuda")
+    got = Trainer(model, max_epochs=2, beta_schedule=sched).evaluate(dm, best)
+    static = copy.deepcopy(model)
+    static.beta = float(sched(2))
+    want = Trainer(static, max_epochs=2).evaluate(dm, best)
+    unscheduled = Trainer(model, max_epochs=2).evaluate(dm, best)
+    print(f"eval (d): evaluate with beta warm-up 10 > max_epochs 2: {json.dumps(got)} (beta "
+          f"{static.beta}); with the model's beta {model.beta}: {json.dumps(unscheduled)}", flush=True)
+    if got != want or model.beta != 1.0 or got["test/loss_total"] == unscheduled["test/loss_total"]:
+        _fail(f"eval (d): the scheduled evaluate {got} is not the static beta's {want}")
+
+    # (e) the figure callbacks through a fit on the card
+    with tempfile.TemporaryDirectory() as log_dir:
+        model = GyroplaneVAE(generator=torch.Generator().manual_seed(0), device="cuda")
+        Trainer(model, max_epochs=1, early_stopping_patience=None, log_dir=log_dir,
+                loss_fn=ff.make_fused_loss_fn(model), train_step_fn=ff.make_fused_train_step(model),
+                callbacks=[GenerateCallback(every_n_epochs=1), LatentGridCallback(every_n_epochs=1),
+                           LatentInterpolationCallback(every_n_epochs=1)]).fit(dm)
+        shapes = {}
+        for name, shape in (("reconstructions", (56, 224)), ("latent_grid", (308, 308)),
+                            ("latent_interpolation", (168, 336))):
+            path = Path(log_dir) / f"{name}_00000.png"
+            img = read_png(path) if path.exists() else None
+            if img is None or img.shape != shape or img.dtype != np.uint8:
+                _fail(f"eval (e): {path.name}: {None if img is None else img.shape}, want {shape}")
+            shapes[name] = img.shape
+    print(f"eval (e): callbacks wrote {json.dumps(shapes)}", flush=True)
+    return launches
 
 
 def _rows_kernel_fit() -> None:
@@ -1121,7 +1286,7 @@ def main() -> int:
     kernels = [kernel_phase(), k2_phase(), k3_phase()]
     paths = {"serve": serve_phase()}
     paths.update(train_phase())
-    northstar_phase()
+    paths["eval"] = eval_phase(*northstar_phase())
     for k in kernels:
         k["launches_by_path"] = {p: n[k["name"]] for p, n in paths.items()}
         k["launches"] = sum(k["launches_by_path"].values())

@@ -9,9 +9,12 @@ Ported so far, for the flagship GyroplaneVAE: the serving path (the
 Poincare ball, the gyroplane-distance op with its hand-written CUDA
 kernel ``csrc/gyroplane.cu``, the model, the bucketed ``Inferencer`` and
 the HTTP front-end) and the training path (the ELBO, the fused
-forward + ELBO op with its CUDA kernel ``csrc/flagship_fused.cu``,
-Riemannian Adam, the plateau and early-stopping controllers, the data
-module and ``train.Trainer``).
+forward + ELBO op with its CUDA kernel ``csrc/flagship_fused.cu``, the
+whole training step's kernel ``csrc/flagship_train.cu``, Riemannian Adam,
+the plateau and early-stopping controllers, the data module and
+``train.Trainer``) and the evaluation path (the importance-weighted
+bound, ``train.evaluation``, the latent probes, statistics on the ball,
+the figure callbacks).
 """
 
 from hyperbolic_vae_tpu_torch.device import resolve_device

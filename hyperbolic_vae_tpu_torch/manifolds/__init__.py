@@ -7,7 +7,14 @@ from hyperbolic_vae_tpu_torch.manifolds.poincare import (
     log_sinh_ratio,
     tanh,
 )
+from hyperbolic_vae_tpu_torch.manifolds.stats import (
+    class_means,
+    frechet_mean,
+    frechet_variance,
+    geodesic,
+)
 
 __all__ = [
-    "BOUNDARY_EPS", "MIN_NORM", "TANH_CLAMP", "PoincareBall", "artanh", "log_sinh_ratio", "tanh",
+    "BOUNDARY_EPS", "MIN_NORM", "TANH_CLAMP", "PoincareBall", "artanh", "class_means",
+    "frechet_mean", "frechet_variance", "geodesic", "log_sinh_ratio", "tanh",
 ]

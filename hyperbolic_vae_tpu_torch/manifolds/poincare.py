@@ -6,10 +6,11 @@ upcast to f32, ``artanh`` is clipped at 1 - eps(dtype), ``tanh`` at
 +-15, norms are floored at MIN_NORM and points are projected to radius
 (1 - BOUNDARY_EPS)/sqrt(c).
 
-The serving path's methods and the training path's (logmap, gyration,
+The serving path's methods, the training path's (logmap, gyration,
 transport, dist, the Riemannian optimizer's helpers, logdetexp with the
-stable ``log_sinh_ratio``). Still to port: mobius_matvec,
-mobius_scalar_mul, dist2plane and normdist2plane.
+stable ``log_sinh_ratio``) and the evaluation path's
+(``mobius_scalar_mul``, for geodesics). Still to port: mobius_matvec,
+dist2plane and normdist2plane.
 """
 
 from __future__ import annotations
@@ -104,6 +105,14 @@ class PoincareBall:
 
     def mobius_neg(self, x: torch.Tensor) -> torch.Tensor:
         return -x
+
+    def mobius_scalar_mul(self, r, x: torch.Tensor) -> torch.Tensor:
+        """r (x) x = tanh(r artanh(sqrt(c)|x|)) x / (sqrt(c)|x|)."""
+        x = _upcast(x)
+        sqrt_c = self.sqrt_c
+        x_norm = _norm(x)
+        res = tanh(r * artanh(sqrt_c * x_norm)) * x / (x_norm * sqrt_c)
+        return self.project(res)
 
     def gyration(self, u: torch.Tensor, v: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         """gyr[u, v] w = -(u (+) v) (+) (u (+) (v (+) w))."""

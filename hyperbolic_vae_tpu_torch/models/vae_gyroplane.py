@@ -10,6 +10,9 @@ Port of ``hyperbolic_vae_tpu/models/vae_gyroplane.py``:
   loss:    recon = -sum RelaxedBernoulli(T=1, probs=x_hat).log_prob(x)
            kl    = log q(z|x) - log p(z),  p = WrappedNormal(0, prior_scale)
            total = mean(recon + beta * kl)
+  iwae:    the K-importance-weighted bound under the same likelihood
+           (``models/iwae.py``); its decode of K*B latents is one
+           gyroplane-kernel launch on the card
 
 GELU is the tanh approximation (flax's ``gelu`` default). Submodule
 indices follow the reference state_dict layout: ``encoder.1``,
@@ -35,6 +38,7 @@ from hyperbolic_vae_tpu_torch.distributions import (
     wrapped_normal_rsample_from_eps,
 )
 from hyperbolic_vae_tpu_torch.manifolds import PoincareBall
+from hyperbolic_vae_tpu_torch.models.iwae import iwae_bound, latent_log_weights_from_eps
 from hyperbolic_vae_tpu_torch.models.sampling import prior_sample
 from hyperbolic_vae_tpu_torch.nn import PoincareHyperplanes
 
@@ -169,6 +173,30 @@ class GyroplaneVAE(nn.Module):
             "recon_loss": recon.mean(),
             "kl_loss": kl.mean(),
         }
+
+    def iwae(self, x, k: int = 1000, generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """Per-sample K-importance-weighted log p(x) bound (B,) for eps
+        (k, B, latent) ~ N(0, I) drawn from ``generator`` (on the model's
+        device)."""
+        eps = torch.randn((k, x.shape[0], self.latent_dim), generator=generator,
+                          device=self.device, dtype=torch.float32)
+        return self.iwae_from_eps(x, eps)
+
+    def iwae_from_eps(self, x, eps) -> torch.Tensor:
+        """The bound for a given draw eps (K, B, latent): the parity hook,
+        as ``loss_from_eps`` is the loss's. The K*B latents are decoded in
+        one call, and the log density is summed within it; call it under
+        ``torch.no_grad()`` when no gradient is wanted."""
+        k, b = eps.shape[0], x.shape[0]
+        xf = x.reshape(b, -1)
+        mu, scale = self.encode(x)
+
+        def loglik(zf):
+            xh = self.decode(zf).reshape(k, b, -1)
+            return relaxed_bernoulli_log_prob(xf[None], 1.0, probs=xh).sum(dim=-1)
+
+        log_w = latent_log_weights_from_eps(self.ball, mu, scale, eps, self.prior_scale, loglik)
+        return iwae_bound(log_w)
 
     def generate(self, n: int = 64, generator: Optional[torch.Generator] = None):
         """Decode n prior draws z ~ WrappedNormal(0, prior_scale): pixel

@@ -18,7 +18,9 @@ replaces the plateau lr; ``beta_schedule`` (``beta_warmup_schedule``)
 sets the model's KL weight per epoch. The host, at chunk boundaries,
 logs (every ``log_every_n_epochs``), checkpoints (``checkpoint_dir``:
 best, last, ``ema``, and the resume state that ``fit(resume=True)``
-continues from) and calls ``callbacks``.
+continues from) and calls ``callbacks`` (``train/callbacks.py``). After
+training, ``evaluate``, ``evaluate_iwae``, ``evaluate_probe`` and
+``encode_split`` delegate to ``train/evaluation.py``.
 
 Hooks, as in JAX: ``loss_fn(model, batch, generator) -> metrics`` (e.g.
 ``ops.flagship_fused.make_fused_loss_fn``) replaces ``model.loss``;
@@ -32,7 +34,7 @@ or ``train_step_fn``; and, in the port, ``moment_dtype`` with
 ``train_step_fn`` (K3 keeps f32 moments). ``fit`` trains ``model`` in
 place, from its current weights or from ``params``. Still to port:
 ensembles and lanes, streaming, preemption, meshes, the memory
-preflight, TensorBoard and image logging, ``profile_dir``.
+preflight, TensorBoard, ``profile_dir``, ``evaluate(stream_block_rows=...)``.
 """
 
 from __future__ import annotations
@@ -52,7 +54,7 @@ from hyperbolic_vae_tpu_torch.device import DeviceLike, resolve_device
 from hyperbolic_vae_tpu_torch.manifolds import PoincareBall
 from hyperbolic_vae_tpu_torch.optim import EarlyStopping, ReduceLROnPlateau, RiemannianAdam
 from hyperbolic_vae_tpu_torch.train.chunk_program import ChunkProgram
-from hyperbolic_vae_tpu_torch.train.epoch_program import default_loss_fn, eval_full
+from hyperbolic_vae_tpu_torch.train.epoch_program import default_loss_fn
 from hyperbolic_vae_tpu_torch.train.metrics import MetricLogger
 
 logger = logging.getLogger(__name__)
@@ -332,14 +334,32 @@ class Trainer:
 
     def evaluate(self, dm: ArrayDataModule, params: Optional[Dict[str, Any]] = None,
                  split: str = "test") -> dict:
-        """Mean loss metrics over a split (eval fold with its tail batch),
-        for ``params`` if given (the model is left as it is), with draws
-        from seed + 1."""
-        model = self.model
-        if params is not None:
-            model = copy.deepcopy(self.model)
-            model.load_state_dict(params)
-        gen = torch.Generator(device=self.device).manual_seed(self.seed + 1)
-        x = self._stage(getattr(dm, f"x_{split}"))
-        names, means = eval_full(model, x, dm.batch_size, gen, self.loss_fn or default_loss_fn)
-        return {f"{split}/{k}": v for k, v in zip(names, means.tolist())}
+        """Mean loss metrics over a split (``train/evaluation.py``); under a
+        ``beta_schedule`` at ``beta_schedule(max_epochs)``."""
+        from hyperbolic_vae_tpu_torch.train.evaluation import evaluate
+
+        return evaluate(self, dm, params, split)
+
+    def evaluate_iwae(self, dm: ArrayDataModule, params: Optional[Dict[str, Any]] = None,
+                      k: int = 5000, split: str = "test", batch_chunk: int = 256,
+                      k_chunk: int = 500) -> float:
+        """Mean K-importance-weighted log p(x) bound over a split
+        (``train/evaluation.py``)."""
+        from hyperbolic_vae_tpu_torch.train.evaluation import evaluate_iwae
+
+        return evaluate_iwae(self, dm, params, k, split, batch_chunk, k_chunk)
+
+    def evaluate_probe(self, dm: ArrayDataModule, params: Optional[Dict[str, Any]] = None,
+                       k: int = 10, train_split: str = "train", eval_split: str = "test",
+                       max_train: int = 20000) -> dict:
+        """Latent-probe accuracies (``train/evaluation.py``)."""
+        from hyperbolic_vae_tpu_torch.train.evaluation import evaluate_probe
+
+        return evaluate_probe(self, dm, params, k, train_split, eval_split, max_train)
+
+    def encode_split(self, dm: ArrayDataModule, params: Optional[Dict[str, Any]] = None,
+                     split: str = "val", batch_size: Optional[int] = None):
+        """Posterior means and labels of a split (``train/evaluation.py``)."""
+        from hyperbolic_vae_tpu_torch.train.evaluation import encode_split
+
+        return encode_split(self, dm, params, split, batch_size)

@@ -132,7 +132,7 @@ def test_dispatch_requires_cpu_or_cuda_and_kernel_requires_cuda():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("region", ["interior", "boundary"])
-@pytest.mark.parametrize("b", [1, 256, 4096])
+@pytest.mark.parametrize("b", [1, 256, 4096, 128_000])
 def test_kernel_matches_plain_on_card(b, region):
     """The CUDA kernel against the plain version on the card, at the
     flagship's P = 16, D = 2. Interior points: atol 1e-5. Near the
@@ -142,7 +142,7 @@ def test_kernel_matches_plain_on_card(b, region):
     plain f32 version's, plus 1e-5."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
-    for c in (0.5, 1.0):
+    for c in (0.5, 1.0, 2.0):
         for signed in (True, False):
             for with_bias in (False, True):
                 x, pts, bias = _inputs(5, b, 16, 2, c, region, with_bias)
@@ -163,3 +163,27 @@ def test_kernel_matches_plain_on_card(b, region):
                 k_err = float((out.double() - exact).abs().max())
                 p_err = float((ref.double() - exact).abs().max())
                 assert k_err <= 2.0 * p_err + 1e-5, (k_err, p_err)
+
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p,d,misaligned", [(7, 3, False), (20, 2, False), (100, 2, False),
+                                            (16, 2, True)])
+def test_kernel_runtime_shapes_match_plain_on_card(p, d, misaligned):
+    """The kernel's other shapes against the plain version on the card,
+    interior points, atol 1e-5: a width other than 2, a P that is not 4 x
+    a power of 2, more than 64 planes (the runtime path), and an x that is
+    not 8-byte aligned (a view one float into its storage)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    x, pts, bias = _inputs(6, 1000, p, d, 1.0, "interior", True)
+    tx = torch.from_numpy(x).cuda()
+    if misaligned:
+        tx = torch.cat([torch.zeros(1, device="cuda"), tx.reshape(-1)])[1:].view(1000, d)
+        assert tx.data_ptr() % 8 != 0
+    tp, tb = torch.from_numpy(pts).cuda(), torch.from_numpy(bias).cuda()
+    for signed in (True, False):
+        out = port_gyro.gyroplane_distances_cuda(tx, tp, 1.0, signed, tb)
+        torch.cuda.synchronize()
+        ref = port_gyro.gyroplane_distances(tx, tp, 1.0, signed, tb)
+        np.testing.assert_allclose(out.cpu().numpy(), ref.cpu().numpy(), rtol=0, atol=1e-5)

@@ -8,7 +8,7 @@ import pytest
 import torch
 
 from hyperbolic_vae_tpu_torch.ops import _build
-from hyperbolic_vae_tpu_torch.tools import k3_path, kernel_timing
+from hyperbolic_vae_tpu_torch.tools import k1_compare, k3_path, kernel_timing
 
 BARRIERS = kernel_timing.SYNCS
 
@@ -47,4 +47,5 @@ def test_tools_refuse_to_run_without_a_card(monkeypatch, capsys):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert kernel_timing.main(["phases"]) == 1
     assert k3_path.main(["--tree", str(_build.CSRC.parents[1])]) == 1
+    assert k1_compare.main(["--other", str(_build.CSRC)]) == 1
     assert "needs a CUDA card" in capsys.readouterr().err
