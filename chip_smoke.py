@@ -37,9 +37,10 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
      dropping lr inside the chunk, and with a cosine lr schedule; (d) one
      eager step split into the K2 forward, the autograd backward and the
      optimizer, and one K3 step synchronised.
-  Each path (serve, fused train, K3 train, default train, eval) zeroes
-  the launch counters just before it and reads them just after; the graph
-  runner adds each captured kernel's launches on every replay.
+  Each path (serve, fused train, K3 train, default train, eval, and the
+  RNA-seq family's fits, serve and eval) zeroes the launch counters just
+  before it and reads them just after; the graph runner adds each
+  captured kernel's launches on every replay.
   5. North star: the reference protocol (at most 300 epochs, patience 10,
      ReduceLROnPlateau(0.2, 20, 5e-5), lr 1e-3, batch 256) on the graphed
      K3 path with ``epochs_per_dispatch=10``; fails unless the best
@@ -50,8 +51,18 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
      ELBO) with its wall time and K1's device time; ``encode_split`` and
      ``evaluate_probe`` card vs CPU; ``evaluate`` under a beta warm-up
      longer than the fit; the figure callbacks' PNGs from a fit.
-  7. Summary: a ``{"kernels": [...]}`` line, then, as the last line,
-     ``{"ok": true, "device": {...}}``.
+  7. RNA-seq (``rnaseq_phase``): ``RNASeqVAE`` at its realistic width
+     (20,480 genes, hidden 256: K1 at 256 planes) on the fake Jerby-Arnon
+     data (8,192 cells): K1 at 256 planes against its plain version and
+     timed; five steps card vs CPU; f32, bf16 and negative-binomial fits
+     graphed against eager (bit for bit), the latter's NaN-poisoned batch
+     skipped; the graphed steps' wall, busy and idle share; a 30-epoch fit
+     with checkpoints, served over HTTP from its best checkpoint; and
+     ``evaluate_iwae(k=5000, k_chunk=100)`` (exactly 250 K1 launches, at
+     least the ELBO).
+  8. Summary: a ``{"kernels": [...]}`` line (K1 twice: at the flagship's 16
+     planes and at the RNA-seq family's 256, each counted on its own
+     paths), then, as the last line, ``{"ok": true, "device": {...}}``.
 
 Prints no result and exits 1 when CUDA is unavailable.
 """
@@ -202,25 +213,54 @@ def kernel_phase() -> dict:
     against float64 is at most twice the plain f32 version's, plus 1e-5.
     Then K1 is timed at the decode's batch (B = 256) and at the IWAE
     decode's (B = 128,000)."""
+    rng = np.random.default_rng(0)
+    err_in, err_bd = _k1_check(rng, (1, BATCH, 4096, IWAE_ROWS), P)
+    print(f"kernel gyroplane_distances: max_abs_err vs plain: interior {err_in:.3e}, "
+          f"near boundary {err_bd:.3e}", flush=True)
+    return _k1_entry(err_in, err_bd, _k1_times(rng, BATCH), _k1_times(rng, IWAE_ROWS))
+
+
+def _k1_entry(err_in: float, err_bd: float, at_batch: dict, at_iwae: dict) -> dict:
+    """K1's entry of the ``{"kernels": [...]}`` line: its errors against
+    the plain version (``_k1_check``) and its times at the model's batch
+    and at the IWAE decode's (``_k1_times``)."""
+    return {
+        "name": "gyroplane_distances",
+        "route": "cuda",
+        "source": "hyperbolic_vae_tpu_torch/csrc/gyroplane.cu",
+        "replaces": "hyperbolic_vae_tpu/ops/gyroplane.py:187",
+        "max_abs_err": err_in,
+        "max_abs_err_boundary": err_bd,
+        **at_batch,
+        # no single PyTorch call computes gyroplane distances
+        "library_ms": None,
+        "at_iwae_decode": {**at_iwae, "library_ms": None},
+    }
+
+
+def _k1_check(rng, sizes, p: int):
+    """K1 against its plain version at each B of ``sizes`` with ``p``
+    planes, c in {0.5, 1, 2}, interior and near the boundary, signed and
+    unsigned, with and without bias (``kernel_phase``'s rules). Returns the
+    max abs errors against the plain version (interior, near the boundary)."""
     import torch
 
     from hyperbolic_vae_tpu_torch.ops import gyroplane as g
 
-    rng = np.random.default_rng(0)
     err_in = err_bd = 0.0
-    for b in (1, BATCH, 4096, IWAE_ROWS):
+    for b in sizes:
         for c in (0.5, 1.0, 2.0):
             for region in ("interior", "boundary"):
                 x = torch.from_numpy(_points(rng, b, c, region)).cuda()
-                pts = torch.from_numpy(_points(rng, P, c, region)).cuda()
-                bias = torch.from_numpy(rng.uniform(-1, 1, P).astype(np.float32)).cuda()
+                pts = torch.from_numpy(_points(rng, p, c, region)).cuda()
+                bias = torch.from_numpy(rng.uniform(-1, 1, p).astype(np.float32)).cuda()
                 for signed in (True, False):
                     for bb in (None, bias):
                         out = g.gyroplane_distances_cuda(x, pts, c, signed, bb)
                         torch.cuda.synchronize()
                         ref = g.gyroplane_distances(x, pts, c, signed, bb)
-                        if out.shape != (b, P) or not torch.isfinite(out).all():
-                            _fail(f"gyroplane kernel: bad output at B={b} c={c} {region}")
+                        if out.shape != (b, p) or not torch.isfinite(out).all():
+                            _fail(f"gyroplane kernel: bad output at B={b} P={p} c={c} {region}")
                         err = float((out - ref).abs().max())
                         if region == "interior":
                             err_in = max(err_in, err)
@@ -233,27 +273,14 @@ def kernel_phase() -> dict:
                         p_err = float((ref.double() - exact).abs().max())
                         if k_err > 2.0 * p_err + 1e-5:
                             _fail(f"gyroplane kernel near boundary: err vs float64 {k_err} > "
-                                  f"2 x plain's {p_err} + 1e-5 at B={b} c={c} signed={signed}")
+                                  f"2 x plain's {p_err} + 1e-5 at B={b} P={p} c={c} "
+                                  f"signed={signed}")
     if err_in > 1e-5:
-        _fail(f"gyroplane kernel: interior max abs err {err_in} > 1e-5")
-    print(f"kernel gyroplane_distances: max_abs_err vs plain: interior {err_in:.3e}, "
-          f"near boundary {err_bd:.3e}", flush=True)
-    at_decode, at_iwae = _k1_times(rng, BATCH), _k1_times(rng, IWAE_ROWS)
-    return {
-        "name": "gyroplane_distances",
-        "route": "cuda",
-        "source": "hyperbolic_vae_tpu_torch/csrc/gyroplane.cu",
-        "replaces": "hyperbolic_vae_tpu/ops/gyroplane.py:187",
-        "max_abs_err": err_in,
-        "max_abs_err_boundary": err_bd,
-        **at_decode,
-        # no single PyTorch call computes gyroplane distances
-        "library_ms": None,
-        "at_iwae_decode": {**at_iwae, "library_ms": None},
-    }
+        _fail(f"gyroplane kernel: interior max abs err {err_in} > 1e-5 at P={p}")
+    return err_in, err_bd
 
 
-def _k1_times(rng, b: int) -> dict:
+def _k1_times(rng, b: int, p: int = P) -> dict:
     """K1 at batch b as the decoder calls it (signed, bias), in turns:
     plain, kernel, kernel, plain from Python; then each replayed from a
     CUDA graph, beside an empty kernel of K1's launch shape (the launch
@@ -263,8 +290,8 @@ def _k1_times(rng, b: int) -> dict:
     from hyperbolic_vae_tpu_torch.ops import gyroplane as g
 
     x = torch.from_numpy(_points(rng, b, 1.0, "interior")).cuda()
-    pts = torch.from_numpy(_points(rng, P, 1.0, "interior")).cuda()
-    bias = torch.from_numpy(rng.uniform(-1, 1, P).astype(np.float32)).cuda()
+    pts = torch.from_numpy(_points(rng, p, 1.0, "interior")).cuda()
+    bias = torch.from_numpy(rng.uniform(-1, 1, p).astype(np.float32)).cuda()
 
     def kernel():
         return g.gyroplane_distances_cuda(x, pts, 1.0, True, bias)
@@ -275,17 +302,18 @@ def _k1_times(rng, b: int) -> dict:
     plain_a, ms_a, ms_b, plain_b = (_time_ms(f) for f in (plain, kernel, kernel, plain))
     ms, plain_ms = (ms_a + ms_b) / 2, (plain_a + plain_b) / 2
     graph_ms, plain_graph_ms = _graph_ms(kernel), _graph_ms(plain)
-    floor_ms = _graph_ms(_empty_launch(b))
-    n_bytes = 4 * (b * D + P * D + P + b * P)
-    n_ops = b * P * (2 * D + GYRO_EPILOGUE_OPS) + 2 * D * (b + P)
+    floor_ms = _graph_ms(_empty_launch(b, p))
+    n_bytes = 4 * (b * D + p * D + p + b * p)
+    n_ops = b * p * (2 * D + GYRO_EPILOGUE_OPS) + 2 * D * (b + p)
     t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S * 1e3, n_ops / F32_FLOP_PER_S * 1e3
-    print(f"kernel gyroplane_distances at B={b}: called from Python {ms_a:.7f} ms, "
+    print(f"kernel gyroplane_distances at B={b}, P={p}: called from Python {ms_a:.7f} ms, "
           f"{ms_b:.7f} ms; plain {plain_a:.7f} ms, {plain_b:.7f} ms; replayed from a "
           f"CUDA graph {graph_ms:.7f} ms, plain {plain_graph_ms:.7f} ms; an empty kernel of its "
           f"launch shape replayed the same way (the launch floor) {floor_ms:.7f} ms; "
           f"{n_bytes} bytes, {n_ops} flops: bound {max(t_bytes, t_ops):.7f} ms", flush=True)
     return {
         "B": b,
+        "P": p,
         "ms": ms,
         "kernel_ms": ms,
         "graph_ms": graph_ms,
@@ -297,9 +325,9 @@ def _k1_times(rng, b: int) -> dict:
     }
 
 
-def _empty_launch(b: int):
+def _empty_launch(b: int, p: int = P):
     """A call of ``gyroplane_empty_launch``: an empty kernel with K1's grid
-    at (b, P = 16, D = 2)."""
+    at (b, p, D = 2)."""
     import ctypes
 
     import torch
@@ -310,7 +338,7 @@ def _empty_launch(b: int):
     fn.argtypes, fn.restype = [ctypes.c_int] * 3 + [ctypes.c_void_p], ctypes.c_int
 
     def call():
-        if fn(b, P, D, torch.cuda.current_stream().cuda_stream) != 0:
+        if fn(b, p, D, torch.cuda.current_stream().cuda_stream) != 0:
             _fail("the empty kernel did not launch")
 
     return call
@@ -1234,6 +1262,393 @@ def eval_phase(trainer, dm, best, k: int = 5000) -> dict:
     return launches
 
 
+# the RNA-seq family at its realistic width (benchmarks/bench_rnaseq.py's
+# "GSE115978-realistic config"): genes, hidden units (= K1's planes), cells
+RNA_GENES, RNA_HIDDEN, RNA_CELLS = 20480, 256, 8192
+RNA_FIT_EPOCHS = 30
+RNA_IWAE_K = 5000
+RNA_K_CHUNK = 100  # evaluate_iwae's k_chunk here: a chunk's decode is 100 x 256 rows
+# a training step's wide products: five of 2 B G H flops (the forward's
+# two, their weight gradients, and the decoder's input gradient; the
+# encoder's input needs none). bench_rnaseq.py counts 3 x the forward's two.
+RNA_PRODUCT_FLOP = 2 * BATCH * RNA_GENES * RNA_HIDDEN
+RNA_STEP_FLOP, RNA_BENCH_STEP_FLOP = 5 * RNA_PRODUCT_FLOP, 6 * RNA_PRODUCT_FLOP
+# (b)'s parameter rule after five Adam steps card vs CPU: the largest share
+# of a tensor's elements outside rtol/atol. Gradients that differ by
+# rounding (a few 1e-6 of their largest) leave 0.1-1 % outside (where a
+# moment is within rounding of zero, Adam steps either way); a planted
+# error of 1e-4 of each gradient's largest at every step (the gradient
+# rule's own limit), the control, leaves ~10 % outside.
+RNA_RTOL, RNA_ATOL, RNA_SHARE_LIMIT, RNA_CONTROL_NOISE = 5e-3, 3e-4, 2.5e-2, 1e-4
+
+
+def _rnaseq_jax_tree(seed: int) -> dict:
+    """Seeded weights in the JAX ``RNASeqVAE``'s tree layout (numpy,
+    kernels (in, out)), drawn as flax initialises them: lecun-normal
+    kernels, zero biases, gyroplane points expmap0(unit direction x N(0,
+    1)) on the c = 1 ball, gyroplane biases U(-1, 1), ``nb_log_theta`` 0."""
+    import torch
+
+    from hyperbolic_vae_tpu_torch.manifolds import PoincareBall
+
+    rng = np.random.default_rng(seed)
+
+    def dense(n_in, n_out):
+        kernel = rng.standard_normal((n_in, n_out), dtype=np.float32) / np.float32(np.sqrt(n_in))
+        return {"kernel": kernel, "bias": np.zeros(n_out, np.float32)}
+
+    v = rng.standard_normal((RNA_HIDDEN, D))
+    v *= rng.standard_normal((RNA_HIDDEN, 1)) / np.linalg.norm(v, axis=-1, keepdims=True)
+    points = PoincareBall(1.0).expmap0(torch.from_numpy(v.astype(np.float32))).numpy()
+    return {"enc": dense(RNA_GENES, RNA_HIDDEN), "mu": dense(RNA_HIDDEN, D),
+            "scale": dense(RNA_HIDDEN, D),
+            "gyroplanes": {"mp_points": points,
+                           "bias": rng.uniform(-1, 1, RNA_HIDDEN).astype(np.float32)},
+            "dec_out": dense(RNA_HIDDEN, RNA_GENES),
+            "nb_log_theta": np.zeros(RNA_GENES, np.float32)}
+
+
+def _rnaseq_ll_elbo(metrics: dict, split: str, recon: str, genes: int) -> float:
+    """The ELBO a row under the bound's likelihood, from ``evaluate``'s
+    means at beta = 1: the ``mse`` loss is a sum of squares, the bound's a
+    unit Gaussian, -0.5 sum (x - x_hat)^2 - 0.5 G log(2 pi); ``nb``'s are
+    the same density."""
+    rec, kl = metrics[f"{split}/loss_recon"], metrics[f"{split}/loss_kl"]
+    if recon == "nb":
+        return -(rec + kl)
+    return -(0.5 * rec + 0.5 * genes * np.log(2.0 * np.pi) + kl)
+
+
+def _share_outside(a, b, rtol: float, atol: float) -> float:
+    """The share of elements of a and b (tensors) outside allclose's rule."""
+    a, b = a.detach().cpu().double(), b.detach().cpu().double()
+    return float(((a - b).abs() > atol + rtol * b.abs()).double().mean())
+
+
+def rnaseq_phase():
+    """The RNA-seq family (``RNASeqVAE``, genes -> hidden 256 -> 2-D ball,
+    c = 1 -> 256 gyroplanes -> genes, batch 256) on the card, from seed-0
+    weights in the JAX tree's layout (``_rnaseq_jax_tree``) carried through
+    ``state_dict_from_jax_params``, on ``make_rnaseq_data_module(fake=True,
+    n_samples=8192, n_genes=20480, structured_fake=True)`` (5,734 train,
+    1,228 val, 1,230 test rows, z-scored):
+
+      (a) K1 at 256 planes against its plain version (``_k1_check``'s
+          rules) at B = 256 (every training, validation and serving batch)
+          and 25,600 (the IWAE decode), timed from Python and from graph
+          replay beside an empty launch of its grid;
+      (b) five eager f32 steps (``loss_from_eps``, autograd backward,
+          RiemannianAdam) on the card and on the CPU from the same weights,
+          batches and eps: every loss, first-step gradient and parameter
+          finite; the first step's gradients within 1e-4 of each tensor's
+          largest (f32 sums over 20,480 genes in another order); each
+          step's loss rtol 1e-4; after five steps at most 2.5 % of any
+          tensor's elements outside rtol 5e-3 / atol 3e-4 (``RNA_RTOL``'s
+          note), and a control that must exceed that share: the card's
+          five steps again with an error of 1e-4 of each gradient's
+          largest planted at every step;
+      (c) ``Trainer.fit`` graphed against eager, two epochs each, bit for
+          bit, in three arms: f32; ``compute_dtype=param_dtype="bfloat16"``;
+          ``recon="nb"`` on raw counts (``rnaseq_normalize_method=None``, a
+          quarter of the cells), whose trained model then takes a z-scored
+          batch: its loss is NaN and the finite guard skips the step
+          (nothing changes). Each graphed fit launches K1 once a training
+          step and val batch;
+      (d) the f32 and bf16 graphed steps' wall, busy, idle share and
+          kernels a step (``_profile_train``), and TFLOP/s from the five
+          wide products' 13.4 GFLOP a step (and from bench_rnaseq.py's
+          16.1);
+      (e) a 30-epoch graphed f32 fit (``epochs_per_dispatch=10``,
+          ``checkpoint_dir``): its best val loss_total below its first;
+      (f) ``Inferencer.from_checkpoint(dir, "best")`` behind
+          ``InferenceServer`` on 127.0.0.1: embed, decode, reconstruct (2,048
+          rows as octet-stream) and generate, the reconstruct equal, bit for
+          bit, to the restored model's decode of its posterior mean batch by
+          batch on the card; one latency a request;
+      (g) ``evaluate_iwae(k=5000, batch_chunk=256, k_chunk=100)`` on the
+          test split: exactly 250 K1 launches (5 batch chunks x 50 k
+          chunks), the bound at least the ELBO under the same likelihood;
+          its wall time, then K1's device time under torch.profiler.
+
+    Returns (K1's entry at 256 planes, launches by path)."""
+    import tempfile
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from hyperbolic_vae_tpu_torch.data import make_rnaseq_data_module
+    from hyperbolic_vae_tpu_torch.interop import state_dict_from_jax_params
+    from hyperbolic_vae_tpu_torch.models import RNASeqVAE
+    from hyperbolic_vae_tpu_torch.optim import RiemannianAdam
+    from hyperbolic_vae_tpu_torch.serve import Inferencer
+    from hyperbolic_vae_tpu_torch.serve_http import InferenceServer
+    from hyperbolic_vae_tpu_torch.train import Trainer
+    from hyperbolic_vae_tpu_torch.train.cuda_graph import run_eagerly
+    from hyperbolic_vae_tpu_torch.train.epoch_program import train_step
+
+    t_phase = time.perf_counter()
+    data_kw = dict(batch_size=BATCH, fake=True, n_samples=RNA_CELLS, n_genes=RNA_GENES,
+                   structured_fake=True)
+    dm = make_rnaseq_data_module(**data_kw)
+    # the nb arm's raw counts on a quarter of the cells (drawing them is the
+    # host's slowest set-up)
+    counts = make_rnaseq_data_module(**{**data_kw, "n_samples": RNA_CELLS // 4},
+                                     rnaseq_normalize_method=None)
+    print(f"rnaseq: data {dm.x_train.shape[0]} train, {dm.x_val.shape[0]} val, "
+          f"{dm.x_test.shape[0]} test rows of {RNA_GENES} genes, z-scored; "
+          f"{counts.x_train.shape[0]} train rows of raw counts "
+          f"({time.perf_counter() - t_phase:.2f} s)", flush=True)
+
+    sd = state_dict_from_jax_params(_rnaseq_jax_tree(0), model="rnaseq")
+
+    def make(recon="mse", dtype="float32", on="cuda"):
+        m = RNASeqVAE(RNA_GENES, RNA_HIDDEN, recon=recon, compute_dtype=dtype, param_dtype=dtype,
+                      device=on)
+        m.load_state_dict({k_: v for k_, v in sd.items() if recon == "nb" or k_ != "nb_log_theta"})
+        return m
+
+    # (a) K1 at 256 planes
+    rng = np.random.default_rng(11)
+    iwae_rows = RNA_K_CHUNK * BATCH
+    err_in, err_bd = _k1_check(rng, (BATCH, iwae_rows), RNA_HIDDEN)
+    print(f"rnaseq (a): K1 at P={RNA_HIDDEN}: max_abs_err vs plain: interior {err_in:.3e}, "
+          f"near boundary {err_bd:.3e}", flush=True)
+    k1 = _k1_entry(err_in, err_bd, _k1_times(rng, BATCH, RNA_HIDDEN),
+                   _k1_times(rng, iwae_rows, RNA_HIDDEN))
+
+    # (b) five eager f32 steps, card against CPU, and the control
+    rng = np.random.default_rng(12)
+    draws = [(dm.x_train[rng.integers(0, dm.x_train.shape[0], BATCH)],
+              rng.normal(size=(BATCH, D)).astype(np.float32)) for _ in range(5)]
+
+    def five_steps(on, noise=0.0):
+        """(losses, first-step gradients, parameters after five steps),
+        the tensors copied to the CPU. With ``noise``, each gradient gets
+        N(0, noise x its largest magnitude) an element before each step."""
+        m = make(on=on)
+        opt = RiemannianAdam(m.parameters(), lr=1e-3, betas=(0.9, 0.999), ball=m.ball)
+        gen = torch.Generator().manual_seed(13)
+        losses, grads = [], None
+        for xb, eps in draws:
+            loss = m.loss_from_eps(torch.from_numpy(xb).to(on), torch.from_numpy(eps).to(on))
+            opt.zero_grad()
+            loss["loss_total"].backward()
+            if grads is None:
+                grads = {n: q.grad.detach().cpu().clone() for n, q in m.named_parameters()}
+            for q in m.parameters() if noise else ():
+                q.grad += noise * q.grad.abs().max() * torch.randn(q.shape, generator=gen).to(on)
+            opt.step()
+            losses.append(float(loss["loss_total"].detach()))
+        return losses, grads, {n: q.detach().cpu() for n, q in m.named_parameters()}
+
+    card, cpu = five_steps("cuda"), five_steps("cpu")
+    control = five_steps("cuda", RNA_CONTROL_NOISE)
+    for what, (losses, grads, params) in (("card", card), ("CPU", cpu), ("control", control)):
+        if not (np.isfinite(losses).all()
+                and all(torch.isfinite(t).all() for t in (*grads.values(), *params.values()))):
+            _fail(f"rnaseq (b): a non-finite loss, gradient or parameter on the {what} run "
+                  f"(losses {losses})")
+    grad_err = np.max([float((card[1][n] - g_).abs().max() / g_.abs().max())
+                       for n, g_ in cpu[1].items()])
+    loss_err = np.max([abs(a - b) / abs(b) for a, b in zip(card[0], cpu[0])])
+    share, control_share = (max(_share_outside(run[2][n], p_, RNA_RTOL, RNA_ATOL)
+                                for n, p_ in cpu[2].items()) for run in (card, control))
+    print(f"rnaseq (b): 5 eager f32 steps card vs CPU: losses {json.dumps([card[0], cpu[0]])} "
+          f"(largest relative difference {loss_err:.3e}); first step's gradients max abs diff "
+          f"{grad_err:.3e} of each tensor's largest; after 5 steps the largest share of a "
+          f"tensor's elements outside rtol {RNA_RTOL}/atol {RNA_ATOL} {share:.4e} (limit "
+          f"{RNA_SHARE_LIMIT}; the control with {RNA_CONTROL_NOISE} of each gradient's largest "
+          f"planted at every step {control_share:.4e})", flush=True)
+    if not grad_err <= 1e-4:
+        _fail(f"rnaseq (b): first-step gradients card vs CPU differ by {grad_err} of their scale")
+    if not loss_err <= 1e-4:
+        _fail(f"rnaseq (b): losses card vs CPU differ by {loss_err} of their size")
+    if not share <= RNA_SHARE_LIMIT:
+        _fail(f"rnaseq (b): {share} of a tensor's elements card vs CPU outside rtol {RNA_RTOL}/"
+              f"atol {RNA_ATOL} after 5 steps, over {RNA_SHARE_LIMIT}")
+    if not control_share > RNA_SHARE_LIMIT:
+        _fail(f"rnaseq (b): the control's share {control_share} is within {RNA_SHARE_LIMIT}: the "
+              "rule does not see an error at the gradient rule's limit")
+    del card, cpu, control
+
+    steps = dm.x_train.shape[0] // BATCH
+    n_val = dm.x_val.shape[0]
+    per_epoch = steps + n_val // BATCH + (1 if n_val % BATCH else 0)
+
+    def fit(data, epochs, eager=False, recon="mse", dtype="float32", **kw):
+        model = make(recon, dtype)
+        trainer = Trainer(model, max_epochs=epochs, **kw)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with run_eagerly() if eager else contextlib.nullcontext():
+            res = trainer.fit(data)
+        torch.cuda.synchronize()
+        return res, trainer, time.perf_counter() - t0
+
+    # (c) graphed against eager, three arms
+    paths, graphed = {}, {}
+    for arm, data, kw in (("f32", dm, {}), ("bf16", dm, dict(dtype="bfloat16")),
+                          ("nb", counts, dict(recon="nb"))):
+        _reset_launches()
+        res, trainer, wall = fit(data, 2, early_stopping_patience=None, **kw)
+        launches = _launches()
+        eres, _, ewall = fit(data, 2, eager=True, early_stopping_patience=None, **kw)
+        _same_fit(f"rnaseq {arm}", res, eres, "graphed", "eager")
+        if not all(np.isfinite(v) for row in res.history for v in row.values()):
+            _fail(f"rnaseq (c) {arm}: non-finite metrics {res.history}")
+        n_v = data.x_val.shape[0]
+        per = data.x_train.shape[0] // BATCH + n_v // BATCH + (1 if n_v % BATCH else 0)
+        want = {"gyroplane_distances": 2 * per, "flagship_fused": 0, "flagship_train": 0}
+        if launches != want:
+            _fail(f"rnaseq (c) {arm}: launches {launches}, want {want}")
+        paths[f"rnaseq_fit_{arm}"] = launches
+        graphed[arm] = trainer
+        print(f"rnaseq (c) {arm}: 2 epochs graphed {wall:.3f} s, eager {ewall:.3f} s, bit for bit; "
+              f"launches {json.dumps(launches)}; val/loss_total "
+              f"{[h['val/loss_total'] for h in res.history]}", flush=True)
+    # the nb model on a z-scored batch: NaN, skipped, nothing changes
+    trainer = graphed["nb"]
+    model, opt = trainer.model, trainer.optimizer
+    before = [t.detach().clone() for t in list(model.state_dict().values())
+              + [s_ for st in opt.state.values() for s_ in st.values()] + [opt.count]]
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    m = train_step(model, opt, torch.from_numpy(dm.x_train[:BATCH]).cuda(), gen)
+    after = list(model.state_dict().values()) + [s_ for st in opt.state.values()
+                                                 for s_ in st.values()] + [opt.count]
+    if not (np.isnan(float(m["loss_total"])) and float(m["skipped_steps"]) == 1.0
+            and all(torch.equal(a, b) for a, b in zip(before, after))):
+        _fail(f"rnaseq (c) nb: a z-scored batch gave {({k_: float(v) for k_, v in m.items()})}, "
+              "or the skipped step changed the state")
+    print("rnaseq (c) nb: a z-scored batch: loss NaN, skipped_steps 1, state unchanged", flush=True)
+
+    # (d) the graphed steps' time
+    for arm in ("f32", "bf16"):
+        prof = _profile_train(graphed[arm].program, "cuda")
+        print(f"rnaseq (d) {arm} graphed: {prof['what']}: wall {prof['wall_ms']:.4f} ms/step, "
+              f"device busy {prof['busy_ms']:.4f} ms/step, idle share {prof['idle']}, "
+              f"{prof['kernels']:.1f} kernels/step; {BATCH / prof['wall_ms'] * 1e3:.1f} train "
+              f"samples/s; {RNA_STEP_FLOP / (prof['wall_ms'] * 1e-3) / 1e12:.2f} TFLOP/s from the "
+              f"five wide products' {RNA_STEP_FLOP / 1e9:.1f} GFLOP a step "
+              f"({RNA_BENCH_STEP_FLOP / (prof['wall_ms'] * 1e-3) / 1e12:.2f} from bench_rnaseq.py's "
+              f"{RNA_BENCH_STEP_FLOP / 1e9:.1f})", flush=True)
+    del graphed, trainer, model, opt
+
+    with tempfile.TemporaryDirectory() as ckpt:
+        # (e) the fit
+        _reset_launches()
+        res, trainer, wall = fit(dm, RNA_FIT_EPOCHS, epochs_per_dispatch=10, checkpoint_dir=ckpt)
+        paths["rnaseq_fit"] = _launches()
+        vals = [h["val/loss_total"] for h in res.history]
+        print(f"rnaseq (e): {res.epochs_run} epochs graphed in {wall:.3f} s "
+              f"({res.samples_per_sec:.1f} train samples/s after the first chunk); val/loss_total "
+              f"first {vals[0]:.4f}, best {res.best_metric:.4f} at epoch {int(np.argmin(vals))}; "
+              f"launches {json.dumps(paths['rnaseq_fit'])}", flush=True)
+        if not res.best_metric < vals[0]:
+            _fail(f"rnaseq (e): best val/loss_total {res.best_metric} not below the first {vals[0]}")
+        if paths["rnaseq_fit"]["gyroplane_distances"] != res.epochs_run * per_epoch:
+            _fail(f"rnaseq (e): launches {paths['rnaseq_fit']}, want {res.epochs_run * per_epoch}")
+
+        # (f) served from the best checkpoint
+        inf = Inferencer.from_checkpoint(ckpt, "best", batch_size=BATCH)
+        for key, v in res.best_params.items():
+            if not torch.equal(inf.model.state_dict()[key], v):
+                _fail(f"rnaseq (f): the best checkpoint's {key} is not the fit's best params")
+        t0 = time.perf_counter()
+        inf.warmup()
+        torch.cuda.synchronize()
+        print(f"rnaseq (f): warmup {time.perf_counter() - t0:.3f} s, {inf.n_programs} programs",
+              flush=True)
+        x = dm.x_test[:1]
+        xr = np.ascontiguousarray(np.concatenate([dm.x_test, dm.x_val])[:2048], "<f4")
+        z = np.random.default_rng(1).uniform(-0.6, 0.6, size=(64, D)).astype(np.float32)
+        octet = {"Content-Type": "application/octet-stream",
+                 "Accept": "application/octet-stream"}
+        server = InferenceServer(inf, host="127.0.0.1", port=0).start()
+        lat = {}
+        try:
+            _reset_launches()
+            jhdr = {"Content-Type": "application/json"}
+            _, body, lat["POST /v1/embed 1 row json"] = _http(
+                server, "/v1/embed", json.dumps({"data": x.tolist()}).encode(), jhdr)
+            emb = np.asarray(json.loads(body)["outputs"][0], np.float32)
+            h, body, lat["POST /v1/decode 64 latents octet-stream"] = _http(
+                server, "/v1/decode", z.tobytes(), {**octet, "X-Shape": "64,2"})
+            dec = np.frombuffer(body, "<f4").reshape(tuple(int(s_) for s_ in h["X-Shape"].split(",")))
+            h, body, lat["POST /v1/reconstruct 2048 rows octet-stream"] = _http(
+                server, "/v1/reconstruct", xr.tobytes(),
+                {**octet, "X-Shape": ",".join(map(str, xr.shape))})
+            rec = np.frombuffer(body, "<f4").reshape(tuple(int(s_) for s_ in h["X-Shape"].split(",")))
+            gens = []
+            for i in range(2):
+                h, body, lat[f"POST /v1/generate n=512 seed=3 octet-stream ({i + 1})"] = _http(
+                    server, "/v1/generate", json.dumps({"n": 512, "seed": 3}).encode(),
+                    {**jhdr, "Accept": "application/octet-stream"})
+                gens.append(np.frombuffer(body, "<f4").reshape(
+                    tuple(int(s_) for s_ in h["X-Shape"].split(","))))
+            paths["rnaseq_serve"] = _launches()
+        finally:
+            server.shutdown()
+        for name, ms in lat.items():
+            print(f"rnaseq (f) latency {name}: {ms:.3f} ms", flush=True)
+        for name, a, shape in (("embed", emb, (1, D)), ("decode", dec, (64, RNA_GENES)),
+                               ("reconstruct", rec, (2048, RNA_GENES)),
+                               ("generate", gens[0], (512, RNA_GENES))):
+            if a.shape != shape or not np.all(np.isfinite(a)):
+                _fail(f"rnaseq (f): {name}: shape {a.shape} (want {shape}) or non-finite values")
+        if not np.array_equal(gens[0], gens[1]):
+            _fail("rnaseq (f): generate(n=512, seed=3) differs between two requests")
+        with torch.inference_mode():
+            want = torch.cat([inf.model.decode(inf.model.encode(
+                torch.from_numpy(xr[i:i + BATCH]).cuda())[0]) for i in range(0, 2048, BATCH)])
+        if not np.array_equal(rec, want.cpu().numpy()):
+            _fail(f"rnaseq (f): the served reconstruct differs from the model's by "
+                  f"{float(np.abs(rec - want.cpu().numpy()).max())}")
+        # one K1 launch a decoded batch: 1 (decode 64), 8 (reconstruct 2048),
+        # 2 x 2 (generate 512 twice); embed decodes nothing
+        want_l = {"gyroplane_distances": 13, "flagship_fused": 0, "flagship_train": 0}
+        if paths["rnaseq_serve"] != want_l:
+            _fail(f"rnaseq (f): launches {paths['rnaseq_serve']}, want {want_l}")
+        print(f"rnaseq (f): reconstruct of 2048 rows equal to the model's, bit for bit; launches "
+              f"{json.dumps(paths['rnaseq_serve'])}", flush=True)
+        del inf, server
+
+    # (g) the bound
+    best = res.best_params
+    torch.cuda.synchronize()
+    _reset_launches()
+    t0 = time.perf_counter()
+    bound = trainer.evaluate_iwae(dm, best, k=RNA_IWAE_K, batch_chunk=BATCH, k_chunk=RNA_K_CHUNK)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    paths["rnaseq_eval"] = _launches()
+    elbo = _rnaseq_ll_elbo(trainer.evaluate(dm, best), "test", "mse", RNA_GENES)
+    n_test = dm.x_test.shape[0]
+    chunks = -(-n_test // BATCH) * -(-RNA_IWAE_K // RNA_K_CHUNK)
+    want_l = {"gyroplane_distances": chunks, "flagship_fused": 0, "flagship_train": 0}
+    if paths["rnaseq_eval"] != want_l:
+        _fail(f"rnaseq (g): launches {paths['rnaseq_eval']}, want {want_l}")
+    if not (np.isfinite(bound) and bound >= elbo):
+        _fail(f"rnaseq (g): the bound {bound} is not finite or below the ELBO {elbo}")
+    k1_ms = busy_ms = 0.0
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        trainer.evaluate_iwae(dm, best, k=RNA_IWAE_K, batch_chunk=BATCH, k_chunk=RNA_K_CHUNK)
+        torch.cuda.synchronize()
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0))
+        if str(e.device_type).endswith("CUDA") and us > 0 and "#" not in e.key:
+            busy_ms += us / 1e3
+            if "gyroplane" in e.key:
+                k1_ms += us / 1e3
+    share = f"{k1_ms / busy_ms:.6f}" if busy_ms else "not measured (the profiler saw no kernel)"
+    print(f"rnaseq (g): evaluate_iwae k={RNA_IWAE_K} (k_chunk {RNA_K_CHUNK}) on {n_test} test rows: "
+          f"{bound:.4f} nats a row (ELBO under the same likelihood {elbo:.4f}); wall {wall:.3f} s; "
+          f"launches {json.dumps(paths['rnaseq_eval'])}; under torch.profiler K1 {k1_ms:.4f} ms of "
+          f"{busy_ms:.3f} ms of kernel time (share {share}, {k1_ms / chunks * 1e3:.3f} us "
+          f"a launch)", flush=True)
+    print(f"rnaseq: phase {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return k1, {p_: n["gyroplane_distances"] for p_, n in paths.items()}
+
+
 def _rows_kernel_fit() -> None:
     """The rows kernels' shared memory at the flagship's 784 pixels against
     the wrapper's bound (which must not be below it), and how many of their
@@ -1290,6 +1705,11 @@ def main() -> int:
     for k in kernels:
         k["launches_by_path"] = {p: n[k["name"]] for p, n in paths.items()}
         k["launches"] = sum(k["launches_by_path"].values())
+    # K1 at the RNA-seq family's 256 planes: its own entry, counted on its paths
+    k1_rna, rna_paths = rnaseq_phase()
+    k1_rna["launches_by_path"] = rna_paths
+    k1_rna["launches"] = sum(rna_paths.values())
+    kernels.append(k1_rna)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

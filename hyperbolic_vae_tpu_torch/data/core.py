@@ -3,7 +3,7 @@
 Port of ``hyperbolic_vae_tpu/data/core.py`` (numpy, so the same seed
 gives equal arrays): ``ArrayDataModule`` holds numpy splits, which the
 Trainer stages onto the device once per fit; ``split_train_val`` is the
-seeded 90/10 split.
+seeded 90/10 split, ``split_three_way`` the seeded 70/15/15 one.
 """
 
 from __future__ import annotations
@@ -51,3 +51,16 @@ def split_train_val(x: np.ndarray, y: np.ndarray, val_fraction: float = 0.1, see
     n_val = int(round(len(x) * val_fraction))
     val_idx, train_idx = perm[:n_val], perm[n_val:]
     return x[train_idx], y[train_idx], x[val_idx], y[val_idx]
+
+
+def split_three_way(x: np.ndarray, y: np.ndarray, fractions=(0.7, 0.15), seed: int = 42):
+    """Seeded 70/15/15 split: ((x, y) train, val, test)."""
+    rng = np.random.default_rng(seed)
+    n = len(x)
+    perm = rng.permutation(n)
+    n_train = int(fractions[0] * n)
+    n_val = int(fractions[1] * n)
+    tr = perm[:n_train]
+    va = perm[n_train:n_train + n_val]
+    te = perm[n_train + n_val:]
+    return (x[tr], y[tr]), (x[va], y[va]), (x[te], y[te])

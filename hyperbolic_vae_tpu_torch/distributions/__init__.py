@@ -1,3 +1,7 @@
+from hyperbolic_vae_tpu_torch.distributions.negative_binomial import (
+    nb_mean_dispersion_to_logits,
+    negative_binomial_log_prob,
+)
 from hyperbolic_vae_tpu_torch.distributions.relaxed_bernoulli import relaxed_bernoulli_log_prob
 from hyperbolic_vae_tpu_torch.distributions.wrapped_normal import (
     MAX_SAMPLE_RADIUS,
@@ -11,6 +15,8 @@ from hyperbolic_vae_tpu_torch.distributions.wrapped_normal import (
 __all__ = [
     "MAX_SAMPLE_RADIUS",
     "max_chart_radius",
+    "nb_mean_dispersion_to_logits",
+    "negative_binomial_log_prob",
     "normal_log_prob",
     "relaxed_bernoulli_log_prob",
     "wrapped_normal_log_prob",

@@ -21,8 +21,12 @@ import torch
 
 
 def softplus(x: torch.Tensor) -> torch.Tensor:
-    """log(1 + exp(x)) without overflow."""
-    return x.clamp_min(0.0) + torch.log1p(torch.exp(-x.abs()))
+    """log(1 + exp(x)) without overflow, with slope 1/2 at x = 0 as
+    ``jax.nn.softplus`` (``logaddexp(x, 0)``): ``clamp_min`` alone passes
+    slope 1 there. Values and slopes elsewhere are those of the plain
+    stable form."""
+    relu = torch.where(x == 0.0, 0.5 * x, x.clamp_min(0.0))
+    return relu + torch.log1p(torch.exp(-x.abs()))
 
 
 def relaxed_bernoulli_log_prob(

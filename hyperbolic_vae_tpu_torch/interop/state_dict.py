@@ -1,17 +1,30 @@
-"""Carry weights from the JAX flagship into the port.
+"""Carry weights from the JAX package's models into the port.
 
-``state_dict_from_jax_params`` maps the JAX GyroplaneVAE's parameter
-tree (nested dicts of numpy arrays: ``enc_0/kernel``, ..., ``mu``,
-``scale``, ``gyroplanes/mp_points``, ``gyroplanes/bias``, ``dec_0``,
-``out``) onto the port's state_dict, in the reference layout. Flax
-kernels are (in, out) and become (out, in) weights. It is the same
-mapping as the JAX package's ``interop/torch_export.py`` applies to the
-flagship, so an ``.npz`` written by ``experiments/export_torch_state_dict.py``
-loads with ``load_state_dict_file``.
+``state_dict_from_jax_params`` maps a JAX parameter tree (nested dicts of
+numpy arrays) onto the port's state_dict, in the reference layout, for
+two families, told apart by the tree's keys or by ``model=``:
+
+  * GyroplaneVAE (``enc_0/kernel``, ..., ``mu``, ``scale``,
+    ``gyroplanes/mp_points``, ``gyroplanes/bias``, ``dec_0``, ``out``):
+    ``encoder.1``, ``encoder.3``, ..., ``decoder.0.points/bias``,
+    ``decoder.2``, ``decoder.4``, ...;
+  * RNASeqVAE (``enc``, ``mu``, ``scale``, ``gyroplanes``, ``dec_out``,
+    ``nb_log_theta``): ``encoder.0``, ``mu.0``, ``scale.0``,
+    ``decoder.0.points/bias``, ``decoder.2`` and ``nb_log_theta``.
+
+Flax kernels are (in, out) and become (out, in) weights. It is the
+mapping the JAX package's ``interop/torch_export.py`` applies (for
+RNASeqVAE its ``_export_unified``, which drops ``nb_log_theta``; this
+keeps it), so an ``.npz`` written by
+``experiments/export_torch_state_dict.py`` loads with
+``load_state_dict_file``. A bf16 leaf (a numpy array whose dtype is named
+``bfloat16``) becomes a ``torch.bfloat16`` tensor exactly, through its
+16-bit pattern; every other leaf becomes f32.
 
 ``optimizer_state_from_jax`` carries a JAX ``RiemannianAdamState``
 (``count``, ``exp_avg``, ``exp_avg_sq``) into the port's RiemannianAdam
 by the same mapping, so both optimizers can start from one state.
+The port never imports ``ml_dtypes``: a bf16 leaf is read by its bits.
 """
 
 from __future__ import annotations
@@ -34,6 +47,10 @@ __all__ = [
 
 
 def _t(a) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        # the same bits: bf16 is the upper half of an f32
+        return torch.from_numpy(np.ascontiguousarray(a).view(np.uint16).copy()).view(torch.bfloat16)
     return torch.tensor(np.asarray(a, np.float32))
 
 
@@ -42,12 +59,36 @@ def _linear(p: Mapping, key: str, sd: Dict[str, torch.Tensor]) -> None:
     sd[f"{key}.bias"] = _t(p["bias"])
 
 
-def state_dict_from_jax_params(params: Mapping) -> Dict[str, torch.Tensor]:
-    """The port's GyroplaneVAE state_dict for a JAX flagship parameter
-    tree (the ``params`` collection, as nested dicts of arrays)."""
+def _family(params: Mapping, model) -> str:
+    """"gyroplane" or "rnaseq": from ``model`` (a name, or a port model)
+    when given, else from the tree's keys."""
+    if model is not None:
+        name = model if isinstance(model, str) else type(model).__name__
+        kind = {"GyroplaneVAE": "gyroplane", "RNASeqVAE": "rnaseq"}.get(name, name)
+        if kind not in ("gyroplane", "rnaseq"):
+            raise ValueError(f"no parameter mapping for model {name!r}")
+        return kind
+    return "rnaseq" if "enc" in params and "dec_out" in params else "gyroplane"
+
+
+def state_dict_from_jax_params(params: Mapping, model=None) -> Dict[str, torch.Tensor]:
+    """The port's state_dict for a JAX parameter tree (the ``params``
+    collection, as nested dicts of arrays) of a GyroplaneVAE or an
+    RNASeqVAE; ``model`` ("gyroplane", "rnaseq", or a port model) names
+    the family, which otherwise comes from the tree's keys."""
+    sd: Dict[str, torch.Tensor] = {}
+    if _family(params, model) == "rnaseq":
+        _linear(params["enc"], "encoder.0", sd)
+        _linear(params["mu"], "mu.0", sd)
+        _linear(params["scale"], "scale.0", sd)
+        sd["decoder.0.points"] = _t(params["gyroplanes"]["mp_points"])
+        sd["decoder.0.bias"] = _t(params["gyroplanes"]["bias"])
+        _linear(params["dec_out"], "decoder.2", sd)
+        if "nb_log_theta" in params:
+            sd["nb_log_theta"] = _t(params["nb_log_theta"])
+        return sd
     n_enc = sum(1 for k in params if k.startswith("enc_"))
     n_dec = sum(1 for k in params if k.startswith("dec_"))
-    sd: Dict[str, torch.Tensor] = {}
     # reference Sequential indices: Flatten at 0, Linear at odd slots
     for i in range(n_enc):
         _linear(params[f"enc_{i}"], f"encoder.{2 * i + 1}", sd)
@@ -67,9 +108,10 @@ def optimizer_state_from_jax(opt_state_inner, model) -> dict:
     the port optimizer over ``model.parameters()``:
     ``{"count": int, "state": {param: {"exp_avg": t, "exp_avg_sq": t}}}``,
     the form ``RiemannianAdam.load_moments`` takes. Kernels are transposed
-    as ``state_dict_from_jax_params`` transposes them."""
-    m = state_dict_from_jax_params(opt_state_inner.exp_avg)
-    v = state_dict_from_jax_params(opt_state_inner.exp_avg_sq)
+    as ``state_dict_from_jax_params`` transposes them, and bf16 moments
+    stay bf16 exactly."""
+    m = state_dict_from_jax_params(opt_state_inner.exp_avg, model)
+    v = state_dict_from_jax_params(opt_state_inner.exp_avg_sq, model)
     return {
         "count": int(np.asarray(opt_state_inner.count)),
         "state": {p: {"exp_avg": m[name], "exp_avg_sq": v[name]}

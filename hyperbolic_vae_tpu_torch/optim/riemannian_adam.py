@@ -14,8 +14,11 @@ Port of ``hyperbolic_vae_tpu/optim/riemannian_adam.py``. Per tensor:
 JAX tags manifold leaves by an ``mp_`` name; here the dispatch is on the
 parameter's type. The step ``count`` is one tensor shared by all
 parameters, as in JAX's ``RiemannianAdamState``, and lives on the
-parameters' device. Every parameter lands on ``p + (new - p)``, the
-arithmetic of ``optax.apply_updates``.
+parameters' device. As in JAX, the gradient, the parameter and the
+moments are read in at least f32 whatever their storage, the update is
+cast to the parameter's stored type and added in that type (the
+arithmetic of ``optax.apply_updates``), and the EMA reads that rounded
+sum, so a bf16 parameter rounds where JAX's does.
 
 Nothing here waits for the device or binds a new tensor after
 construction, so a step can be captured in a CUDA graph: each group's
@@ -105,24 +108,25 @@ class RiemannianAdam(torch.optim.Optimizer):
                 if p.grad is None:
                     continue
                 m, v = self.moments(p)
-                # the arithmetic in at least f32 whatever the moments' storage
+                # JAX's leaf_update, op for op: g, p and both moments in at
+                # least f32 whatever their storage; the update cast to the
+                # stored type and added in it (optax.apply_updates)
                 compute = torch.promote_types(torch.float32, p.dtype)
-                mf, vf = m.to(compute), v.to(compute)
-                g = p.grad
+                g, pf, mf, vf = (t.to(compute) for t in (p.grad, p, m, v))
                 if wd:
-                    g = g + wd * p
+                    g = g + wd * pf
                 if is_manifold_param(p):
-                    g = self.ball.egrad2rgrad(p, g)
+                    g = self.ball.egrad2rgrad(pf, g)
                     new_m = b1 * mf + (1.0 - b1) * g
-                    new_v = b2 * vf + (1.0 - b2) * self.ball.component_inner(p, g)
+                    new_v = b2 * vf + (1.0 - b2) * self.ball.component_inner(pf, g)
                     direction = (new_m / bc1) / (torch.sqrt(new_v / bc2) + eps)
-                    new_p, new_m = self.ball.retr_transp(p, -lr * direction, new_m)
-                    update = self.ball.project(new_p) - p
+                    new_pt, new_m = self.ball.retr_transp(pf, -lr * direction, new_m)
+                    update = self.ball.project(new_pt) - pf
                 else:
                     new_m = b1 * mf + (1.0 - b1) * g
                     new_v = b2 * vf + (1.0 - b2) * g * g
                     update = -lr * (new_m / bc1) / (torch.sqrt(new_v / bc2) + eps)
-                new_p = p + update
+                new_p = p + update.to(p.dtype)
                 if self.ema_decay is not None:
                     e = self.state[p]["ema"]
                     new_e = self._ema(e, new_p.to(torch.float32), is_manifold_param(p))

@@ -1,4 +1,4 @@
-"""Serving: fixed-shape batched inference over a GyroplaneVAE.
+"""Serving: fixed-shape batched inference over a trained model.
 
 Port of ``hyperbolic_vae_tpu/serve.py``'s ``Inferencer``, with the same
 request semantics:
@@ -20,7 +20,10 @@ request semantics:
     model computes in f32, data-shaped outputs come back in the wire
     dtype and are restored to float32 numpy.
 
-Everything runs under ``torch.inference_mode()``. Sharded serving
+A model comes from a flagship state_dict (``from_state_dict``), from a
+Trainer's checkpoint directory (``from_checkpoint``: any family whose
+checkpoint embeds its configuration, e.g. ``RNASeqVAE``), or is passed
+in. Everything runs under ``torch.inference_mode()``. Sharded serving
 (``mesh``) and exported program bundles are not ported yet.
 """
 
@@ -119,6 +122,24 @@ class Inferencer:
             load_state_dict_file(path), data_shape=data_shape,
             manifold_curvature=manifold_curvature, device=device,
         )
+        return cls(model, batch_size=batch_size,
+                   max_batches_per_dispatch=max_batches_per_dispatch,
+                   io_dtype=io_dtype, sub_batch_buckets=sub_batch_buckets,
+                   device=device)
+
+    @classmethod
+    def from_checkpoint(cls, ckpt_dir, name: str = "best", batch_size: int = 256,
+                        max_batches_per_dispatch: int = 16, io_dtype=None,
+                        sub_batch_buckets: bool = True,
+                        device: DeviceLike = None) -> "Inferencer":
+        """Serve checkpoint ``name`` (``best``, ``last``, ``ema``, ...) of a
+        Trainer's ``checkpoint_dir``: the model is rebuilt from the
+        configuration the checkpoint embeds (``train/checkpoint.py``'s
+        ``restore_model``), any family with ``hparams()``."""
+        from hyperbolic_vae_tpu_torch.train.checkpoint import restore_model
+
+        device = resolve_device(device)
+        model, _, _ = restore_model(ckpt_dir, name, device=device)
         return cls(model, batch_size=batch_size,
                    max_batches_per_dispatch=max_batches_per_dispatch,
                    io_dtype=io_dtype, sub_batch_buckets=sub_batch_buckets,

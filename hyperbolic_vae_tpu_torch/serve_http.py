@@ -30,8 +30,10 @@ Endpoints:
                              ``Accept: application/octet-stream`` for a
                              raw-f32 reply)
 
-Run: ``python -m hyperbolic_vae_tpu_torch.serve_http --state-dict
-flagship_torch.npz`` (serves on the CUDA device).
+Run: ``python -m hyperbolic_vae_tpu_torch.serve_http --checkpoint DIR
+--name best`` (a Trainer's checkpoint directory, any model family) or
+``... --state-dict flagship_torch.npz`` (a flagship state_dict); serves
+on the CUDA device.
 """
 
 from __future__ import annotations
@@ -553,22 +555,24 @@ class InferenceServer:
             self.dispatcher.close()
 
 
-def main(argv: Optional[list] = None, device=None):
-    """CLI: serve a GyroplaneVAE state_dict over HTTP. ``device`` (for
-    callers embedding the CLI) defaults to ``cuda``."""
+def parse_args(argv: Optional[list] = None):
+    """The CLI's arguments: exactly one of ``--checkpoint DIR`` (with
+    ``--name``) and ``--state-dict FILE``."""
     import argparse
 
-    from hyperbolic_vae_tpu_torch.device import resolve_device
-    from hyperbolic_vae_tpu_torch.serve import Inferencer
-
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    p.add_argument("--state-dict", required=True,
-                   help="GyroplaneVAE state_dict (.npz from "
-                        "experiments/export_torch_state_dict.py, or .pt)")
+    src = p.add_mutually_exclusive_group(required=True)
+    src.add_argument("--checkpoint", help="a Trainer's checkpoint_dir (any model family)")
+    src.add_argument("--state-dict",
+                     help="GyroplaneVAE state_dict (.npz from "
+                          "experiments/export_torch_state_dict.py, or .pt)")
+    p.add_argument("--name", default="best",
+                   help="checkpoint name with --checkpoint (best/last/ema)")
     p.add_argument(
-        "--also", action="append", default=[], metavar="MODEL=STATE_DICT",
+        "--also", action="append", default=[], metavar="MODEL=SOURCE",
         help="serve an extra model from the same process under "
-             "/v1/models/MODEL/... (repeatable)",
+             "/v1/models/MODEL/... (repeatable); SOURCE is CKPT_DIR[:NAME] "
+             "or a state_dict file",
     )
     p.add_argument("--host", default="0.0.0.0")
     p.add_argument("--port", type=int, default=8000)
@@ -587,23 +591,48 @@ def main(argv: Optional[list] = None, device=None):
     p.add_argument("--max-wait-ms", type=float, default=0.0,
                    help="hold the first request of a wave open this long "
                         "for stragglers (0 = opportunistic drain only)")
-    args = p.parse_args(argv)
-    device = resolve_device(device)
+    return p.parse_args(argv)
 
-    def load(path):
-        return Inferencer.from_state_dict(
-            path, batch_size=args.batch_size,
-            max_batches_per_dispatch=args.max_batches_per_dispatch,
-            io_dtype=args.io_dtype,
-            sub_batch_buckets=not args.no_sub_batch_buckets, device=device,
-        )
 
-    engines = {"default": load(args.state_dict)}
+def load_engines(args, device=None) -> dict:
+    """The engines the parsed ``args`` name, by model name ("default"
+    first), on ``device`` (default ``cuda``)."""
+    from pathlib import Path
+
+    from hyperbolic_vae_tpu_torch.serve import Inferencer
+
+    kw = dict(batch_size=args.batch_size,
+              max_batches_per_dispatch=args.max_batches_per_dispatch,
+              io_dtype=args.io_dtype, sub_batch_buckets=not args.no_sub_batch_buckets,
+              device=device)
+
+    def load_checkpoint_or_file(src: str):
+        """CKPT_DIR[:NAME] (NAME defaults to best), or a state_dict file."""
+        ckpt, _, name = src.rpartition(":")
+        if not (ckpt and Path(ckpt).is_dir()):
+            ckpt, name = src, "best"
+        if Path(ckpt).is_dir():
+            return Inferencer.from_checkpoint(ckpt, name=name, **kw)
+        return Inferencer.from_state_dict(src, **kw)
+
+    engines = {"default": (Inferencer.from_checkpoint(args.checkpoint, name=args.name, **kw)
+                           if args.checkpoint else Inferencer.from_state_dict(args.state_dict, **kw))}
     for spec in args.also:
         mname, _, src = spec.partition("=")
         if not mname or not src:
-            raise SystemExit(f"--also expects MODEL=STATE_DICT, got {spec!r}")
-        engines[mname] = load(src)
+            raise SystemExit(f"--also expects MODEL=SOURCE, got {spec!r}")
+        engines[mname] = load_checkpoint_or_file(src)
+    return engines
+
+
+def main(argv: Optional[list] = None, device=None):
+    """CLI: serve a checkpoint or a GyroplaneVAE state_dict over HTTP.
+    ``device`` (for callers embedding the CLI) defaults to ``cuda``."""
+    from hyperbolic_vae_tpu_torch.device import resolve_device
+
+    args = parse_args(argv)
+    device = resolve_device(device)
+    engines = load_engines(args, device)
     inf = engines["default"]
     if not args.no_warmup:
         print("warming up (every method x bucket)...", flush=True)

@@ -30,9 +30,11 @@ Hooks, as in JAX: ``loss_fn(model, batch, generator) -> metrics`` (e.g.
 ``finite_guard`` does not apply to it. The options that do not compose
 raise, as in JAX: ``grad_accum_steps``, ``grad_clip_norm`` and
 ``ema_decay`` with ``train_step_fn``; ``beta_schedule`` with ``loss_fn``
-or ``train_step_fn``; and, in the port, ``moment_dtype`` with
-``train_step_fn`` (K3 keeps f32 moments). ``fit`` trains ``model`` in
-place, from its current weights or from ``params``. Still to port:
+or ``train_step_fn``; ``grad_accum_steps`` with a model whose
+``loss_reduction`` is not ``"per_sample_mean"``; and, in the port,
+``moment_dtype`` with ``train_step_fn`` (K3 keeps f32 moments).
+``fit`` trains ``model`` in place, from its current weights or from
+``params``. Still to port:
 ensembles and lanes, streaming, preemption, meshes, the memory
 preflight, TensorBoard, ``profile_dir``, ``evaluate(stream_block_rows=...)``.
 """
@@ -115,6 +117,17 @@ class Trainer:
         if grad_accum_steps > 1 and train_step_fn is not None:
             raise ValueError("grad_accum_steps does not compose with train_step_fn "
                              "(the full-step override owns its own grad computation)")
+        if grad_accum_steps > 1 and (
+                getattr(model, "loss_reduction", "per_sample_mean") != "per_sample_mean"):
+            # accumulation averages the metrics and gradients over A equal
+            # microbatches: exact only for per-sample-mean losses
+            raise ValueError(
+                f"grad_accum_steps>1 requires a per-sample-mean loss dict, "
+                f"but {type(model).__name__}.loss_reduction is "
+                f"'{model.loss_reduction}' (its loss entries are batch "
+                f"sums, which accumulation rescales by 1/A). Use the "
+                f"per-sample-mean loss mode (e.g. loss_recon="
+                f"'bernoulli_elbo') or grad_accum_steps=1.")
         if grad_clip_norm is not None and train_step_fn is not None:
             raise ValueError("grad_clip_norm does not compose with train_step_fn")
         if beta_schedule is not None:
