@@ -37,10 +37,10 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
      dropping lr inside the chunk, and with a cosine lr schedule; (d) one
      eager step split into the K2 forward, the autograd backward and the
      optimizer, and one K3 step synchronised.
-  Each path (serve, fused train, K3 train, default train, eval, and the
-  RNA-seq family's fits, serve and eval) zeroes the launch counters just
-  before it and reads them just after; the graph runner adds each
-  captured kernel's launches on every replay.
+  Each path (serve, fused train, K3 train, default train, eval, the
+  RNA-seq family's fits, serve and eval, and the conv families') zeroes
+  the launch counters just before it and reads them just after; the graph
+  runner adds each captured kernel's launches on every replay.
   5. North star: the reference protocol (at most 300 epochs, patience 10,
      ReduceLROnPlateau(0.2, 20, 5e-5), lr 1e-3, batch 256) on the graphed
      K3 path with ``epochs_per_dispatch=10``; fails unless the best
@@ -60,9 +60,22 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
      with checkpoints, served over HTTP from its best checkpoint; and
      ``evaluate_iwae(k=5000, k_chunk=100)`` (exactly 250 K1 launches, at
      least the ELBO).
-  8. Summary: a ``{"kernels": [...]}`` line (K1 twice: at the flagship's 16
-     planes and at the RNA-seq family's 256, each counted on its own
-     paths), then, as the last line, ``{"ok": true, "device": {...}}``.
+  8. Conv (``conv_phase``): experiment 5's ``HyperbolicImageVAE`` (Mobius
+     head, 512 gyroplanes on the c = 1.4 ball: K1 at 512 planes) on
+     synthetic MNIST padded to 32 x 32, ``EuclideanVAE`` and ``Autoencoder``
+     at experiments 2's and 1's widths on synthetic CIFAR-10, cuDNN
+     deterministic: K1 at 512 planes, c = 1.4, against its plain version
+     and timed; five steps card vs CPU; each family (and experiment 5 in
+     bf16) graphed against eager, bit for bit, with the graphed step's
+     wall, busy and idle share; a 10-epoch fit with checkpoints, served
+     over HTTP from its best checkpoint, and the Euclidean controls from
+     their own (the Autoencoder's generate 404); ``evaluate_iwae(k=5000)``
+     on 1,024 test rows
+     (exactly 40 K1 launches, at least the k = 1 bound).
+  9. Summary: a ``{"kernels": [...]}`` line (K1 three times: at the
+     flagship's 16 planes, the RNA-seq family's 256 and the conv family's
+     512, each counted on its own paths), then, as the last line,
+     ``{"ok": true, "device": {...}}``.
 
 Prints no result and exits 1 when CUDA is unavailable.
 """
@@ -75,6 +88,7 @@ import statistics
 import subprocess
 import sys
 import time
+import urllib.error
 import urllib.request
 
 import numpy as np
@@ -238,18 +252,19 @@ def _k1_entry(err_in: float, err_bd: float, at_batch: dict, at_iwae: dict) -> di
     }
 
 
-def _k1_check(rng, sizes, p: int):
+def _k1_check(rng, sizes, p: int, curvatures=(0.5, 1.0, 2.0)):
     """K1 against its plain version at each B of ``sizes`` with ``p``
-    planes, c in {0.5, 1, 2}, interior and near the boundary, signed and
-    unsigned, with and without bias (``kernel_phase``'s rules). Returns the
-    max abs errors against the plain version (interior, near the boundary)."""
+    planes, each c of ``curvatures``, interior and near the boundary,
+    signed and unsigned, with and without bias (``kernel_phase``'s rules).
+    Returns the max abs errors against the plain version (interior, near
+    the boundary)."""
     import torch
 
     from hyperbolic_vae_tpu_torch.ops import gyroplane as g
 
     err_in = err_bd = 0.0
     for b in sizes:
-        for c in (0.5, 1.0, 2.0):
+        for c in curvatures:
             for region in ("interior", "boundary"):
                 x = torch.from_numpy(_points(rng, b, c, region)).cuda()
                 pts = torch.from_numpy(_points(rng, p, c, region)).cuda()
@@ -280,33 +295,38 @@ def _k1_check(rng, sizes, p: int):
     return err_in, err_bd
 
 
-def _k1_times(rng, b: int, p: int = P) -> dict:
-    """K1 at batch b as the decoder calls it (signed, bias), in turns:
-    plain, kernel, kernel, plain from Python; then each replayed from a
-    CUDA graph, beside an empty kernel of K1's launch shape (the launch
-    floor); and the bound."""
+def _k1_times(rng, b: int, p: int = P, c: float = 1.0) -> dict:
+    """K1 at batch b as the decoder calls it (signed, bias, curvature c),
+    in turns: plain, kernel, kernel, plain from Python; then each replayed
+    from a CUDA graph, beside an empty kernel of K1's launch shape (the
+    launch floor); and the bound."""
     import torch
 
     from hyperbolic_vae_tpu_torch.ops import gyroplane as g
 
-    x = torch.from_numpy(_points(rng, b, 1.0, "interior")).cuda()
-    pts = torch.from_numpy(_points(rng, p, 1.0, "interior")).cuda()
+    x = torch.from_numpy(_points(rng, b, c, "interior")).cuda()
+    pts = torch.from_numpy(_points(rng, p, c, "interior")).cuda()
     bias = torch.from_numpy(rng.uniform(-1, 1, p).astype(np.float32)).cuda()
 
     def kernel():
-        return g.gyroplane_distances_cuda(x, pts, 1.0, True, bias)
+        return g.gyroplane_distances_cuda(x, pts, c, True, bias)
 
     def plain():
-        return g.gyroplane_distances(x, pts, 1.0, True, bias)
+        return g.gyroplane_distances(x, pts, c, True, bias)
 
-    plain_a, ms_a, ms_b, plain_b = (_time_ms(f) for f in (plain, kernel, kernel, plain))
+    # a plain version over a millisecond a call (P = 512 at B = 128,000: ~7
+    # ms) is timed over fewer calls, so that its timing stays seconds
+    heavy = _time_ms(plain, reps=3, inner=2) > 1.0
+    reps = dict(reps=11, inner=3) if heavy else {}
+    plain_a, ms_a, ms_b, plain_b = (_time_ms(f, **(reps if f is plain else {}))
+                                    for f in (plain, kernel, kernel, plain))
     ms, plain_ms = (ms_a + ms_b) / 2, (plain_a + plain_b) / 2
-    graph_ms, plain_graph_ms = _graph_ms(kernel), _graph_ms(plain)
+    graph_ms, plain_graph_ms = _graph_ms(kernel), _graph_ms(plain, n=4 if heavy else 50)
     floor_ms = _graph_ms(_empty_launch(b, p))
     n_bytes = 4 * (b * D + p * D + p + b * p)
     n_ops = b * p * (2 * D + GYRO_EPILOGUE_OPS) + 2 * D * (b + p)
     t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S * 1e3, n_ops / F32_FLOP_PER_S * 1e3
-    print(f"kernel gyroplane_distances at B={b}, P={p}: called from Python {ms_a:.7f} ms, "
+    print(f"kernel gyroplane_distances at B={b}, P={p}, c={c}: called from Python {ms_a:.7f} ms, "
           f"{ms_b:.7f} ms; plain {plain_a:.7f} ms, {plain_b:.7f} ms; replayed from a "
           f"CUDA graph {graph_ms:.7f} ms, plain {plain_graph_ms:.7f} ms; an empty kernel of its "
           f"launch shape replayed the same way (the launch floor) {floor_ms:.7f} ms; "
@@ -314,6 +334,7 @@ def _k1_times(rng, b: int, p: int = P) -> dict:
     return {
         "B": b,
         "P": p,
+        "c": c,
         "ms": ms,
         "kernel_ms": ms,
         "graph_ms": graph_ms,
@@ -1072,17 +1093,20 @@ def _profile_train(prog, device) -> dict:
     with profile(activities=[ProfilerActivity.CUDA if on_card else ProfilerActivity.CPU]) as prof:
         window()
         sync()
-    rows = [(getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0)), e.count)
-            for e in prof.key_averages() if str(e.device_type).endswith("CUDA")
+    rows = [(getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0)), e.count,
+             e.key) for e in prof.key_averages() if str(e.device_type).endswith("CUDA")
             and not getattr(e, "is_user_annotation", False) and "#" not in e.key]
     rows = [r for r in rows if r[0] > 0]
     busy_ms = sum(r[0] for r in rows) / 1e3 / n
     what = f"one train epoch ({n} steps)" if whole else f"{n} train steps"
     if not rows:
         return {"what": what, "wall_ms": wall_ms, "busy_ms": float("nan"), "kernels": float("nan"),
-                "idle": "not measured (the profiler saw no kernel)"}
+                "idle": "not measured (the profiler saw no kernel)", "top": []}
+    # the kernels that take most of the busy time: (name, ms a step, launches a step)
+    top = [(k[:60], us / 1e3 / n, c / n) for us, c, k in sorted(rows, reverse=True)[:6]]
     return {"what": what, "wall_ms": wall_ms, "busy_ms": busy_ms,
-            "kernels": sum(r[1] for r in rows) / n, "idle": f"{1 - busy_ms / wall_ms:.4f}"}
+            "kernels": sum(r[1] for r in rows) / n, "idle": f"{1 - busy_ms / wall_ms:.4f}",
+            "top": top}
 
 
 def northstar_phase(device: str = "cuda") -> dict:
@@ -1325,6 +1349,73 @@ def _share_outside(a, b, rtol: float, atol: float) -> float:
     return float(((a - b).abs() > atol + rtol * b.abs()).double().mean())
 
 
+def _five_steps(make, draws, on: str, noise: float = 0.0):
+    """Five eager steps (``loss_from_eps``, autograd backward,
+    RiemannianAdam lr 1e-3) of ``make(on)`` on ``draws`` (batch, eps):
+    (losses, first-step gradients, parameters after five steps), the
+    tensors copied to the CPU. With ``noise``, each gradient gets N(0,
+    noise x its largest magnitude) an element before each step."""
+    import torch
+
+    from hyperbolic_vae_tpu_torch.optim import RiemannianAdam
+
+    m = make(on)
+    opt = RiemannianAdam(m.parameters(), lr=1e-3, betas=(0.9, 0.999), ball=m.ball)
+    gen = torch.Generator().manual_seed(13)
+    losses, grads = [], None
+    for xb, eps in draws:
+        loss = m.loss_from_eps(torch.from_numpy(xb).to(on), torch.from_numpy(eps).to(on))
+        opt.zero_grad()
+        loss["loss_total"].backward()
+        if grads is None:
+            grads = {n: q.grad.detach().cpu().clone() for n, q in m.named_parameters()}
+        for q in m.parameters() if noise else ():
+            q.grad += noise * q.grad.abs().max() * torch.randn(q.shape, generator=gen).to(on)
+        opt.step()
+        losses.append(float(loss["loss_total"].detach()))
+    return losses, grads, {n: q.detach().cpu() for n, q in m.named_parameters()}
+
+
+def _card_vs_cpu(what: str, make, draws) -> None:
+    """Five steps (``_five_steps``) on the card and on the CPU from the same
+    weights, batches and eps: every loss, first-step gradient and parameter
+    finite; the first step's gradients within 1e-4 of each tensor's
+    largest; each step's loss rtol 1e-4; after five steps at most
+    ``RNA_SHARE_LIMIT`` of any tensor's elements outside
+    ``RNA_RTOL``/``RNA_ATOL``, and the control (the card's five steps with
+    ``RNA_CONTROL_NOISE`` planted at every step) over it."""
+    import torch
+
+    card, cpu = _five_steps(make, draws, "cuda"), _five_steps(make, draws, "cpu")
+    control = _five_steps(make, draws, "cuda", RNA_CONTROL_NOISE)
+    for run_name, (losses, grads, params) in (("card", card), ("CPU", cpu), ("control", control)):
+        if not (np.isfinite(losses).all()
+                and all(torch.isfinite(t).all() for t in (*grads.values(), *params.values()))):
+            _fail(f"{what}: a non-finite loss, gradient or parameter on the {run_name} run "
+                  f"(losses {losses})")
+    grad_err = np.max([float((card[1][n] - g_).abs().max() / g_.abs().max())
+                       for n, g_ in cpu[1].items()])
+    loss_err = np.max([abs(a - b) / abs(b) for a, b in zip(card[0], cpu[0])])
+    share, control_share = (max(_share_outside(run[2][n], p_, RNA_RTOL, RNA_ATOL)
+                                for n, p_ in cpu[2].items()) for run in (card, control))
+    print(f"{what}: 5 eager f32 steps card vs CPU: losses {json.dumps([card[0], cpu[0]])} "
+          f"(largest relative difference {loss_err:.3e}); first step's gradients max abs diff "
+          f"{grad_err:.3e} of each tensor's largest; after 5 steps the largest share of a "
+          f"tensor's elements outside rtol {RNA_RTOL}/atol {RNA_ATOL} {share:.4e} (limit "
+          f"{RNA_SHARE_LIMIT}; the control with {RNA_CONTROL_NOISE} of each gradient's largest "
+          f"planted at every step {control_share:.4e})", flush=True)
+    if not grad_err <= 1e-4:
+        _fail(f"{what}: first-step gradients card vs CPU differ by {grad_err} of their scale")
+    if not loss_err <= 1e-4:
+        _fail(f"{what}: losses card vs CPU differ by {loss_err} of their size")
+    if not share <= RNA_SHARE_LIMIT:
+        _fail(f"{what}: {share} of a tensor's elements card vs CPU outside rtol {RNA_RTOL}/"
+              f"atol {RNA_ATOL} after 5 steps, over {RNA_SHARE_LIMIT}")
+    if not control_share > RNA_SHARE_LIMIT:
+        _fail(f"{what}: the control's share {control_share} is within {RNA_SHARE_LIMIT}: the "
+              "rule does not see an error at the gradient rule's limit")
+
+
 def rnaseq_phase():
     """The RNA-seq family (``RNASeqVAE``, genes -> hidden 256 -> 2-D ball,
     c = 1 -> 256 gyroplanes -> genes, batch 256) on the card, from seed-0
@@ -1379,7 +1470,6 @@ def rnaseq_phase():
     from hyperbolic_vae_tpu_torch.data import make_rnaseq_data_module
     from hyperbolic_vae_tpu_torch.interop import state_dict_from_jax_params
     from hyperbolic_vae_tpu_torch.models import RNASeqVAE
-    from hyperbolic_vae_tpu_torch.optim import RiemannianAdam
     from hyperbolic_vae_tpu_torch.serve import Inferencer
     from hyperbolic_vae_tpu_torch.serve_http import InferenceServer
     from hyperbolic_vae_tpu_torch.train import Trainer
@@ -1420,56 +1510,7 @@ def rnaseq_phase():
     rng = np.random.default_rng(12)
     draws = [(dm.x_train[rng.integers(0, dm.x_train.shape[0], BATCH)],
               rng.normal(size=(BATCH, D)).astype(np.float32)) for _ in range(5)]
-
-    def five_steps(on, noise=0.0):
-        """(losses, first-step gradients, parameters after five steps),
-        the tensors copied to the CPU. With ``noise``, each gradient gets
-        N(0, noise x its largest magnitude) an element before each step."""
-        m = make(on=on)
-        opt = RiemannianAdam(m.parameters(), lr=1e-3, betas=(0.9, 0.999), ball=m.ball)
-        gen = torch.Generator().manual_seed(13)
-        losses, grads = [], None
-        for xb, eps in draws:
-            loss = m.loss_from_eps(torch.from_numpy(xb).to(on), torch.from_numpy(eps).to(on))
-            opt.zero_grad()
-            loss["loss_total"].backward()
-            if grads is None:
-                grads = {n: q.grad.detach().cpu().clone() for n, q in m.named_parameters()}
-            for q in m.parameters() if noise else ():
-                q.grad += noise * q.grad.abs().max() * torch.randn(q.shape, generator=gen).to(on)
-            opt.step()
-            losses.append(float(loss["loss_total"].detach()))
-        return losses, grads, {n: q.detach().cpu() for n, q in m.named_parameters()}
-
-    card, cpu = five_steps("cuda"), five_steps("cpu")
-    control = five_steps("cuda", RNA_CONTROL_NOISE)
-    for what, (losses, grads, params) in (("card", card), ("CPU", cpu), ("control", control)):
-        if not (np.isfinite(losses).all()
-                and all(torch.isfinite(t).all() for t in (*grads.values(), *params.values()))):
-            _fail(f"rnaseq (b): a non-finite loss, gradient or parameter on the {what} run "
-                  f"(losses {losses})")
-    grad_err = np.max([float((card[1][n] - g_).abs().max() / g_.abs().max())
-                       for n, g_ in cpu[1].items()])
-    loss_err = np.max([abs(a - b) / abs(b) for a, b in zip(card[0], cpu[0])])
-    share, control_share = (max(_share_outside(run[2][n], p_, RNA_RTOL, RNA_ATOL)
-                                for n, p_ in cpu[2].items()) for run in (card, control))
-    print(f"rnaseq (b): 5 eager f32 steps card vs CPU: losses {json.dumps([card[0], cpu[0]])} "
-          f"(largest relative difference {loss_err:.3e}); first step's gradients max abs diff "
-          f"{grad_err:.3e} of each tensor's largest; after 5 steps the largest share of a "
-          f"tensor's elements outside rtol {RNA_RTOL}/atol {RNA_ATOL} {share:.4e} (limit "
-          f"{RNA_SHARE_LIMIT}; the control with {RNA_CONTROL_NOISE} of each gradient's largest "
-          f"planted at every step {control_share:.4e})", flush=True)
-    if not grad_err <= 1e-4:
-        _fail(f"rnaseq (b): first-step gradients card vs CPU differ by {grad_err} of their scale")
-    if not loss_err <= 1e-4:
-        _fail(f"rnaseq (b): losses card vs CPU differ by {loss_err} of their size")
-    if not share <= RNA_SHARE_LIMIT:
-        _fail(f"rnaseq (b): {share} of a tensor's elements card vs CPU outside rtol {RNA_RTOL}/"
-              f"atol {RNA_ATOL} after 5 steps, over {RNA_SHARE_LIMIT}")
-    if not control_share > RNA_SHARE_LIMIT:
-        _fail(f"rnaseq (b): the control's share {control_share} is within {RNA_SHARE_LIMIT}: the "
-              "rule does not see an error at the gradient rule's limit")
-    del card, cpu, control
+    _card_vs_cpu("rnaseq (b)", lambda on: make(on=on), draws)
 
     steps = dm.x_train.shape[0] // BATCH
     n_val = dm.x_val.shape[0]
@@ -1649,6 +1690,369 @@ def rnaseq_phase():
     return k1, {p_: n["gyroplane_distances"] for p_, n in paths.items()}
 
 
+# experiment 5 (experiments/train_vae_hyperbolic_mnist.py): MNIST padded to
+# 32 x 32, conv widths 16 -> 32 -> 32, a Mobius encoder head, 512 gyroplanes
+# (K1's planes) on the c = 1.4 ball, sum-MSE, batch 256
+CONV_C, CONV_BASE, CONV_SHAPE = 1.4, 16, (32, 32, 1)
+CONV_P = 2 * CONV_BASE * (CONV_SHAPE[0] // 8) * (CONV_SHAPE[1] // 8)
+EXP5 = dict(data_shape=CONV_SHAPE, latent_dim=D, manifold_curvature=CONV_C,
+            encoder_last_layer_module="mobius", decoder_first_layer_module="geoopt_gyroplane",
+            loss_recon="mse", base_channels=CONV_BASE)
+CONV_FIT_EPOCHS, CONV_IWAE_K, CONV_TEST_ROWS = 10, 5000, 1024
+
+
+def _top(prof: dict) -> str:
+    """``_profile_train``'s top kernels as text: ms and launches a step."""
+    return "; ".join(f"{k} {ms:.4f} ms x{c:.1f}" for k, ms, c in prof["top"])
+
+
+def _exp5_jax_tree(seed: int) -> dict:
+    """Seeded weights in the JAX ``HyperbolicImageVAE``'s tree layout at
+    experiment 5's config (numpy; conv kernels (kh, kw, in, out)), drawn as
+    flax and the JAX layers initialise them: lecun-normal kernels, zero
+    biases, the Mobius head's kaiming (a = sqrt 5) weight and U(+-4/sqrt(in))
+    scalar bias, gyroplane points expmap0(unit direction x N(0, 1)) on the
+    c = 1.4 ball, gyroplane biases U(-1, 1)."""
+    import torch
+
+    from hyperbolic_vae_tpu_torch.manifolds import PoincareBall
+
+    rng = np.random.default_rng(seed)
+    m = CONV_BASE
+
+    def conv(n_in, n_out):
+        k = rng.standard_normal((3, 3, n_in, n_out), dtype=np.float32) / np.float32(np.sqrt(9 * n_in))
+        return {"kernel": k, "bias": np.zeros(n_out, np.float32)}
+
+    v = rng.standard_normal((CONV_P, D))
+    v *= rng.standard_normal((CONV_P, 1)) / np.linalg.norm(v, axis=-1, keepdims=True)
+    points = PoincareBall(CONV_C).expmap0(torch.from_numpy(v.astype(np.float32))).numpy()
+    return {
+        "conv1": conv(1, m), "conv2": conv(m, 2 * m), "conv3": conv(2 * m, 2 * m),
+        "mu_mobius": {
+            "weight_t0": (rng.standard_normal((D, CONV_P)) * np.sqrt(1 / 3 / CONV_P)).astype(np.float32),
+            "bias_scalar": rng.uniform(-4, 4, (D, 1)).astype(np.float32) / np.float32(np.sqrt(CONV_P))},
+        "log_var": {"kernel": rng.standard_normal((CONV_P, D), dtype=np.float32)
+                    / np.float32(np.sqrt(CONV_P)), "bias": np.zeros(D, np.float32)},
+        "dec_first": {"mp_points": points, "bias": rng.uniform(-1, 1, CONV_P).astype(np.float32)},
+        "deconv1": conv(2 * m, 2 * m), "conv4": conv(2 * m, 2 * m), "deconv2": conv(2 * m, m),
+        "conv5": conv(m, m), "deconv3": conv(m, 1),
+    }
+
+
+def conv_phase():
+    """The conv image families on the card (cuDNN deterministic, TF32 off,
+    as ``main()`` sets them), experiment 5's ``HyperbolicImageVAE`` (K1 at
+    512 planes, c = 1.4 in every decode) on synthetic MNIST padded to 32 x 32
+    (54,000 train, 6,000 val, 1,024 test rows), ``EuclideanVAE`` at
+    experiment 2's width (hidden 32, latent 128) and ``Autoencoder`` at
+    experiment 1's (base 32, latent 128) on synthetic CIFAR-10 (45,000 /
+    5,000 rows), batch 256:
+
+      (a) K1 at 512 planes, c = 1.4, against its plain version
+          (``_k1_check``'s rules) at B = 256 (every training, validation and
+          serving batch) and 128,000 (the IWAE decode, k_chunk 500 x 256
+          rows), and timed (``_k1_times``, beside an empty launch);
+      (b) five eager f32 steps of experiment 5 card vs CPU from numpy-seeded
+          weights in JAX's tree (``_exp5_jax_tree``) carried through
+          ``state_dict_from_jax_params`` (``_card_vs_cpu``'s rules);
+      (c) ``Trainer.fit`` graphed against eager, two epochs each, bit for
+          bit, for experiment 5 (f32 and ``compute_dtype="bfloat16"``), the
+          EuclideanVAE and the Autoencoder; each graphed step's wall, busy,
+          idle share and kernels a step (``_profile_train``); experiment
+          5's step once more from a graphed epoch with cuDNN free to pick
+          non-deterministic algorithms (what determinism costs);
+      (d) a ``CONV_FIT_EPOCHS``-epoch graphed fit of experiment 5
+          (``epochs_per_dispatch=5``, checkpoints), its best checkpoint
+          served over HTTP (embed, decode, reconstruct of 2,048 rows,
+          generate), reconstruct equal bit for bit to the restored model
+          batch by batch; the EuclideanVAE's and the Autoencoder's
+          checkpoints from (c) served too (reconstruct bit for bit;
+          generate, and 404 for the Autoencoder);
+      (e) ``evaluate_iwae(k=5000, batch_chunk=256, k_chunk=500)`` on the
+          1,024 test rows from (d)'s best params: exactly 40 K1 launches
+          (4 batch chunks x 10 k chunks), the bound at least
+          ``evaluate_iwae(k=1)``'s; its wall time, then K1's share of the
+          kernel time under torch.profiler.
+
+    Cuts: 1,024 test rows, not 10,000; a 10-epoch fit, not a converged one;
+    two epochs a graphed/eager pair. Returns (K1's entry at 512 planes,
+    launches by path)."""
+    import tempfile
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from hyperbolic_vae_tpu_torch.data import cifar10, make_data_module, pad_to_32
+    from hyperbolic_vae_tpu_torch.interop import state_dict_from_jax_params
+    from hyperbolic_vae_tpu_torch.models import Autoencoder, EuclideanVAE, HyperbolicImageVAE
+    from hyperbolic_vae_tpu_torch.serve import Inferencer
+    from hyperbolic_vae_tpu_torch.serve_http import InferenceServer
+    from hyperbolic_vae_tpu_torch.train import Trainer
+    from hyperbolic_vae_tpu_torch.train.cuda_graph import run_eagerly
+
+    device = "cuda"
+    sync = torch.cuda.synchronize
+    t_phase = time.perf_counter()
+    mnist = pad_to_32(make_data_module(batch_size=BATCH, synthetic=True, n_test=CONV_TEST_ROWS))
+    cifar = cifar10.make_data_module(batch_size=BATCH, synthetic=True, n_test=CONV_TEST_ROWS)
+    print(f"conv: data: MNIST padded {mnist.x_train.shape[0]} / {mnist.x_val.shape[0]} / "
+          f"{mnist.x_test.shape[0]} rows of {mnist.input_shape}; CIFAR "
+          f"{cifar.x_train.shape[0]} / {cifar.x_val.shape[0]} rows of {cifar.input_shape} "
+          f"({time.perf_counter() - t_phase:.2f} s); cuDNN deterministic "
+          f"{torch.backends.cudnn.deterministic}, benchmark {torch.backends.cudnn.benchmark}, "
+          f"TF32 {torch.backends.cudnn.allow_tf32}", flush=True)
+    sd = state_dict_from_jax_params(_exp5_jax_tree(0), "HyperbolicImageVAE")
+
+    def make_exp5(on=device, **kw):
+        m = HyperbolicImageVAE(**{**EXP5, **kw}, device=on)
+        m.load_state_dict(sd)
+        return m
+
+    # (a) K1 at 512 planes, c = 1.4
+    rng = np.random.default_rng(21)
+    err_in, err_bd = _k1_check(rng, (BATCH, IWAE_ROWS), CONV_P, curvatures=(CONV_C,))
+    print(f"conv (a): K1 at P={CONV_P}, c={CONV_C}: max_abs_err vs plain: interior "
+          f"{err_in:.3e}, near boundary {err_bd:.3e}", flush=True)
+    k1 = _k1_entry(err_in, err_bd, _k1_times(rng, BATCH, CONV_P, CONV_C),
+                   _k1_times(rng, IWAE_ROWS, CONV_P, CONV_C))
+
+    # (b) five eager f32 steps, card against CPU, and the control
+    rng = np.random.default_rng(22)
+    draws = [(mnist.x_train[rng.integers(0, mnist.x_train.shape[0], BATCH)],
+              rng.normal(size=(BATCH, D)).astype(np.float32)) for _ in range(5)]
+    _card_vs_cpu("conv (b)", lambda on: make_exp5(on), draws)
+
+    def fit(model, data, epochs, eager=False, **kw):
+        trainer = Trainer(model, max_epochs=epochs, early_stopping_patience=None,
+                          device=device, **kw)
+        sync()
+        t0 = time.perf_counter()
+        with run_eagerly() if eager else contextlib.nullcontext():
+            res = trainer.fit(data)
+        sync()
+        return res, trainer, time.perf_counter() - t0
+
+    def per_epoch(data):
+        n_v = data.x_val.shape[0]
+        return data.x_train.shape[0] // BATCH + n_v // BATCH + (1 if n_v % BATCH else 0)
+
+    def no_launches():
+        return {"gyroplane_distances": 0, "flagship_fused": 0, "flagship_train": 0}
+
+    def want_k1(n):
+        return {**no_launches(), "gyroplane_distances": n}
+
+    # (c) graphed against eager, four arms
+    paths = {}
+    ckpts = {arm: tempfile.TemporaryDirectory() for arm in ("euclidean", "autoencoder")}
+    arms = (
+        ("exp5", mnist, lambda: make_exp5(), True, {}),
+        ("exp5_bf16", mnist, lambda: make_exp5(compute_dtype="bfloat16"), True, {}),
+        ("euclidean", cifar, lambda: EuclideanVAE(
+            (32, 32, 3), hidden_size=32, latent_dim=128, device=device,
+            generator=torch.Generator().manual_seed(0)), False,
+         {"checkpoint_dir": ckpts["euclidean"].name}),
+        ("autoencoder", cifar, lambda: Autoencoder(
+            (32, 32, 3), base_channel_size=32, latent_dim=128, device=device,
+            generator=torch.Generator().manual_seed(0)), False,
+         {"checkpoint_dir": ckpts["autoencoder"].name}),
+    )
+    for arm, data, make, gyro, kw in arms:
+        _reset_launches()
+        res, trainer, wall = fit(make(), data, 2, **kw)
+        launches = _launches()
+        eres, _, ewall = fit(make(), data, 2, eager=True)
+        _same_fit(f"conv (c) {arm}", res, eres, "graphed", "eager")
+        if not all(np.isfinite(v) for row in res.history for v in row.values()):
+            _fail(f"conv (c) {arm}: non-finite metrics {res.history}")
+        want = want_k1(2 * per_epoch(data)) if gyro else no_launches()
+        if launches != want:
+            _fail(f"conv (c) {arm}: launches {launches}, want {want}")
+        paths[f"conv_fit_{arm}"] = launches
+        prof = _profile_train(trainer.program, device)
+        print(f"conv (c) {arm}: 2 epochs graphed {wall:.3f} s, eager {ewall:.3f} s, bit for bit; "
+              f"launches {json.dumps(launches)}; val/loss_total "
+              f"{[h['val/loss_total'] for h in res.history]}; graphed {prof['what']}: wall "
+              f"{prof['wall_ms']:.4f} ms/step, device busy {prof['busy_ms']:.4f} ms/step, idle "
+              f"share {prof['idle']}, {prof['kernels']:.1f} kernels/step; "
+              f"{BATCH / prof['wall_ms'] * 1e3:.1f} train samples/s; top kernels "
+              f"{_top(prof)}", flush=True)
+        del res, eres, trainer
+    # what determinism costs: cuDNN free to pick any algorithm
+    torch.backends.cudnn.deterministic = False
+    try:
+        _reset_launches()
+        _, trainer, wall = fit(make_exp5(), mnist, 1)
+        paths["conv_fit_exp5_nondeterministic"] = _launches()
+        prof = _profile_train(trainer.program, device)
+    finally:
+        torch.backends.cudnn.deterministic = True
+    print(f"conv (c) exp5 with cuDNN non-deterministic: 1 epoch graphed {wall:.3f} s; "
+          f"{prof['what']}: wall {prof['wall_ms']:.4f} ms/step, device busy "
+          f"{prof['busy_ms']:.4f} ms/step, idle share {prof['idle']}, "
+          f"{prof['kernels']:.1f} kernels/step; top kernels {_top(prof)}", flush=True)
+    del trainer
+
+    octet = {"Content-Type": "application/octet-stream", "Accept": "application/octet-stream"}
+    jhdr = {"Content-Type": "application/json"}
+
+    def shaped(h, body):
+        return np.frombuffer(body, "<f4").reshape(tuple(int(s_) for s_ in h["X-Shape"].split(",")))
+
+    def batchwise(inf, x):
+        with torch.inference_mode():
+            out = []
+            for i in range(0, len(x), BATCH):
+                t = torch.from_numpy(x[i:i + BATCH]).to(device)
+                out.append(inf.model.decode(inf.model.posterior_mean(t)))
+            return torch.cat(out).cpu().numpy()
+
+    with tempfile.TemporaryDirectory() as ckpt:
+        # (d) the fit, and serving its best checkpoint
+        _reset_launches()
+        res, trainer, wall = fit(make_exp5(), mnist, CONV_FIT_EPOCHS, epochs_per_dispatch=5,
+                                 checkpoint_dir=ckpt)
+        paths["conv_fit"] = _launches()
+        vals = [h["val/loss_total"] for h in res.history]
+        print(f"conv (d): {res.epochs_run} epochs graphed in {wall:.3f} s "
+              f"({res.samples_per_sec:.1f} train samples/s after the first chunk); val/loss_total "
+              f"first {vals[0]:.4f}, best {res.best_metric:.4f} at epoch {int(np.argmin(vals))}; "
+              f"launches {json.dumps(paths['conv_fit'])}", flush=True)
+        if not res.best_metric < vals[0]:
+            _fail(f"conv (d): best val/loss_total {res.best_metric} not below the first {vals[0]}")
+        if paths["conv_fit"] != want_k1(res.epochs_run * per_epoch(mnist)):
+            _fail(f"conv (d): launches {paths['conv_fit']}, want "
+                  f"{res.epochs_run * per_epoch(mnist)} K1")
+        inf = Inferencer.from_checkpoint(ckpt, "best", batch_size=BATCH, device=device)
+        for key, v in res.best_params.items():
+            if not torch.equal(inf.model.state_dict()[key], v):
+                _fail(f"conv (d): the best checkpoint's {key} is not the fit's best params")
+        t0 = time.perf_counter()
+        inf.warmup()
+        sync()
+        print(f"conv (d): warmup {time.perf_counter() - t0:.3f} s, {inf.n_programs} programs",
+              flush=True)
+        xr = np.ascontiguousarray(np.concatenate([mnist.x_test, mnist.x_val])[:2048], "<f4")
+        z = np.random.default_rng(1).uniform(-0.5, 0.5, size=(64, D)).astype(np.float32)
+        server = InferenceServer(inf, host="127.0.0.1", port=0).start()
+        lat = {}
+        try:
+            _reset_launches()
+            _, body, lat["POST /v1/embed 1 row json"] = _http(
+                server, "/v1/embed", json.dumps({"data": xr[:1].tolist()}).encode(), jhdr)
+            emb = np.asarray(json.loads(body)["outputs"][0], np.float32)
+            h, body, lat["POST /v1/decode 64 latents octet-stream"] = _http(
+                server, "/v1/decode", z.tobytes(), {**octet, "X-Shape": "64,2"})
+            dec = shaped(h, body)
+            h, body, lat["POST /v1/reconstruct 2048 rows octet-stream"] = _http(
+                server, "/v1/reconstruct", xr.tobytes(),
+                {**octet, "X-Shape": ",".join(map(str, xr.shape))})
+            rec = shaped(h, body)
+            gens = []
+            for i in range(2):
+                h, body, lat[f"POST /v1/generate n=512 seed=3 octet-stream ({i + 1})"] = _http(
+                    server, "/v1/generate", json.dumps({"n": 512, "seed": 3}).encode(),
+                    {**jhdr, "Accept": "application/octet-stream"})
+                gens.append(shaped(h, body))
+            paths["conv_serve"] = _launches()
+        finally:
+            server.shutdown()
+        for name, ms in lat.items():
+            print(f"conv (d) latency {name}: {ms:.3f} ms", flush=True)
+        for name, a, shape in (("embed", emb, (1, D)), ("decode", dec, (64,) + CONV_SHAPE),
+                               ("reconstruct", rec, (2048,) + CONV_SHAPE),
+                               ("generate", gens[0], (512,) + CONV_SHAPE)):
+            if a.shape != shape or not np.all(np.isfinite(a)):
+                _fail(f"conv (d): {name}: shape {a.shape} (want {shape}) or non-finite values")
+        if not np.linalg.norm(emb, axis=-1).max() < 1.0 / np.sqrt(CONV_C):
+            _fail("conv (d): the embedding lies outside the ball")
+        if not np.array_equal(gens[0], gens[1]):
+            _fail("conv (d): generate(n=512, seed=3) differs between two requests")
+        want = batchwise(inf, xr)
+        if not np.array_equal(rec, want):
+            _fail(f"conv (d): the served reconstruct differs from the model's by "
+                  f"{float(np.abs(rec - want).max())}")
+        # one K1 launch a decoded batch: 1 (decode 64), 8 (reconstruct 2048),
+        # 2 x 2 (generate 512 twice); embed decodes nothing
+        if paths["conv_serve"] != want_k1(13):
+            _fail(f"conv (d): launches {paths['conv_serve']}, want 13 K1")
+        print(f"conv (d): reconstruct of 2048 rows equal to the model's, bit for bit; launches "
+              f"{json.dumps(paths['conv_serve'])}", flush=True)
+        del inf, server
+
+    # the Euclidean controls from their checkpoints of (c): the EuclideanVAE
+    # generates, the Autoencoder (no prior) answers 404
+    xc = np.ascontiguousarray(cifar.x_test[:512], "<f4")
+    for arm, ckpt_dir in ckpts.items():
+        inf = Inferencer.from_checkpoint(ckpt_dir.name, "best", batch_size=BATCH, device=device)
+        server = InferenceServer(inf, host="127.0.0.1", port=0).start()
+        try:
+            _reset_launches()
+            h, body, ms = _http(server, "/v1/reconstruct", xc.tobytes(),
+                                {**octet, "X-Shape": ",".join(map(str, xc.shape))})
+            rec = shaped(h, body)
+            try:
+                h, body, _ = _http(server, "/v1/generate", json.dumps({"n": 8, "seed": 0}).encode(),
+                                   {**jhdr, "Accept": "application/octet-stream"})
+                gen, gen_code = shaped(h, body), 200
+            except urllib.error.HTTPError as e:
+                gen, gen_code = None, e.code
+            paths[f"conv_serve_{arm}"] = _launches()
+        finally:
+            server.shutdown()
+            ckpt_dir.cleanup()
+        if not np.array_equal(rec, batchwise(inf, xc)):
+            _fail(f"conv (d): the {arm}'s served reconstruct differs from the model's")
+        want_gen = 404 if arm == "autoencoder" else 200
+        if gen_code != want_gen or paths[f"conv_serve_{arm}"] != no_launches():
+            _fail(f"conv (d): the {arm}'s generate answered {gen_code} (want {want_gen}), "
+                  f"launches {paths[f'conv_serve_{arm}']}")
+        if gen is not None and (gen.shape != (8, 32, 32, 3) or not np.all(np.abs(gen) <= 1.0)):
+            _fail(f"conv (d): the {arm}'s generate gave shape {gen.shape} or values outside [-1, 1]")
+        print(f"conv (d): {arm} from its checkpoint: reconstruct 512 rows of {xc.shape[1:]} "
+              f"octet-stream {ms:.3f} ms, bit for bit; generate {gen_code}", flush=True)
+        del inf, server
+
+    # (e) the bound
+    best = res.best_params
+    sync()
+    _reset_launches()
+    t0 = time.perf_counter()
+    bound = trainer.evaluate_iwae(mnist, best, k=CONV_IWAE_K, batch_chunk=BATCH, k_chunk=500)
+    sync()
+    wall = time.perf_counter() - t0
+    paths["conv_eval"] = _launches()
+    _reset_launches()
+    bound_1 = trainer.evaluate_iwae(mnist, best, k=1, batch_chunk=BATCH, k_chunk=500)
+    paths["conv_eval_k1"] = _launches()
+    n_t = mnist.x_test.shape[0]
+    chunks = -(-n_t // BATCH) * -(-CONV_IWAE_K // 500)
+    if paths["conv_eval"] != want_k1(chunks) or paths["conv_eval_k1"] != want_k1(-(-n_t // BATCH)):
+        _fail(f"conv (e): launches {paths['conv_eval']} and {paths['conv_eval_k1']} (k = 1), "
+              f"want {chunks} and {-(-n_t // BATCH)} K1")
+    if not (np.isfinite(bound) and bound >= bound_1):
+        _fail(f"conv (e): the bound {bound} is not finite or below k = 1's {bound_1}")
+    k1_ms = busy_ms = 0.0
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        trainer.evaluate_iwae(mnist, best, k=CONV_IWAE_K, batch_chunk=BATCH, k_chunk=500)
+        sync()
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0))
+        if str(e.device_type).endswith("CUDA") and us > 0 and "#" not in e.key:
+            busy_ms += us / 1e3
+            if "gyroplane" in e.key:
+                k1_ms += us / 1e3
+    share = f"{k1_ms / busy_ms:.6f}" if busy_ms else "not measured (the profiler saw no kernel)"
+    print(f"conv (e): evaluate_iwae k={CONV_IWAE_K} (k_chunk 500) on {n_t} test rows: {bound:.4f} "
+          f"nats a row (k = 1: {bound_1:.4f}); wall {wall:.3f} s; launches "
+          f"{json.dumps(paths['conv_eval'])}; under torch.profiler K1 {k1_ms:.4f} ms of "
+          f"{busy_ms:.3f} ms of kernel time (share {share}, {k1_ms / chunks * 1e3:.3f} us a "
+          f"launch)", flush=True)
+    print(f"conv: phase {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return k1, {p_: n["gyroplane_distances"] for p_, n in paths.items()}
+
+
 def _rows_kernel_fit() -> None:
     """The rows kernels' shared memory at the flagship's 784 pixels against
     the wrapper's bound (which must not be below it), and how many of their
@@ -1681,6 +2085,11 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # graphed = eager bit for bit needs cuDNN's deterministic algorithms
+    # (some weight-gradient and transposed-conv algorithms accumulate with
+    # atomics); conv_phase (c) also times a step without them
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
@@ -1710,6 +2119,11 @@ def main() -> int:
     k1_rna["launches_by_path"] = rna_paths
     k1_rna["launches"] = sum(rna_paths.values())
     kernels.append(k1_rna)
+    # K1 at the conv family's 512 planes, c = 1.4: its own entry, counted on its paths
+    k1_conv, conv_paths = conv_phase()
+    k1_conv["launches_by_path"] = conv_paths
+    k1_conv["launches"] = sum(conv_paths.values())
+    kernels.append(k1_conv)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -4,7 +4,8 @@ A copy of ``hyperbolic_vae_tpu/data/mnist.py``: the same seed gives the
 same arrays. The standard IDX files are read from ``data_dir`` (raw or
 .gz; nothing is downloaded); ``synthetic=True`` builds the seeded
 stand-in instead. ``make_data_module`` splits the train set 90/10 with
-seed 42, as the reference does.
+seed 42, as the reference does; ``pad_to_32`` pads its images to 32 x 32
+for the conv families' three stride-2 convs.
 """
 
 from __future__ import annotations
@@ -116,3 +117,12 @@ def make_data_module(
         label_names=[str(i) for i in range(10)],
         name="mnist-synthetic" if synthetic else "mnist",
     )
+
+
+def pad_to_32(dm: ArrayDataModule) -> ArrayDataModule:
+    """Zero-pad every split's 28 x 28 images to 32 x 32 (two pixels a
+    side), in place; returns ``dm``."""
+    for s in ("train", "val", "test"):
+        x = getattr(dm, f"x_{s}")
+        setattr(dm, f"x_{s}", np.pad(x, ((0, 0), (2, 2), (2, 2), (0, 0))))
+    return dm

@@ -2,6 +2,10 @@ from hyperbolic_vae_tpu_torch.distributions.negative_binomial import (
     nb_mean_dispersion_to_logits,
     negative_binomial_log_prob,
 )
+from hyperbolic_vae_tpu_torch.distributions.normal import (
+    kl_normal_normal,
+    kl_std_normal_from_logvar,
+)
 from hyperbolic_vae_tpu_torch.distributions.relaxed_bernoulli import relaxed_bernoulli_log_prob
 from hyperbolic_vae_tpu_torch.distributions.wrapped_normal import (
     MAX_SAMPLE_RADIUS,
@@ -14,6 +18,8 @@ from hyperbolic_vae_tpu_torch.distributions.wrapped_normal import (
 
 __all__ = [
     "MAX_SAMPLE_RADIUS",
+    "kl_normal_normal",
+    "kl_std_normal_from_logvar",
     "max_chart_radius",
     "nb_mean_dispersion_to_logits",
     "negative_binomial_log_prob",

@@ -2,7 +2,7 @@
 
 ``state_dict_from_jax_params`` maps a JAX parameter tree (nested dicts of
 numpy arrays) onto the port's state_dict, in the reference layout, for
-two families, told apart by the tree's keys or by ``model=``:
+five families, told apart by the tree's keys or by ``model=``:
 
   * GyroplaneVAE (``enc_0/kernel``, ..., ``mu``, ``scale``,
     ``gyroplanes/mp_points``, ``gyroplanes/bias``, ``dec_0``, ``out``):
@@ -10,10 +10,22 @@ two families, told apart by the tree's keys or by ``model=``:
     ``decoder.2``, ``decoder.4``, ...;
   * RNASeqVAE (``enc``, ``mu``, ``scale``, ``gyroplanes``, ``dec_out``,
     ``nb_log_theta``): ``encoder.0``, ``mu.0``, ``scale.0``,
-    ``decoder.0.points/bias``, ``decoder.2`` and ``nb_log_theta``.
+    ``decoder.0.points/bias``, ``decoder.2`` and ``nb_log_theta``;
+  * the conv image families: HyperbolicImageVAE (``conv1``, ...,
+    ``mu``/``mu_mobius``, ``log_var``, ``dec_first``, ``deconv1``, ...),
+    EuclideanVAE (``encoder/Conv_i``, ``mu``, ``log_var``, ``decoder``)
+    and Autoencoder (``encoder``, ``latent``, ``decoder``).
 
-Flax kernels are (in, out) and become (out, in) weights. It is the
-mapping the JAX package's ``interop/torch_export.py`` applies (for
+Flax kernels are (in, out) and become (out, in) weights; conv kernels
+(kh, kw, in, out) become (out, in, kh, kw); transposed-conv kernels are
+flipped 180 degrees and become (in, out, kh, kw). The conv families'
+layers that face the flattened conv features take the permutation from
+JAX's (H, W, C) flattening to the reference's (C, H, W) (on their input
+axis, or on their output axis for the decoder's first layer, gyroplane
+points and bias included), with 2 x the family's base width as C and
+H/8, W/8 from ``model``'s ``data_shape`` (square when ``model`` is only a
+name); Riemannian layers keep the reference's ``_weight`` / ``_bias``. It
+is the mapping the JAX package's ``interop/torch_export.py`` applies (for
 RNASeqVAE its ``_export_unified``, which drops ``nb_log_theta``; this
 keeps it), so an ``.npz`` written by
 ``experiments/export_torch_state_dict.py`` loads with
@@ -30,7 +42,7 @@ The port never imports ``ml_dtypes``: a bf16 leaf is read by its bits.
 from __future__ import annotations
 
 from pathlib import Path
-from typing import Dict, Mapping, Sequence
+from typing import Dict, Mapping, Optional, Sequence
 
 import numpy as np
 import torch
@@ -41,6 +53,7 @@ from hyperbolic_vae_tpu_torch.models.vae_gyroplane import GyroplaneVAE
 __all__ = [
     "gyroplane_vae_from_state_dict",
     "load_state_dict_file",
+    "model_from_state_dict",
     "optimizer_state_from_jax",
     "state_dict_from_jax_params",
 ]
@@ -54,30 +67,159 @@ def _t(a) -> torch.Tensor:
     return torch.tensor(np.asarray(a, np.float32))
 
 
-def _linear(p: Mapping, key: str, sd: Dict[str, torch.Tensor]) -> None:
-    sd[f"{key}.weight"] = _t(np.asarray(p["kernel"]).T)
-    sd[f"{key}.bias"] = _t(p["bias"])
+_FAMILIES = {"GyroplaneVAE": "gyroplane", "RNASeqVAE": "rnaseq",
+             "HyperbolicImageVAE": "hyperbolic_image", "EuclideanVAE": "euclidean",
+             "Autoencoder": "autoencoder"}
 
 
 def _family(params: Mapping, model) -> str:
-    """"gyroplane" or "rnaseq": from ``model`` (a name, or a port model)
-    when given, else from the tree's keys."""
+    """The family's short name: from ``model`` (a class name, a short
+    name, or a port model) when given, else from the tree's keys."""
     if model is not None:
         name = model if isinstance(model, str) else type(model).__name__
-        kind = {"GyroplaneVAE": "gyroplane", "RNASeqVAE": "rnaseq"}.get(name, name)
-        if kind not in ("gyroplane", "rnaseq"):
+        kind = _FAMILIES.get(name, name)
+        if kind not in _FAMILIES.values():
             raise ValueError(f"no parameter mapping for model {name!r}")
         return kind
+    if "conv1" in params:
+        return "hyperbolic_image"
+    if "latent" in params and "encoder" in params:
+        return "autoencoder"
+    if "encoder" in params and "log_var" in params:
+        return "euclidean"
     return "rnaseq" if "enc" in params and "dec_out" in params else "gyroplane"
+
+
+def _chw_to_hwc_perm(c: int, h: int, w: int) -> np.ndarray:
+    """perm[(H, W, C)-flat index] = the (C, H, W)-flat index."""
+    return np.arange(c * h * w).reshape(c, h, w).transpose(1, 2, 0).reshape(-1)
+
+
+def _permuted(a, axis: int, perm) -> np.ndarray:
+    """a with its ``axis`` taken in the (C, H, W) order (``perm`` None: a)."""
+    a = np.asarray(a)
+    return a if perm is None else np.take(a, np.argsort(perm), axis=axis)
+
+
+def _linear(p: Mapping, key: str, sd, in_perm=None, out_perm=None) -> None:
+    """A flax Dense (kernel (in, out)) as an (out, in) weight and a bias,
+    with its input or output axis permuted by ``in_perm``/``out_perm``."""
+    w = _permuted(_permuted(np.asarray(p["kernel"]).T, 1, in_perm), 0, out_perm)
+    sd[f"{key}.weight"] = _t(np.ascontiguousarray(w))
+    sd[f"{key}.bias"] = _t(_permuted(p["bias"], 0, out_perm))
+
+
+def _conv(p: Mapping, key: str, sd) -> None:
+    sd[f"{key}.weight"] = _t(np.ascontiguousarray(np.asarray(p["kernel"]).transpose(3, 2, 0, 1)))
+    sd[f"{key}.bias"] = _t(p["bias"])
+
+
+def _conv_t(p: Mapping, key: str, sd) -> None:
+    k = np.asarray(p["kernel"])[::-1, ::-1].transpose(2, 3, 0, 1)
+    sd[f"{key}.weight"] = _t(np.ascontiguousarray(k))
+    sd[f"{key}.bias"] = _t(p["bias"])
+
+
+def _gyro(p: Mapping, key: str, sd, out_perm=None) -> None:
+    sd[f"{key}.points"] = _t(_permuted(p["mp_points"], 0, out_perm))
+    sd[f"{key}.bias"] = _t(_permuted(p["bias"], 0, out_perm))
+
+
+def _riemannian(p: Mapping, key: str, sd, in_perm=None, out_perm=None) -> None:
+    """``weight_t0`` -> ``_weight``; ``bias_scalar`` (out, 1) or the point
+    ``mp_bias`` (out, in) -> ``_bias``."""
+    w = _permuted(_permuted(p["weight_t0"], 1, in_perm), 0, out_perm)
+    if "mp_bias" in p:  # a point in the input space: both axes permute
+        b = _permuted(_permuted(p["mp_bias"], 1, in_perm), 0, out_perm)
+    else:
+        b = _permuted(p["bias_scalar"], 0, out_perm)
+    sd[f"{key}._weight"] = _t(np.ascontiguousarray(w))
+    sd[f"{key}._bias"] = _t(np.ascontiguousarray(b))
+
+
+def _square_shape(n_features: int, channels2: int, in_channels: int = 1) -> tuple:
+    """The square (H, W, C) whose three stride-2 convs give ``n_features``
+    features of ``channels2`` channels."""
+    side = int(round(np.sqrt(n_features // channels2))) * 8
+    if channels2 * (side // 8) ** 2 != n_features:
+        raise ValueError(f"{n_features} conv features are not {channels2} channels on a square "
+                         "grid: pass data_shape")
+    return (side, side, in_channels)
+
+
+def _feature_perm(model, c2: int, n_features: int) -> np.ndarray:
+    """The (H, W, C) -> (C, H, W) permutation of the flattened conv
+    features: H/8, W/8 from the port model's data_shape, else square."""
+    h, w = (getattr(model, "data_shape", None) or _square_shape(n_features, c2))[:2]
+    return _chw_to_hwc_perm(c2, h // 8, w // 8)
+
+
+def _conv_decoder(d: Mapping, prefix, sd) -> None:
+    """The ConvDecoder's conv stack: ``prefix(i)`` names its i-th slot
+    (ConvTranspose_0, Conv_0, ConvTranspose_1, Conv_1, ConvTranspose_2)."""
+    for i, (name, kind) in enumerate((("ConvTranspose_0", _conv_t), ("Conv_0", _conv),
+                                       ("ConvTranspose_1", _conv_t), ("Conv_1", _conv),
+                                       ("ConvTranspose_2", _conv_t))):
+        kind(d[name], prefix(i), sd)
+
+
+def _conv_families(kind: str, params: Mapping, model, sd) -> None:
+    if kind == "hyperbolic_image":
+        c2 = np.asarray(params["conv3"]["kernel"]).shape[-1]
+        n_feat = (np.asarray(params["mu"]["kernel"]).shape[0] if "mu" in params
+                  else np.asarray(params["mu_mobius"]["weight_t0"]).shape[1])
+        perm = _feature_perm(model, c2, n_feat)
+        for i, name in enumerate(("conv1", "conv2", "conv3")):
+            _conv(params[name], f"encoder.{2 * i}", sd)
+        if "mu" in params:
+            _linear(params["mu"], "mu", sd, in_perm=perm)
+        else:
+            _riemannian(params["mu_mobius"], "mu", sd, in_perm=perm)
+        if "log_var" in params:
+            _linear(params["log_var"], "log_var", sd, in_perm=perm)
+        dec = params["dec_first"]
+        if "mp_points" in dec:
+            _gyro(dec, "decoder.0", sd, out_perm=perm)
+        elif "weight_t0" in dec:
+            _riemannian(dec, "decoder.0", sd, out_perm=perm)
+        else:
+            _linear(dec, "decoder.0", sd, out_perm=perm)
+        for name, slot, fn in (("deconv1", 3, _conv_t), ("conv4", 5, _conv),
+                               ("deconv2", 7, _conv_t), ("conv5", 9, _conv),
+                               ("deconv3", 11, _conv_t)):
+            fn(params[name], f"decoder.{slot}", sd)
+        return
+    enc, dec = params["encoder"], params["decoder"]
+    c2 = np.asarray(enc["Conv_4"]["kernel"]).shape[-1]
+    head = params["latent"] if kind == "autoencoder" else params["mu"]
+    perm = _feature_perm(model, c2, np.asarray(head["kernel"]).shape[0])
+    if kind == "autoencoder":
+        for i in range(5):
+            _conv(enc[f"Conv_{i}"], f"encoder.net.{2 * i}", sd)
+        _linear(params["latent"], "encoder.net.11", sd, in_perm=perm)
+        _linear(dec["Dense_0"], "decoder.linear.0", sd, out_perm=perm)
+        _conv_decoder(dec, lambda i: f"decoder.net.{2 * i}", sd)
+        return
+    for i in range(5):
+        _conv(enc[f"Conv_{i}"], f"encoder.{2 * i}", sd)
+    _linear(params["mu"], "mu", sd, in_perm=perm)
+    _linear(params["log_var"], "log_var", sd, in_perm=perm)
+    _linear(dec["Dense_0"], "decoder.0", sd, out_perm=perm)
+    _conv_decoder(dec, lambda i: f"decoder.{3 + 2 * i}", sd)
 
 
 def state_dict_from_jax_params(params: Mapping, model=None) -> Dict[str, torch.Tensor]:
     """The port's state_dict for a JAX parameter tree (the ``params``
-    collection, as nested dicts of arrays) of a GyroplaneVAE or an
-    RNASeqVAE; ``model`` ("gyroplane", "rnaseq", or a port model) names
-    the family, which otherwise comes from the tree's keys."""
+    collection, as nested dicts of arrays) of one of the five families;
+    ``model`` (a class name, "gyroplane", "rnaseq", ..., or a port model,
+    whose ``data_shape`` the conv families read) names the family, which
+    otherwise comes from the tree's keys."""
     sd: Dict[str, torch.Tensor] = {}
-    if _family(params, model) == "rnaseq":
+    kind = _family(params, model)
+    if kind in ("hyperbolic_image", "euclidean", "autoencoder"):
+        _conv_families(kind, params, model, sd)
+        return sd
+    if kind == "rnaseq":
         _linear(params["enc"], "encoder.0", sd)
         _linear(params["mu"], "mu.0", sd)
         _linear(params["scale"], "scale.0", sd)
@@ -153,4 +295,55 @@ def gyroplane_vae_from_state_dict(
         device=device,
     )
     model.load_state_dict(dict(sd))
+    return model
+
+
+def model_from_state_dict(sd: Mapping[str, torch.Tensor], device: DeviceLike = None,
+                          data_shape: Optional[Sequence[int]] = None, **config):
+    """A port model holding ``sd``, the family told by its keys (the
+    reference layouts): ``encoder.net.*`` an Autoencoder, five encoder
+    convs an EuclideanVAE, three a HyperbolicImageVAE, else a
+    GyroplaneVAE (``gyroplane_vae_from_state_dict``, data_shape default
+    (28, 28, 1)). Widths, the latent size and the conv families' heads come
+    from the tensors' shapes and names; ``data_shape`` of an image family
+    defaults to square images; the rest (curvature, beta, ...) is not in a
+    state_dict and comes from ``config``. A HyperbolicImageVAE whose
+    ``decoder.0`` has ``_weight``/``_bias`` needs
+    ``decoder_first_layer_module`` ("geodesic" or "mobius"): both store
+    the same tensors. Without ``log_var`` its ``loss_recon`` defaults to
+    "bernoulli" (decode returns logits)."""
+    from hyperbolic_vae_tpu_torch.models import Autoencoder, EuclideanVAE, HyperbolicImageVAE
+
+    sd = dict(sd)
+    if "encoder.net.0.weight" in sd:
+        c, ch = sd["encoder.net.0.weight"].shape[:2]
+        lat, feat = sd["encoder.net.11.weight"].shape
+        model = Autoencoder(data_shape or _square_shape(feat, 2 * c, ch), base_channel_size=c,
+                            latent_dim=lat, device=device, **config)
+    elif "encoder.8.weight" in sd:
+        c, ch = sd["encoder.0.weight"].shape[:2]
+        lat, feat = sd["mu.weight"].shape
+        model = EuclideanVAE(data_shape or _square_shape(feat, 2 * c, ch), hidden_size=c,
+                             latent_dim=lat, device=device, **config)
+    elif "encoder.4.weight" in sd:
+        m, ch = sd["encoder.0.weight"].shape[:2]
+        mobius = "mu._weight" in sd
+        lat, feat = sd["mu._weight" if mobius else "mu.weight"].shape
+        if "decoder.0.points" in sd:
+            config.setdefault("decoder_first_layer_module", "geoopt_gyroplane")
+        elif "decoder.0.weight" in sd:
+            config.setdefault("decoder_first_layer_module", "linear")
+        elif config.get("decoder_first_layer_module") not in ("geodesic", "mobius"):
+            raise ValueError("decoder.0 holds _weight/_bias: pass decoder_first_layer_module="
+                             "'geodesic' or 'mobius'")
+        if "log_var.weight" not in sd:
+            config.setdefault("loss_recon", "bernoulli")
+        model = HyperbolicImageVAE(
+            data_shape or _square_shape(feat, 2 * m, ch), latent_dim=lat,
+            encoder_last_layer_module="mobius" if mobius else "linear", base_channels=m,
+            device=device, **config)
+    else:
+        return gyroplane_vae_from_state_dict(sd, data_shape=data_shape or (28, 28, 1),
+                                             device=device, **config)
+    model.load_state_dict(sd)
     return model

@@ -3,8 +3,10 @@ from hyperbolic_vae_tpu_torch.manifolds.poincare import (
     MIN_NORM,
     TANH_CLAMP,
     PoincareBall,
+    arsinh,
     artanh,
     log_sinh_ratio,
+    normdist2plane,
     tanh,
 )
 from hyperbolic_vae_tpu_torch.manifolds.stats import (
@@ -15,6 +17,7 @@ from hyperbolic_vae_tpu_torch.manifolds.stats import (
 )
 
 __all__ = [
-    "BOUNDARY_EPS", "MIN_NORM", "TANH_CLAMP", "PoincareBall", "artanh", "class_means",
-    "frechet_mean", "frechet_variance", "geodesic", "log_sinh_ratio", "tanh",
+    "BOUNDARY_EPS", "MIN_NORM", "TANH_CLAMP", "PoincareBall", "arsinh", "artanh",
+    "class_means", "frechet_mean", "frechet_variance", "geodesic", "log_sinh_ratio",
+    "normdist2plane", "tanh",
 ]

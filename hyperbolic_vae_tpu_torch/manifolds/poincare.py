@@ -9,8 +9,9 @@ upcast to f32, ``artanh`` is clipped at 1 - eps(dtype), ``tanh`` at
 The serving path's methods, the training path's (logmap, gyration,
 transport, dist, the Riemannian optimizer's helpers, logdetexp with the
 stable ``log_sinh_ratio``) and the evaluation path's
-(``mobius_scalar_mul``, for geodesics). Still to port: mobius_matvec,
-dist2plane and normdist2plane.
+(``mobius_scalar_mul``, for geodesics), and the conv image families'
+(``mobius_matvec``, ``dist2plane``, ``normdist2plane``, with the free
+function ``normdist2plane``).
 """
 
 from __future__ import annotations
@@ -39,6 +40,10 @@ def artanh(x: torch.Tensor) -> torch.Tensor:
     """arctanh with |x| clipped to 1 - eps(dtype)."""
     eps = torch.finfo(x.dtype).eps
     return torch.atanh(x.clamp(-1.0 + eps, 1.0 - eps))
+
+
+def arsinh(x: torch.Tensor) -> torch.Tensor:
+    return torch.asinh(x)
 
 
 def tanh(x: torch.Tensor) -> torch.Tensor:
@@ -114,6 +119,20 @@ class PoincareBall:
         res = tanh(r * artanh(sqrt_c * x_norm)) * x / (x_norm * sqrt_c)
         return self.project(res)
 
+    def mobius_matvec(self, m: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+        """Mobius matrix-vector product M (x) x for M (out, in) and x (..., in):
+        tanh(|Mx|/|x| artanh(sqrt(c)|x|)) Mx / (sqrt(c)|Mx|), the origin
+        where Mx == 0, projected into the ball."""
+        x, m = _upcast(x), _upcast(m)
+        sqrt_c = self.sqrt_c
+        x_norm = _norm(x)
+        mx = x @ m.T
+        mx_norm = _norm(mx)
+        res = tanh(mx_norm / x_norm * artanh(sqrt_c * x_norm)) * mx / (mx_norm * sqrt_c)
+        zero = (mx == 0.0).all(dim=-1, keepdim=True)
+        res = torch.where(zero, torch.zeros_like(res), res)
+        return self.project(res)
+
     def gyration(self, u: torch.Tensor, v: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         """gyr[u, v] w = -(u (+) v) (+) (u (+) (v (+) w))."""
         return self.mobius_add(-self.mobius_add(u, v), self.mobius_add(u, self.mobius_add(v, w)))
@@ -178,6 +197,37 @@ class PoincareBall:
         sqrt_c = self.sqrt_c
         return 2.0 / sqrt_c * artanh(sqrt_c * _norm(x, keepdim=keepdim))
 
+    def dist2plane(
+        self, x: torch.Tensor, p: torch.Tensor, a: torch.Tensor, signed: bool = False,
+        scaled: bool = False, keepdim: bool = False,
+    ) -> torch.Tensor:
+        """Distance from x to the gyroplane through p with tangent normal a:
+        arsinh(2 sqrt(c) <(-p)(+)x, a> / ((1 - c|(-p)(+)x|^2) |a|)) / sqrt(c),
+        times |a| with ``scaled``."""
+        x, p, a = _upcast(x), _upcast(p), _upcast(a)
+        c = self.c
+        sqrt_c = self.sqrt_c
+        diff = self.mobius_add(-p, x)
+        diff_norm2 = _sq_norm(diff, keepdim).clamp_min(MIN_NORM)
+        sc_diff_a = (diff * a).sum(dim=-1, keepdim=keepdim)
+        if not signed:
+            sc_diff_a = sc_diff_a.abs()
+        a_norm = torch.sqrt((a * a).sum(dim=-1, keepdim=keepdim).clamp_min(MIN_NORM**2))
+        num = 2.0 * sqrt_c * sc_diff_a
+        denom = ((1.0 - c * diff_norm2) * a_norm).clamp_min(MIN_NORM)
+        res = arsinh(num / denom) / sqrt_c
+        if scaled:
+            res = res * a_norm
+        return res
+
+    def normdist2plane(
+        self, x: torch.Tensor, a: torch.Tensor, p: torch.Tensor, signed: bool = False,
+        norm: bool = False, keepdim: bool = False,
+    ) -> torch.Tensor:
+        """The reference's signature: distance from x to the gyroplane
+        through ``p`` with normal ``a``, times |a| with ``norm``."""
+        return self.dist2plane(x, p, a, signed=signed, scaled=norm, keepdim=keepdim)
+
     # ---- Riemannian structure (for the optimizer) ----------------------
 
     def egrad2rgrad(self, x: torch.Tensor, grad: torch.Tensor) -> torch.Tensor:
@@ -218,3 +268,8 @@ class PoincareBall:
         (d - 1) log(sinh(sqrt(c) d(x, y)) / (sqrt(c) d(x, y)))."""
         d = self.dist(x, y, keepdim=keepdim)
         return (x.shape[-1] - 1) * log_sinh_ratio(self.sqrt_c * d)
+
+
+def normdist2plane(ball: PoincareBall, x, a, p, signed=False, norm=False, keepdim=False):
+    """Free-function form of :meth:`PoincareBall.normdist2plane`."""
+    return ball.normdist2plane(x, a, p, signed=signed, norm=norm, keepdim=keepdim)

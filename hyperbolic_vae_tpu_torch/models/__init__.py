@@ -1,5 +1,9 @@
+from hyperbolic_vae_tpu_torch.models.autoencoder import Autoencoder
 from hyperbolic_vae_tpu_torch.models.sampling import prior_sample, prior_sample_from_eps
+from hyperbolic_vae_tpu_torch.models.vae_euclidean import ConvDecoder, ConvEncoder, EuclideanVAE
 from hyperbolic_vae_tpu_torch.models.vae_gyroplane import GyroplaneVAE
+from hyperbolic_vae_tpu_torch.models.vae_hyperbolic import HyperbolicImageVAE
 from hyperbolic_vae_tpu_torch.models.vae_rnaseq import RNASeqVAE
 
-__all__ = ["GyroplaneVAE", "RNASeqVAE", "prior_sample", "prior_sample_from_eps"]
+__all__ = ["Autoencoder", "ConvDecoder", "ConvEncoder", "EuclideanVAE", "GyroplaneVAE",
+           "HyperbolicImageVAE", "RNASeqVAE", "prior_sample", "prior_sample_from_eps"]

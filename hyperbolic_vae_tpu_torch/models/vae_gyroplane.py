@@ -47,16 +47,21 @@ from hyperbolic_vae_tpu_torch.nn import PoincareHyperplanes
 _TRUNC_STD_CORRECTION = 0.87962566103423978
 
 
-def _dense(n_in: int, n_out: int, generator: Optional[torch.Generator]) -> nn.Linear:
-    """Linear layer with flax's Dense init: lecun-normal (truncated)
-    weight, zero bias."""
-    layer = nn.utils.skip_init(nn.Linear, n_in, n_out)
-    std = math.sqrt(1.0 / n_in) / _TRUNC_STD_CORRECTION
+def _lecun_(layer: nn.Module, fan_in: int, generator: Optional[torch.Generator]) -> nn.Module:
+    """flax's kernel init on ``layer`` in place: lecun-normal (truncated)
+    weight over ``fan_in``, zero bias."""
+    std = math.sqrt(1.0 / fan_in) / _TRUNC_STD_CORRECTION
     with torch.no_grad():
         nn.init.trunc_normal_(layer.weight, std=std, a=-2.0 * std, b=2.0 * std,
                               generator=generator)
         layer.bias.zero_()
     return layer
+
+
+def _dense(n_in: int, n_out: int, generator: Optional[torch.Generator]) -> nn.Linear:
+    """Linear layer with flax's Dense init: lecun-normal (truncated)
+    weight, zero bias."""
+    return _lecun_(nn.utils.skip_init(nn.Linear, n_in, n_out), n_in, generator)
 
 
 def _gelu() -> nn.GELU:
@@ -135,6 +140,10 @@ class GyroplaneVAE(nn.Module):
         h = self.encoder(x)
         scale = torch.clamp(F.softplus(self.scale(h)) + 1e-3, 1e-3, 10.0)
         return self.ball.expmap0(self.mu(h)), scale
+
+    def posterior_mean(self, x):
+        """The latent embedding of x: the posterior mean (B, latent)."""
+        return self.encode(x)[0]
 
     def decode(self, z):
         x_hat = self.decoder(z)

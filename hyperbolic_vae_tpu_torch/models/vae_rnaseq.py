@@ -148,6 +148,10 @@ class RNASeqVAE(nn.Module):
         scale = torch.clamp(F.softplus(self.scale(h)) + 1e-3, 1e-3, 10.0)
         return self.ball.expmap0(self.mu(h)), scale
 
+    def posterior_mean(self, x):
+        """The latent embedding of x: the posterior mean (B, latent)."""
+        return self.encode(x)[0]
+
     def decode(self, z):
         """Latents (B, latent) -> per-gene sigmoid outputs (B, genes) f32."""
         h = self.decoder[1](self.decoder[0](z))  # the manifold-facing layer in f32

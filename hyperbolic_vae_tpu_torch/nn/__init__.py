@@ -1,8 +1,13 @@
 from hyperbolic_vae_tpu_torch.nn.layers import (
     ExpMap0,
+    GeodesicLayer,
+    LogMap0,
     ManifoldParameter,
+    MobiusLayer,
     PoincareHyperplanes,
     is_manifold_param,
+    kaiming_normal_a_sqrt5,
 )
 
-__all__ = ["ExpMap0", "ManifoldParameter", "PoincareHyperplanes", "is_manifold_param"]
+__all__ = ["ExpMap0", "GeodesicLayer", "LogMap0", "ManifoldParameter", "MobiusLayer",
+           "PoincareHyperplanes", "is_manifold_param", "kaiming_normal_a_sqrt5"]

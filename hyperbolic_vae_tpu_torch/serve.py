@@ -20,10 +20,13 @@ request semantics:
     model computes in f32, data-shaped outputs come back in the wire
     dtype and are restored to float32 numpy.
 
-A model comes from a flagship state_dict (``from_state_dict``), from a
-Trainer's checkpoint directory (``from_checkpoint``: any family whose
-checkpoint embeds its configuration, e.g. ``RNASeqVAE``), or is passed
-in. Everything runs under ``torch.inference_mode()``. Sharded serving
+A model comes from a state_dict (``from_state_dict``: the flagship or a
+conv image family, told by its keys), from a Trainer's checkpoint
+directory (``from_checkpoint``: any family whose checkpoint embeds its
+configuration), or is passed in. Image families take and return
+channels-last (n, H, W, C) arrays on every endpoint; the Autoencoder's
+``encode`` answers its code alone, and it has no ``generate``.
+Everything runs under ``torch.inference_mode()``. Sharded serving
 (``mesh``) and exported program bundles are not ported yet.
 """
 
@@ -61,7 +64,8 @@ def generate_seed(seed: int, batch: int) -> int:
 
 class Inferencer:
     """Fixed-batch, padded inference endpoint over a model exposing
-    ``encode`` / ``decode`` (and optionally ``generate``).
+    ``encode`` / ``posterior_mean`` / ``decode`` (and optionally
+    ``generate``).
 
     ``device`` defaults to ``cuda`` and raises without a card; the model
     is moved there and put in eval mode.
@@ -108,20 +112,17 @@ class Inferencer:
     def from_state_dict(cls, path, batch_size: int = 256,
                         max_batches_per_dispatch: int = 16, io_dtype=None,
                         sub_batch_buckets: bool = True, device: DeviceLike = None,
-                        data_shape=(28, 28, 1),
-                        manifold_curvature: float = 1.0) -> "Inferencer":
-        """Serve the GyroplaneVAE stored at ``path`` (``.npz`` as written
-        by ``experiments/export_torch_state_dict.py``, or ``.pt``)."""
-        from hyperbolic_vae_tpu_torch.interop import (
-            gyroplane_vae_from_state_dict,
-            load_state_dict_file,
-        )
+                        data_shape=None, **model_config) -> "Inferencer":
+        """Serve the model stored at ``path`` (``.npz`` as written by
+        ``experiments/export_torch_state_dict.py``, or ``.pt``): its family
+        told by the state_dict's keys, what a state_dict does not hold
+        (``data_shape``, ``manifold_curvature``, ...) from ``data_shape``
+        and ``model_config`` (``interop.model_from_state_dict``)."""
+        from hyperbolic_vae_tpu_torch.interop import load_state_dict_file, model_from_state_dict
 
         device = resolve_device(device)
-        model = gyroplane_vae_from_state_dict(
-            load_state_dict_file(path), data_shape=data_shape,
-            manifold_curvature=manifold_curvature, device=device,
-        )
+        model = model_from_state_dict(load_state_dict_file(path), device=device,
+                                      data_shape=data_shape, **model_config)
         return cls(model, batch_size=batch_size,
                    max_batches_per_dispatch=max_batches_per_dispatch,
                    io_dtype=io_dtype, sub_batch_buckets=sub_batch_buckets,
@@ -193,11 +194,11 @@ class Inferencer:
 
         if method == "reconstruct":
             def apply(x):
-                mu = model.encode(x.float())[0]
-                return (cast(model.decode(mu)),)
+                return (cast(model.decode(model.posterior_mean(x.float()))),)
         elif method == "encode":
             def apply(x):
-                return tuple(cast(a) for a in model.encode(x.float()))
+                out = model.encode(x.float())
+                return tuple(cast(a) for a in (out if isinstance(out, tuple) else (out,)))
         elif method == "decode":
             def apply(x):
                 return (cast(model.decode(x.float())),)

@@ -32,8 +32,12 @@ Endpoints:
 
 Run: ``python -m hyperbolic_vae_tpu_torch.serve_http --checkpoint DIR
 --name best`` (a Trainer's checkpoint directory, any model family) or
-``... --state-dict flagship_torch.npz`` (a flagship state_dict); serves
-on the CUDA device.
+``... --state-dict FILE [--model-config JSON]`` (a state_dict of the
+flagship or a conv image family, told by its keys; what it does not hold
+as constructor arguments, e.g. the data shape and curvature); serves on
+the CUDA device. Image families take and return channels-last arrays
+(n, H, W, C); an engine without ``generate`` (the Autoencoder) answers
+404 there.
 """
 
 from __future__ import annotations
@@ -564,8 +568,12 @@ def parse_args(argv: Optional[list] = None):
     src = p.add_mutually_exclusive_group(required=True)
     src.add_argument("--checkpoint", help="a Trainer's checkpoint_dir (any model family)")
     src.add_argument("--state-dict",
-                     help="GyroplaneVAE state_dict (.npz from "
-                          "experiments/export_torch_state_dict.py, or .pt)")
+                     help="a state_dict (.npz from experiments/export_torch_state_dict.py, "
+                          "or .pt) of the flagship or a conv image family, told by its keys")
+    p.add_argument("--model-config", default="{}", metavar="JSON",
+                   help="with --state-dict: what a state_dict does not hold, as the "
+                        "model's constructor arguments, e.g. '{\"data_shape\": [32, 32, 1], "
+                        "\"manifold_curvature\": 1.4}'")
     p.add_argument("--name", default="best",
                    help="checkpoint name with --checkpoint (best/last/ema)")
     p.add_argument(
@@ -605,6 +613,7 @@ def load_engines(args, device=None) -> dict:
               max_batches_per_dispatch=args.max_batches_per_dispatch,
               io_dtype=args.io_dtype, sub_batch_buckets=not args.no_sub_batch_buckets,
               device=device)
+    model_config = json.loads(args.model_config)
 
     def load_checkpoint_or_file(src: str):
         """CKPT_DIR[:NAME] (NAME defaults to best), or a state_dict file."""
@@ -616,7 +625,8 @@ def load_engines(args, device=None) -> dict:
         return Inferencer.from_state_dict(src, **kw)
 
     engines = {"default": (Inferencer.from_checkpoint(args.checkpoint, name=args.name, **kw)
-                           if args.checkpoint else Inferencer.from_state_dict(args.state_dict, **kw))}
+                           if args.checkpoint
+                           else Inferencer.from_state_dict(args.state_dict, **kw, **model_config))}
     for spec in args.also:
         mname, _, src = spec.partition("=")
         if not mname or not src:
@@ -626,7 +636,7 @@ def load_engines(args, device=None) -> dict:
 
 
 def main(argv: Optional[list] = None, device=None):
-    """CLI: serve a checkpoint or a GyroplaneVAE state_dict over HTTP.
+    """CLI: serve a checkpoint or a state_dict over HTTP.
     ``device`` (for callers embedding the CLI) defaults to ``cuda``."""
     from hyperbolic_vae_tpu_torch.device import resolve_device
 

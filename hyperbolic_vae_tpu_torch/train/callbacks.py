@@ -213,7 +213,7 @@ class LatentInterpolationCallback:
         flat_ends = torch.from_numpy(
             np.ascontiguousarray(self._x.reshape((2 * p,) + self._x.shape[2:]), np.float32))
         with torch.no_grad():
-            mu = model.encode(flat_ends.to(model.device))[0].reshape(p, 2, -1)
+            mu = model.posterior_mean(flat_ends.to(model.device)).reshape(p, 2, -1)
             ball = getattr(model, "ball", None)
             if ball is not None:
                 z = geodesic(ball, mu[:, :1], mu[:, 1:], t)  # (P, T, D)
