@@ -38,7 +38,8 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
      eager step split into the K2 forward, the autograd backward and the
      optimizer, and one K3 step synchronised.
   Each path (serve, fused train, K3 train, default train, eval, the
-  RNA-seq family's fits, serve and eval, and the conv families') zeroes
+  RNA-seq family's fits, serve and eval, the conv families' and the pvae
+  phase's) zeroes
   the launch counters just before it and reads them just after; the graph
   runner adds each captured kernel's launches on every replay.
   5. North star: the reference protocol (at most 300 epochs, patience 10,
@@ -72,10 +73,25 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
      their own (the Autoencoder's generate 404); ``evaluate_iwae(k=5000)``
      on 1,024 test rows
      (exactly 40 K1 launches, at least the k = 1 bound).
-  9. Summary: a ``{"kernels": [...]}`` line (K1 three times: at the
-     flagship's 16 planes, the RNA-seq family's 256 and the conv family's
-     512, each counted on its own paths), then, as the last line,
-     ``{"ok": true, "device": {...}}``.
+  9. Pvae (``pvae_phase``): ``PvaeMLPVAE`` at experiment 9's protocol
+     (784 -> 600 -> 2-D ball, geodesic decoder, batch 128, lr 5e-4,
+     synthetic MNIST) with the wrapped and the Riemannian posterior, and
+     ``UnifiedVAE`` at experiment 8's config (20,480 genes -> hidden 100:
+     K1 at 100 planes, on its runtime path; batch 64) and its Euclidean
+     arm: K1 at 100 planes against its plain version and timed; five
+     steps card vs CPU for the four arms; each arm graphed against eager,
+     bit for bit, with the graphed step's wall, busy and idle share; the
+     Riemannian posterior's 80-epoch fit (best val within 1 % of JAX's
+     319.970) and ``evaluate_iwae(k=5000)`` (within 1 % of JAX's
+     -320.655, at least the test ELBO); the wrapped posterior's 10-epoch
+     fit served over HTTP from its best checkpoint (generate 404);
+     UnifiedVAE's 10-epoch fit served from its best checkpoint and
+     ``evaluate_iwae(k=5000, k_chunk=100)`` (exactly 250 K1 launches), the
+     Euclidean arm's fit with none.
+  10. Summary: a ``{"kernels": [...]}`` line (K1 four times: at the
+     flagship's 16 planes, the RNA-seq family's 256, the conv family's
+     512 and UnifiedVAE's 100, each counted on its own paths), then, as
+     the last line, ``{"ok": true, "device": {...}}``.
 
 Prints no result and exits 1 when CUDA is unavailable.
 """
@@ -711,6 +727,22 @@ def _http(server, path, body=None, headers=None):
     return hdrs, payload, (time.perf_counter() - t0) * 1e3
 
 
+def _shaped(h, body):
+    """An octet-stream reply as the array its ``X-Shape`` names."""
+    return np.frombuffer(body, "<f4").reshape(tuple(int(s_) for s_ in h["X-Shape"].split(",")))
+
+
+def _batchwise(inf, x):
+    """The served model's decode of its posterior mean, batch by batch on
+    the card (what the engine's reconstruct must equal bit for bit)."""
+    import torch
+
+    with torch.inference_mode():
+        out = [inf.model.decode(inf.model.posterior_mean(torch.from_numpy(x[i:i + BATCH]).cuda()))
+               for i in range(0, len(x), BATCH)]
+    return torch.cat(out).cpu().numpy()
+
+
 def serve_phase() -> dict:
     """The flagship over HTTP on the card. Returns launches per kernel."""
     import torch
@@ -1306,6 +1338,13 @@ RNA_STEP_FLOP, RNA_BENCH_STEP_FLOP = 5 * RNA_PRODUCT_FLOP, 6 * RNA_PRODUCT_FLOP
 RNA_RTOL, RNA_ATOL, RNA_SHARE_LIMIT, RNA_CONTROL_NOISE = 5e-3, 3e-4, 2.5e-2, 1e-4
 
 
+def _dense_tree(rng, n_in: int, n_out: int) -> dict:
+    """A flax Dense's parameters as its init draws them (lecun-normal
+    kernel (in, out), zero bias), in numpy."""
+    kernel = rng.standard_normal((n_in, n_out), dtype=np.float32) / np.float32(np.sqrt(n_in))
+    return {"kernel": kernel, "bias": np.zeros(n_out, np.float32)}
+
+
 def _rnaseq_jax_tree(seed: int) -> dict:
     """Seeded weights in the JAX ``RNASeqVAE``'s tree layout (numpy,
     kernels (in, out)), drawn as flax initialises them: lecun-normal
@@ -1316,19 +1355,14 @@ def _rnaseq_jax_tree(seed: int) -> dict:
     from hyperbolic_vae_tpu_torch.manifolds import PoincareBall
 
     rng = np.random.default_rng(seed)
-
-    def dense(n_in, n_out):
-        kernel = rng.standard_normal((n_in, n_out), dtype=np.float32) / np.float32(np.sqrt(n_in))
-        return {"kernel": kernel, "bias": np.zeros(n_out, np.float32)}
-
     v = rng.standard_normal((RNA_HIDDEN, D))
     v *= rng.standard_normal((RNA_HIDDEN, 1)) / np.linalg.norm(v, axis=-1, keepdims=True)
     points = PoincareBall(1.0).expmap0(torch.from_numpy(v.astype(np.float32))).numpy()
-    return {"enc": dense(RNA_GENES, RNA_HIDDEN), "mu": dense(RNA_HIDDEN, D),
-            "scale": dense(RNA_HIDDEN, D),
+    return {"enc": _dense_tree(rng, RNA_GENES, RNA_HIDDEN), "mu": _dense_tree(rng, RNA_HIDDEN, D),
+            "scale": _dense_tree(rng, RNA_HIDDEN, D),
             "gyroplanes": {"mp_points": points,
                            "bias": rng.uniform(-1, 1, RNA_HIDDEN).astype(np.float32)},
-            "dec_out": dense(RNA_HIDDEN, RNA_GENES),
+            "dec_out": _dense_tree(rng, RNA_HIDDEN, RNA_GENES),
             "nb_log_theta": np.zeros(RNA_GENES, np.float32)}
 
 
@@ -1351,9 +1385,10 @@ def _share_outside(a, b, rtol: float, atol: float) -> float:
 
 def _five_steps(make, draws, on: str, noise: float = 0.0):
     """Five eager steps (``loss_from_eps``, autograd backward,
-    RiemannianAdam lr 1e-3) of ``make(on)`` on ``draws`` (batch, eps):
-    (losses, first-step gradients, parameters after five steps), the
-    tensors copied to the CPU. With ``noise``, each gradient gets N(0,
+    RiemannianAdam lr 1e-3) of ``make(on)`` on ``draws`` (batch, eps; or
+    batch and a tuple of the posterior's draws, which ``loss_from_noise``
+    takes): (losses, first-step gradients, parameters after five steps),
+    the tensors copied to the CPU. With ``noise``, each gradient gets N(0,
     noise x its largest magnitude) an element before each step."""
     import torch
 
@@ -1364,7 +1399,11 @@ def _five_steps(make, draws, on: str, noise: float = 0.0):
     gen = torch.Generator().manual_seed(13)
     losses, grads = [], None
     for xb, eps in draws:
-        loss = m.loss_from_eps(torch.from_numpy(xb).to(on), torch.from_numpy(eps).to(on))
+        x = torch.from_numpy(xb).to(on)
+        if isinstance(eps, tuple):
+            loss = m.loss_from_noise(x, tuple(torch.from_numpy(e).to(on) for e in eps))
+        else:
+            loss = m.loss_from_eps(x, torch.from_numpy(eps).to(on))
         opt.zero_grad()
         loss["loss_total"].backward()
         if grads is None:
@@ -1376,14 +1415,14 @@ def _five_steps(make, draws, on: str, noise: float = 0.0):
     return losses, grads, {n: q.detach().cpu() for n, q in m.named_parameters()}
 
 
-def _card_vs_cpu(what: str, make, draws) -> None:
+def _card_vs_cpu(what: str, make, draws, share_limit: float = RNA_SHARE_LIMIT) -> None:
     """Five steps (``_five_steps``) on the card and on the CPU from the same
     weights, batches and eps: every loss, first-step gradient and parameter
     finite; the first step's gradients within 1e-4 of each tensor's
     largest; each step's loss rtol 1e-4; after five steps at most
-    ``RNA_SHARE_LIMIT`` of any tensor's elements outside
-    ``RNA_RTOL``/``RNA_ATOL``, and the control (the card's five steps with
-    ``RNA_CONTROL_NOISE`` planted at every step) over it."""
+    ``share_limit`` (default ``RNA_SHARE_LIMIT``) of any tensor's elements
+    outside ``RNA_RTOL``/``RNA_ATOL``, and the control (the card's five
+    steps with ``RNA_CONTROL_NOISE`` planted at every step) over it."""
     import torch
 
     card, cpu = _five_steps(make, draws, "cuda"), _five_steps(make, draws, "cpu")
@@ -1402,17 +1441,17 @@ def _card_vs_cpu(what: str, make, draws) -> None:
           f"(largest relative difference {loss_err:.3e}); first step's gradients max abs diff "
           f"{grad_err:.3e} of each tensor's largest; after 5 steps the largest share of a "
           f"tensor's elements outside rtol {RNA_RTOL}/atol {RNA_ATOL} {share:.4e} (limit "
-          f"{RNA_SHARE_LIMIT}; the control with {RNA_CONTROL_NOISE} of each gradient's largest "
+          f"{share_limit}; the control with {RNA_CONTROL_NOISE} of each gradient's largest "
           f"planted at every step {control_share:.4e})", flush=True)
     if not grad_err <= 1e-4:
         _fail(f"{what}: first-step gradients card vs CPU differ by {grad_err} of their scale")
     if not loss_err <= 1e-4:
         _fail(f"{what}: losses card vs CPU differ by {loss_err} of their size")
-    if not share <= RNA_SHARE_LIMIT:
+    if not share <= share_limit:
         _fail(f"{what}: {share} of a tensor's elements card vs CPU outside rtol {RNA_RTOL}/"
-              f"atol {RNA_ATOL} after 5 steps, over {RNA_SHARE_LIMIT}")
-    if not control_share > RNA_SHARE_LIMIT:
-        _fail(f"{what}: the control's share {control_share} is within {RNA_SHARE_LIMIT}: the "
+              f"atol {RNA_ATOL} after 5 steps, over {share_limit}")
+    if not control_share > share_limit:
+        _fail(f"{what}: the control's share {control_share} is within {share_limit}: the "
               "rule does not see an error at the gradient rule's limit")
 
 
@@ -1897,17 +1936,6 @@ def conv_phase():
     octet = {"Content-Type": "application/octet-stream", "Accept": "application/octet-stream"}
     jhdr = {"Content-Type": "application/json"}
 
-    def shaped(h, body):
-        return np.frombuffer(body, "<f4").reshape(tuple(int(s_) for s_ in h["X-Shape"].split(",")))
-
-    def batchwise(inf, x):
-        with torch.inference_mode():
-            out = []
-            for i in range(0, len(x), BATCH):
-                t = torch.from_numpy(x[i:i + BATCH]).to(device)
-                out.append(inf.model.decode(inf.model.posterior_mean(t)))
-            return torch.cat(out).cpu().numpy()
-
     with tempfile.TemporaryDirectory() as ckpt:
         # (d) the fit, and serving its best checkpoint
         _reset_launches()
@@ -1944,17 +1972,17 @@ def conv_phase():
             emb = np.asarray(json.loads(body)["outputs"][0], np.float32)
             h, body, lat["POST /v1/decode 64 latents octet-stream"] = _http(
                 server, "/v1/decode", z.tobytes(), {**octet, "X-Shape": "64,2"})
-            dec = shaped(h, body)
+            dec = _shaped(h, body)
             h, body, lat["POST /v1/reconstruct 2048 rows octet-stream"] = _http(
                 server, "/v1/reconstruct", xr.tobytes(),
                 {**octet, "X-Shape": ",".join(map(str, xr.shape))})
-            rec = shaped(h, body)
+            rec = _shaped(h, body)
             gens = []
             for i in range(2):
                 h, body, lat[f"POST /v1/generate n=512 seed=3 octet-stream ({i + 1})"] = _http(
                     server, "/v1/generate", json.dumps({"n": 512, "seed": 3}).encode(),
                     {**jhdr, "Accept": "application/octet-stream"})
-                gens.append(shaped(h, body))
+                gens.append(_shaped(h, body))
             paths["conv_serve"] = _launches()
         finally:
             server.shutdown()
@@ -1969,7 +1997,7 @@ def conv_phase():
             _fail("conv (d): the embedding lies outside the ball")
         if not np.array_equal(gens[0], gens[1]):
             _fail("conv (d): generate(n=512, seed=3) differs between two requests")
-        want = batchwise(inf, xr)
+        want = _batchwise(inf, xr)
         if not np.array_equal(rec, want):
             _fail(f"conv (d): the served reconstruct differs from the model's by "
                   f"{float(np.abs(rec - want).max())}")
@@ -1991,18 +2019,18 @@ def conv_phase():
             _reset_launches()
             h, body, ms = _http(server, "/v1/reconstruct", xc.tobytes(),
                                 {**octet, "X-Shape": ",".join(map(str, xc.shape))})
-            rec = shaped(h, body)
+            rec = _shaped(h, body)
             try:
                 h, body, _ = _http(server, "/v1/generate", json.dumps({"n": 8, "seed": 0}).encode(),
                                    {**jhdr, "Accept": "application/octet-stream"})
-                gen, gen_code = shaped(h, body), 200
+                gen, gen_code = _shaped(h, body), 200
             except urllib.error.HTTPError as e:
                 gen, gen_code = None, e.code
             paths[f"conv_serve_{arm}"] = _launches()
         finally:
             server.shutdown()
             ckpt_dir.cleanup()
-        if not np.array_equal(rec, batchwise(inf, xc)):
+        if not np.array_equal(rec, _batchwise(inf, xc)):
             _fail(f"conv (d): the {arm}'s served reconstruct differs from the model's")
         want_gen = 404 if arm == "autoencoder" else 200
         if gen_code != want_gen or paths[f"conv_serve_{arm}"] != no_launches():
@@ -2050,6 +2078,424 @@ def conv_phase():
           f"{busy_ms:.3f} ms of kernel time (share {share}, {k1_ms / chunks * 1e3:.3f} us a "
           f"launch)", flush=True)
     print(f"conv: phase {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return k1, {p_: n["gyroplane_distances"] for p_, n in paths.items()}
+
+
+# experiment 9 (experiments/pvae_replicate.py, runs/README.md's round-3
+# grid): synthetic MNIST, 784 -> 600 (ReLU) -> 2-D ball (c = 1), batch 128,
+# lr 5e-4, 80 epochs, no early stopping, IWAE-5000; JAX's converged numbers
+# of its riemannian_c1.0_d2 cell (runs/pvae_replicate_r3/replicate_results.json)
+PVAE_HIDDEN, PVAE_BATCH, PVAE_LR, PVAE_EPOCHS, PVAE_WRAPPED_EPOCHS = 600, 128, 5e-4, 80, 10
+PVAE_JAX_BEST_VAL, PVAE_JAX_IWAE, PVAE_IWAE_K = 319.970, -320.655, 5000
+PVAE_CHECK_ROWS = 10000  # (c)'s graphed/eager pairs: 9,000 train and 1,000 val rows
+# (b)'s share limit: a tenth of RNA_SHARE_LIMIT. Five steps card vs CPU
+# leave no element of these four models outside RNA_RTOL/RNA_ATOL, and the
+# control of the same planted error shows far less on the Euclidean
+# UnifiedVAE (0.5 %; the others 3.7-13 %), whose gradients have few
+# elements near zero for the error to flip
+PVAE_SHARE_LIMIT = RNA_SHARE_LIMIT / 10
+# experiment 8 (experiments/train_vaes_rnaseq.py:24-31): UnifiedVAE on the
+# z-scored fake Jerby-Arnon data, hidden 100 (K1's planes), latent 2, c = 1,
+# prior scale 2, beta 0.5, logmap0_analytic KL, sigmoid output, MSE, batch 64
+UNI_HIDDEN, UNI_BATCH, UNI_FIT_EPOCHS, UNI_K_CHUNK = 100, 64, 10, 100
+EXP8 = dict(hidden_layer_dim=UNI_HIDDEN, latent_dim=D, prior_scale=2.0,
+            posterior_scale="learned", learning_rate=1e-3, beta=0.5,
+            kl_loss_method="logmap0_analytic", last_activation="sigmoid",
+            loss_recon_method="MSE")
+
+
+def _pvae_jax_tree(seed: int, posterior: str) -> dict:
+    """Seeded weights in the JAX ``PvaeMLPVAE``'s tree (experiment 9's
+    widths, the geodesic decoder): Dense layers as flax draws them; the
+    GeodesicLayer's ``weight_t0`` kaiming-normal (a = sqrt 5) and
+    ``bias_scalar`` U(+-4/sqrt(in))."""
+    rng = np.random.default_rng(seed)
+    return {
+        "enc": _dense_tree(rng, DATA, PVAE_HIDDEN), "mu": _dense_tree(rng, PVAE_HIDDEN, D),
+        "scale": _dense_tree(rng, PVAE_HIDDEN, D if posterior == "wrapped" else 1),
+        "dec_geodesic": {
+            "weight_t0": (rng.standard_normal((PVAE_HIDDEN, D)) * np.sqrt(1 / 3 / D)).astype(
+                np.float32),
+            "bias_scalar": (rng.uniform(-4, 4, (PVAE_HIDDEN, 1)) / np.sqrt(D)).astype(np.float32)},
+        "dec_out": _dense_tree(rng, PVAE_HIDDEN, DATA),
+    }
+
+
+def _unified_jax_tree(seed: int, ball: bool) -> dict:
+    """Seeded weights in the JAX ``UnifiedVAE``'s tree at experiment 8's
+    widths (20,480 genes, hidden 100): Dense layers as flax draws them;
+    on the ball, gyroplane points expmap0(unit direction x N(0, 1)) and
+    biases U(-1, 1); else a Dense first decoder layer."""
+    import torch
+
+    from hyperbolic_vae_tpu_torch.manifolds import PoincareBall
+
+    rng = np.random.default_rng(seed)
+    tree = {"enc": _dense_tree(rng, RNA_GENES, UNI_HIDDEN), "mu": _dense_tree(rng, UNI_HIDDEN, D),
+            "scale": _dense_tree(rng, UNI_HIDDEN, D)}
+    if ball:
+        v = rng.standard_normal((UNI_HIDDEN, D))
+        v *= rng.standard_normal((UNI_HIDDEN, 1)) / np.linalg.norm(v, axis=-1, keepdims=True)
+        tree["gyroplanes"] = {
+            "mp_points": PoincareBall(1.0).expmap0(torch.from_numpy(v.astype(np.float32))).numpy(),
+            "bias": rng.uniform(-1, 1, UNI_HIDDEN).astype(np.float32)}
+    else:
+        tree["dec_first"] = _dense_tree(rng, D, UNI_HIDDEN)
+    tree["dec_out"] = _dense_tree(rng, UNI_HIDDEN, RNA_GENES)
+    return tree
+
+
+def pvae_phase():
+    """The last two model families on the card (TF32 off, as ``main()``
+    sets it): ``PvaeMLPVAE`` at experiment 9's protocol (784 -> 600 -> 2-D
+    ball, c = 1, the geodesic decoder, batch 128, lr 5e-4, synthetic MNIST:
+    54,000 train, 6,000 val, 10,000 test rows) with the Riemannian and the
+    wrapped posterior, and ``UnifiedVAE`` at experiment 8's config (20,480
+    genes -> hidden 100 -> 2-D ball, c = 1, prior scale 2, beta 0.5,
+    logmap0_analytic, sigmoid, MSE; K1 at 100 planes, on its runtime
+    path) on the z-scored fake Jerby-Arnon data (8,192 cells: 5,734 train,
+    1,228 val, 1,230 test rows), batch 64, and its Euclidean arm
+    (``latent_curvature=None``):
+
+      (a) K1 at P = 100, D = 2, c = 1 against its plain version
+          (``_k1_check``'s rules) at B = 64 (every UnifiedVAE training and
+          validation batch) and 25,600 (its IWAE decode, k_chunk 100 x 256
+          rows), timed from Python and from graph replay beside an empty
+          launch of its grid (``_k1_times``);
+      (b) five eager f32 steps card vs CPU from numpy-seeded weights in
+          JAX's tree (``_pvae_jax_tree``, ``_unified_jax_tree``) carried
+          through ``state_dict_from_jax_params``, the same batches and
+          posterior draws (``_card_vs_cpu``'s rules, the share limit
+          ``PVAE_SHARE_LIMIT``), for four arms: PvaeMLPVAE wrapped and
+          Riemannian, UnifiedVAE on the ball and Euclidean;
+      (c) for each arm ``Trainer.fit`` graphed against eager, two epochs
+          each, bit for bit (PvaeMLPVAE on 10,000 synthetic rows); the
+          graphed step's wall, busy, idle share, kernels a step and top
+          kernels (``_profile_train``); K1 once a step and val batch on
+          the ball, never elsewhere;
+      (d) experiment 9's protocol to convergence on the Riemannian
+          posterior: ``Trainer(lr=5e-4, max_epochs=80, seed=42,
+          early_stopping_patience=None, epochs_per_dispatch=10)``; fails
+          unless its best val/loss_total is within 1 % of JAX's 319.970,
+          then unless ``evaluate_iwae(k=5000)`` on the test split is within
+          1 % of JAX's -320.655 and at least the split's mean ELBO
+          (``evaluate(split="test")``);
+      (e) the wrapped posterior at the same protocol for 10 epochs with
+          checkpoints, its best served over HTTP: embed, and reconstruct
+          of 2,048 rows as octet-stream (bit for bit the restored model's
+          decode of its posterior mean, batch by batch); generate 404;
+      (f) UnifiedVAE: a 10-epoch graphed fit with checkpoints, its best
+          served over HTTP (embed, decode, reconstruct of 2,048 rows,
+          generate), ``evaluate_iwae(k=5000, k_chunk=100)`` on the test
+          split (exactly 250 K1 launches: 5 batch chunks x 50 k chunks;
+          the bound at least k = 1's), and the Euclidean arm's same fit
+          with no K1 launch.
+
+    Returns (K1's entry at 100 planes, launches by path)."""
+    import tempfile
+
+    import torch
+
+    from hyperbolic_vae_tpu_torch.data import make_data_module, make_rnaseq_data_module
+    from hyperbolic_vae_tpu_torch.interop import state_dict_from_jax_params
+    from hyperbolic_vae_tpu_torch.models import PvaeMLPVAE, UnifiedVAE
+    from hyperbolic_vae_tpu_torch.serve import Inferencer
+    from hyperbolic_vae_tpu_torch.serve_http import InferenceServer
+    from hyperbolic_vae_tpu_torch.train import Trainer
+    from hyperbolic_vae_tpu_torch.train.cuda_graph import run_eagerly
+
+    device = "cuda"
+    sync = torch.cuda.synchronize
+    t_phase = time.perf_counter()
+    mnist = make_data_module(batch_size=PVAE_BATCH, synthetic=True, n_train=60000)
+    mnist_small = make_data_module(batch_size=PVAE_BATCH, synthetic=True,
+                                   n_train=PVAE_CHECK_ROWS, n_test=PVAE_BATCH)
+    rna = make_rnaseq_data_module(batch_size=UNI_BATCH, fake=True, n_samples=RNA_CELLS,
+                                  n_genes=RNA_GENES, structured_fake=True)
+    print(f"pvae: data: MNIST {mnist.x_train.shape[0]} / {mnist.x_val.shape[0]} / "
+          f"{mnist.x_test.shape[0]} rows (the graphed/eager pairs on "
+          f"{mnist_small.x_train.shape[0]} / {mnist_small.x_val.shape[0]}); RNA-seq "
+          f"{rna.x_train.shape[0]} / {rna.x_val.shape[0]} / {rna.x_test.shape[0]} rows of "
+          f"{RNA_GENES} genes, z-scored ({time.perf_counter() - t_phase:.2f} s)", flush=True)
+
+    def make_pvae(posterior, on=device):
+        m = PvaeMLPVAE(hidden_dim=PVAE_HIDDEN, latent_dim=D, posterior=posterior, lr=PVAE_LR,
+                       device=on)
+        m.load_state_dict(state_dict_from_jax_params(_pvae_jax_tree(0, posterior), m))
+        return m
+
+    def make_unified(ball, on=device):
+        m = UnifiedVAE((RNA_GENES,), latent_curvature=1.0 if ball else None, **EXP8, device=on)
+        m.load_state_dict(state_dict_from_jax_params(_unified_jax_tree(1, ball), m))
+        return m
+
+    def no_launches():
+        return {"gyroplane_distances": 0, "flagship_fused": 0, "flagship_train": 0}
+
+    def want_k1(n):
+        return {**no_launches(), "gyroplane_distances": n}
+
+    def per_epoch(data):
+        n_v, b = data.x_val.shape[0], data.batch_size
+        return data.x_train.shape[0] // b + n_v // b + (1 if n_v % b else 0)
+
+    def fit(model, data, epochs, eager=False, **kw):
+        trainer = Trainer(model, max_epochs=epochs, early_stopping_patience=None,
+                          device=device, **kw)
+        sync()
+        t0 = time.perf_counter()
+        with run_eagerly() if eager else contextlib.nullcontext():
+            res = trainer.fit(data)
+        sync()
+        return res, trainer, time.perf_counter() - t0
+
+    # (a) K1 at 100 planes
+    rng = np.random.default_rng(31)
+    iwae_rows = UNI_K_CHUNK * BATCH
+    err_in, err_bd = _k1_check(rng, (UNI_BATCH, iwae_rows), UNI_HIDDEN, curvatures=(1.0,))
+    print(f"pvae (a): K1 at P={UNI_HIDDEN}: max_abs_err vs plain: interior {err_in:.3e}, "
+          f"near boundary {err_bd:.3e}", flush=True)
+    k1 = _k1_entry(err_in, err_bd, _k1_times(rng, UNI_BATCH, UNI_HIDDEN),
+                   _k1_times(rng, iwae_rows, UNI_HIDDEN))
+
+    # (b) five eager f32 steps card vs CPU, four arms
+    rng = np.random.default_rng(32)
+    arms = (("pvae_wrapped", mnist, lambda on: make_pvae("wrapped", on)),
+            ("pvae_riemannian", mnist, lambda on: make_pvae("riemannian", on)),
+            ("unified_ball", rna, lambda on: make_unified(True, on)),
+            ("unified_euclidean", rna, lambda on: make_unified(False, on)))
+    for arm, data, make in arms:
+        b = data.batch_size
+        draws = []
+        for _ in range(5):
+            xb = data.x_train[rng.integers(0, data.x_train.shape[0], b)]
+            g = rng.normal(size=(b, D)).astype(np.float32)
+            if arm == "pvae_wrapped":
+                draws.append((xb, (g[None],)))
+            elif arm == "pvae_riemannian":
+                draws.append((xb, (g[None], rng.uniform(1e-6, 1 - 1e-6, (1, b)).astype(np.float32))))
+            else:
+                draws.append((xb, g))
+        _card_vs_cpu(f"pvae (b) {arm}", make, draws, PVAE_SHARE_LIMIT)
+
+    # (c) graphed against eager, each arm
+    paths = {}
+    for arm, data, make in arms:
+        data = mnist_small if arm.startswith("pvae") else data
+        _reset_launches()
+        res, trainer, wall = fit(make(device), data, 2)
+        launches = _launches()
+        eres, _, ewall = fit(make(device), data, 2, eager=True)
+        _same_fit(f"pvae (c) {arm}", res, eres, "graphed", "eager")
+        if not all(np.isfinite(v) for row in res.history for v in row.values()):
+            _fail(f"pvae (c) {arm}: non-finite metrics {res.history}")
+        want = want_k1(2 * per_epoch(data)) if arm == "unified_ball" else no_launches()
+        if launches != want:
+            _fail(f"pvae (c) {arm}: launches {launches}, want {want}")
+        paths[f"pvae_fit_{arm}"] = launches
+        prof = _profile_train(trainer.program, device)
+        print(f"pvae (c) {arm}: 2 epochs graphed {wall:.3f} s, eager {ewall:.3f} s, bit for bit; "
+              f"launches {json.dumps(launches)}; val/loss_total "
+              f"{[h['val/loss_total'] for h in res.history]}; graphed {prof['what']}: wall "
+              f"{prof['wall_ms']:.4f} ms/step, device busy {prof['busy_ms']:.4f} ms/step, idle "
+              f"share {prof['idle']}, {prof['kernels']:.1f} kernels/step; "
+              f"{data.batch_size / prof['wall_ms'] * 1e3:.1f} train samples/s; top kernels "
+              f"{_top(prof)}", flush=True)
+        del res, eres, trainer
+
+    # (d) experiment 9's protocol to convergence, Riemannian posterior
+    model = PvaeMLPVAE(latent_dim=D, manifold_curvature=1.0, posterior="riemannian",
+                       generator=torch.Generator().manual_seed(0), device=device)
+    trainer = Trainer(model, lr=PVAE_LR, max_epochs=PVAE_EPOCHS, seed=42,
+                      early_stopping_patience=None, epochs_per_dispatch=10, device=device)
+    _reset_launches()
+    sync()
+    t0 = time.perf_counter()
+    res = trainer.fit(mnist)
+    sync()
+    fit_wall = time.perf_counter() - t0
+    paths["pvae_fit_riemannian_protocol"] = _launches()
+    vals = [h["val/loss_total"] for h in res.history]
+    skipped = sum(h["train/skipped_steps"] for h in res.history)
+    lrs = sorted({h["lr"] for h in res.history}, reverse=True)
+    print(f"pvae (d): experiment 9, riemannian: {res.epochs_run} epochs graphed in {fit_wall:.3f} s "
+          f"({fit_wall / res.epochs_run * 1e3:.1f} ms an epoch, {res.samples_per_sec:.1f} train "
+          f"samples/s after the first chunk); best val/loss_total {res.best_metric:.4f} at epoch "
+          f"{int(np.argmin(vals))} (JAX {PVAE_JAX_BEST_VAL}, within 1 %); lr values {lrs}; "
+          f"skipped steps {skipped}; last row {json.dumps(res.history[-1])}", flush=True)
+    if not abs(res.best_metric - PVAE_JAX_BEST_VAL) <= 0.01 * PVAE_JAX_BEST_VAL:
+        _fail(f"pvae (d): best val/loss_total {res.best_metric} is not within 1 % of JAX's "
+              f"{PVAE_JAX_BEST_VAL}")
+    best = res.best_params
+    sync()
+    t0 = time.perf_counter()
+    bound = trainer.evaluate_iwae(mnist, best, k=PVAE_IWAE_K)
+    sync()
+    eval_wall = time.perf_counter() - t0
+    test = trainer.evaluate(mnist, best, split="test")
+    elbo = test["test/elbo"]
+    print(f"pvae (d): evaluate_iwae k={PVAE_IWAE_K} on {mnist.x_test.shape[0]} test rows: "
+          f"{bound:.4f} nats a row (JAX {PVAE_JAX_IWAE}, within 1 %); the test ELBO {elbo:.4f}; "
+          f"wall {eval_wall:.3f} s", flush=True)
+    if not (np.isfinite(bound) and abs(bound - PVAE_JAX_IWAE) <= 0.01 * abs(PVAE_JAX_IWAE)):
+        _fail(f"pvae (d): the bound {bound} is not within 1 % of JAX's {PVAE_JAX_IWAE}")
+    if not bound >= elbo:
+        _fail(f"pvae (d): the bound {bound} is below the test ELBO {elbo}")
+    if paths["pvae_fit_riemannian_protocol"] != no_launches():
+        _fail(f"pvae (d): launches {paths['pvae_fit_riemannian_protocol']}, want none")
+    del trainer, model, res, best
+
+    octet = {"Content-Type": "application/octet-stream", "Accept": "application/octet-stream"}
+    jhdr = {"Content-Type": "application/json"}
+
+    # (e) the wrapped posterior, 10 epochs, served from its best checkpoint
+    with tempfile.TemporaryDirectory() as ckpt:
+        model = PvaeMLPVAE(latent_dim=D, manifold_curvature=1.0, posterior="wrapped",
+                           generator=torch.Generator().manual_seed(0), device=device)
+        _reset_launches()
+        res, _, wall = fit(model, mnist, PVAE_WRAPPED_EPOCHS, lr=PVAE_LR, seed=42,
+                           epochs_per_dispatch=5, checkpoint_dir=ckpt)
+        paths["pvae_fit_wrapped"] = _launches()
+        vals = [h["val/loss_total"] for h in res.history]
+        print(f"pvae (e): wrapped, {res.epochs_run} epochs graphed in {wall:.3f} s; val/loss_total "
+              f"first {vals[0]:.4f}, best {res.best_metric:.4f}", flush=True)
+        if not res.best_metric < vals[0]:
+            _fail(f"pvae (e): best val/loss_total {res.best_metric} not below the first {vals[0]}")
+        inf = Inferencer.from_checkpoint(ckpt, "best", batch_size=BATCH, device=device)
+        for key, v in res.best_params.items():
+            if not torch.equal(inf.model.state_dict()[key], v):
+                _fail(f"pvae (e): the best checkpoint's {key} is not the fit's best params")
+        inf.warmup()
+        xr = np.ascontiguousarray(np.concatenate([mnist.x_test, mnist.x_val])[:2048], "<f4")
+        server = InferenceServer(inf, host="127.0.0.1", port=0).start()
+        lat = {}
+        try:
+            _reset_launches()
+            _, body, lat["POST /v1/embed 1 row json"] = _http(
+                server, "/v1/embed", json.dumps({"data": xr[:1].tolist()}).encode(), jhdr)
+            emb = np.asarray(json.loads(body)["outputs"][0], np.float32)
+            h, body, lat["POST /v1/reconstruct 2048 rows octet-stream"] = _http(
+                server, "/v1/reconstruct", xr.tobytes(),
+                {**octet, "X-Shape": ",".join(map(str, xr.shape))})
+            rec = _shaped(h, body)
+            try:
+                _http(server, "/v1/generate", json.dumps({"n": 8, "seed": 0}).encode(), jhdr)
+                gen_code = 200
+            except urllib.error.HTTPError as e:
+                gen_code = e.code
+            paths["pvae_serve"] = _launches()
+        finally:
+            server.shutdown()
+        for name, ms in lat.items():
+            print(f"pvae (e) latency {name}: {ms:.3f} ms", flush=True)
+        if emb.shape != (1, D) or not np.linalg.norm(emb) < 1.0:
+            _fail(f"pvae (e): embed gave {emb}")
+        want = _batchwise(inf, xr)
+        if rec.shape != (2048, DATA) or not np.array_equal(rec, want):
+            _fail(f"pvae (e): the served reconstruct (shape {rec.shape}) differs from the model's")
+        if gen_code != 404 or paths["pvae_serve"] != no_launches():
+            _fail(f"pvae (e): generate answered {gen_code} (want 404), launches "
+                  f"{paths['pvae_serve']}")
+        print(f"pvae (e): reconstruct of 2048 rows equal to the model's, bit for bit; generate "
+              f"{gen_code}", flush=True)
+        del inf, server, model, res
+
+    # (f) UnifiedVAE at experiment 8's config, and its Euclidean arm
+    with tempfile.TemporaryDirectory() as ckpt:
+        _reset_launches()
+        res, trainer, wall = fit(make_unified(True), rna, UNI_FIT_EPOCHS, epochs_per_dispatch=5,
+                                 checkpoint_dir=ckpt)
+        paths["unified_fit"] = _launches()
+        vals = [h["val/loss_total"] for h in res.history]
+        print(f"pvae (f): UnifiedVAE, {res.epochs_run} epochs graphed in {wall:.3f} s "
+              f"({res.samples_per_sec:.1f} train samples/s after the first chunk); val/loss_total "
+              f"first {vals[0]:.4f}, best {res.best_metric:.4f}; launches "
+              f"{json.dumps(paths['unified_fit'])}", flush=True)
+        if not res.best_metric < vals[0]:
+            _fail(f"pvae (f): best val/loss_total {res.best_metric} not below the first {vals[0]}")
+        if paths["unified_fit"] != want_k1(res.epochs_run * per_epoch(rna)):
+            _fail(f"pvae (f): launches {paths['unified_fit']}, want "
+                  f"{res.epochs_run * per_epoch(rna)} K1")
+        inf = Inferencer.from_checkpoint(ckpt, "best", batch_size=BATCH, device=device)
+        inf.warmup()
+        xr = np.ascontiguousarray(np.concatenate([rna.x_test, rna.x_val])[:2048], "<f4")
+        z = np.random.default_rng(1).uniform(-0.6, 0.6, size=(64, D)).astype(np.float32)
+        server = InferenceServer(inf, host="127.0.0.1", port=0).start()
+        lat = {}
+        try:
+            _reset_launches()
+            _, body, lat["POST /v1/embed 1 row json"] = _http(
+                server, "/v1/embed", json.dumps({"data": xr[:1].tolist()}).encode(), jhdr)
+            emb = np.asarray(json.loads(body)["outputs"][0], np.float32)
+            h, body, lat["POST /v1/decode 64 latents octet-stream"] = _http(
+                server, "/v1/decode", z.tobytes(), {**octet, "X-Shape": "64,2"})
+            dec = _shaped(h, body)
+            h, body, lat["POST /v1/reconstruct 2048 rows octet-stream"] = _http(
+                server, "/v1/reconstruct", xr.tobytes(),
+                {**octet, "X-Shape": ",".join(map(str, xr.shape))})
+            rec = _shaped(h, body)
+            gens = []
+            for i in range(2):
+                h, body, lat[f"POST /v1/generate n=512 seed=3 octet-stream ({i + 1})"] = _http(
+                    server, "/v1/generate", json.dumps({"n": 512, "seed": 3}).encode(),
+                    {**jhdr, "Accept": "application/octet-stream"})
+                gens.append(_shaped(h, body))
+            paths["unified_serve"] = _launches()
+        finally:
+            server.shutdown()
+        for name, ms in lat.items():
+            print(f"pvae (f) latency {name}: {ms:.3f} ms", flush=True)
+        for name, a, shape in (("embed", emb, (1, D)), ("decode", dec, (64, RNA_GENES)),
+                               ("reconstruct", rec, (2048, RNA_GENES)),
+                               ("generate", gens[0], (512, RNA_GENES))):
+            if a.shape != shape or not np.all(np.isfinite(a)):
+                _fail(f"pvae (f): {name}: shape {a.shape} (want {shape}) or non-finite values")
+        if not np.array_equal(gens[0], gens[1]):
+            _fail("pvae (f): generate(n=512, seed=3) differs between two requests")
+        if not np.array_equal(rec, _batchwise(inf, xr)):
+            _fail("pvae (f): the served reconstruct differs from the model's")
+        # one K1 launch a decoded batch: 1 (decode 64), 8 (reconstruct 2048),
+        # 2 x 2 (generate 512 twice); embed decodes nothing
+        if paths["unified_serve"] != want_k1(13):
+            _fail(f"pvae (f): launches {paths['unified_serve']}, want 13 K1")
+        print(f"pvae (f): served from its best checkpoint, reconstruct bit for bit; launches "
+              f"{json.dumps(paths['unified_serve'])}", flush=True)
+        del inf, server
+
+    best = res.best_params
+    sync()
+    _reset_launches()
+    t0 = time.perf_counter()
+    bound = trainer.evaluate_iwae(rna, best, k=PVAE_IWAE_K, batch_chunk=BATCH, k_chunk=UNI_K_CHUNK)
+    sync()
+    wall = time.perf_counter() - t0
+    paths["unified_eval"] = _launches()
+    _reset_launches()
+    bound_1 = trainer.evaluate_iwae(rna, best, k=1, batch_chunk=BATCH, k_chunk=UNI_K_CHUNK)
+    paths["unified_eval_k1"] = _launches()
+    n_t = rna.x_test.shape[0]
+    chunks = -(-n_t // BATCH) * -(-PVAE_IWAE_K // UNI_K_CHUNK)
+    print(f"pvae (f): evaluate_iwae k={PVAE_IWAE_K} (k_chunk {UNI_K_CHUNK}) on {n_t} test rows: "
+          f"{bound:.4f} nats a row (k = 1: {bound_1:.4f}); wall {wall:.3f} s; launches "
+          f"{json.dumps(paths['unified_eval'])}", flush=True)
+    if paths["unified_eval"] != want_k1(chunks) or (
+            paths["unified_eval_k1"] != want_k1(-(-n_t // BATCH))):
+        _fail(f"pvae (f): launches {paths['unified_eval']} and {paths['unified_eval_k1']} "
+              f"(k = 1), want {chunks} and {-(-n_t // BATCH)} K1")
+    if not (np.isfinite(bound) and bound >= bound_1):
+        _fail(f"pvae (f): the bound {bound} is not finite or below k = 1's {bound_1}")
+    del trainer, res, best
+    _reset_launches()
+    res, _, wall = fit(make_unified(False), rna, UNI_FIT_EPOCHS, epochs_per_dispatch=5)
+    paths["unified_fit_euclidean"] = _launches()
+    vals = [h["val/loss_total"] for h in res.history]
+    print(f"pvae (f): the Euclidean UnifiedVAE, {res.epochs_run} epochs graphed in {wall:.3f} s; "
+          f"val/loss_total first {vals[0]:.4f}, best {res.best_metric:.4f}; launches "
+          f"{json.dumps(paths['unified_fit_euclidean'])}", flush=True)
+    if paths["unified_fit_euclidean"] != no_launches() or not res.best_metric < vals[0]:
+        _fail(f"pvae (f): the Euclidean fit launched {paths['unified_fit_euclidean']} or did not "
+              f"improve ({vals})")
+    print(f"pvae: phase {time.perf_counter() - t_phase:.1f} s", flush=True)
     return k1, {p_: n["gyroplane_distances"] for p_, n in paths.items()}
 
 
@@ -2124,6 +2570,11 @@ def main() -> int:
     k1_conv["launches_by_path"] = conv_paths
     k1_conv["launches"] = sum(conv_paths.values())
     kernels.append(k1_conv)
+    # K1 at UnifiedVAE's 100 planes: its own entry, counted on this phase's paths
+    k1_pvae, pvae_paths = pvae_phase()
+    k1_pvae["launches_by_path"] = pvae_paths
+    k1_pvae["launches"] = sum(pvae_paths.values())
+    kernels.append(k1_pvae)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -14,7 +14,10 @@ whole training step's kernel ``csrc/flagship_train.cu``, Riemannian Adam,
 the plateau and early-stopping controllers, the data module and
 ``train.Trainer``) and the evaluation path (the importance-weighted
 bound, ``train.evaluation``, the latent probes, statistics on the ball,
-the figure callbacks).
+the figure callbacks); and every other model family of the JAX package
+(``models``: the RNA-seq VAE, the conv image families, the pvae MLP VAE
+with its wrapped or Riemannian normal posterior, the unified VAE), with
+experiment 9's command line in ``experiments``.
 """
 
 from hyperbolic_vae_tpu_torch.device import resolve_device

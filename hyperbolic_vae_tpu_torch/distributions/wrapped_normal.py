@@ -82,3 +82,35 @@ def wrapped_normal_log_prob(
     u = v * 2.0  # * lambda_0
     norm_pdf = normal_log_prob(u, 0.0, scale).sum(dim=-1)
     return norm_pdf - ball.logdetexp(loc, x, keepdim=False)
+
+
+class WrappedNormal:
+    """The distribution object over the functions above (loc, scale,
+    manifold; ``rsample``, ``log_prob``). Its draw is eps ~ N(0, I) of the
+    sample's shape: ``noise`` draws it, ``rsample_from_eps`` (alias
+    ``rsample_from_noise``, the name the Riemannian normal shares) takes
+    it."""
+
+    def __init__(self, loc: torch.Tensor, scale: torch.Tensor, manifold: PoincareBall):
+        self.loc, self.scale, self.manifold = loc, scale, manifold
+
+    def noise(self, generator: Optional[torch.Generator],
+              sample_shape: Tuple[int, ...] = ()) -> Tuple[torch.Tensor]:
+        """The draw of ``rsample``: (eps,), eps of sample_shape + the
+        broadcast shape of loc and scale."""
+        shape = tuple(sample_shape) + tuple(torch.broadcast_shapes(self.loc.shape,
+                                                                   self.scale.shape))
+        return (torch.randn(shape, generator=generator, device=self.loc.device,
+                            dtype=torch.float32),)
+
+    def rsample_from_eps(self, eps: torch.Tensor) -> torch.Tensor:
+        return wrapped_normal_rsample_from_eps(self.manifold, self.loc, self.scale, eps)
+
+    rsample_from_noise = rsample_from_eps
+
+    def rsample(self, generator: Optional[torch.Generator],
+                sample_shape: Tuple[int, ...] = ()) -> torch.Tensor:
+        return self.rsample_from_eps(*self.noise(generator, sample_shape))
+
+    def log_prob(self, x: torch.Tensor) -> torch.Tensor:
+        return wrapped_normal_log_prob(self.manifold, self.loc, self.scale, x)

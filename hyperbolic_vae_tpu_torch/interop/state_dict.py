@@ -2,7 +2,7 @@
 
 ``state_dict_from_jax_params`` maps a JAX parameter tree (nested dicts of
 numpy arrays) onto the port's state_dict, in the reference layout, for
-five families, told apart by the tree's keys or by ``model=``:
+seven families, told apart by the tree's keys or by ``model=``:
 
   * GyroplaneVAE (``enc_0/kernel``, ..., ``mu``, ``scale``,
     ``gyroplanes/mp_points``, ``gyroplanes/bias``, ``dec_0``, ``out``):
@@ -14,7 +14,25 @@ five families, told apart by the tree's keys or by ``model=``:
   * the conv image families: HyperbolicImageVAE (``conv1``, ...,
     ``mu``/``mu_mobius``, ``log_var``, ``dec_first``, ``deconv1``, ...),
     EuclideanVAE (``encoder/Conv_i``, ``mu``, ``log_var``, ``decoder``)
-    and Autoencoder (``encoder``, ``latent``, ``decoder``).
+    and Autoencoder (``encoder``, ``latent``, ``decoder``);
+  * UnifiedVAE (``enc``, ``mu``, ``scale`` when learned, ``gyroplanes``
+    or ``dec_first``, ``dec_out``): ``encoder.1`` (a multi-dimensional
+    ``input_size``, read from ``model``; a bare name means JAX's default
+    (28, 28, 1)) or ``encoder.0``, ``mu.0``, ``scale.0``,
+    ``decoder.0.points/bias`` or ``decoder.0.weight/bias``, ``decoder.2``;
+  * PvaeMLPVAE (``enc``, ``mu``, ``scale``, ``dec_geodesic`` or
+    ``dec_first``, ``dec_out``), in the port's own layout (JAX has no
+    exporter for it): ``encoder.1``, ``mu.0``, ``scale.0``,
+    ``decoder.0._weight/_bias`` (the GeodesicLayer's) or
+    ``decoder.0.weight/bias``, ``decoder.2``.
+
+Where the keys cannot tell the family, ``model=`` names it, and a tree
+without it raises naming the candidates: ``enc``/``dec_first``/
+``dec_out`` with ``scale`` is a Euclidean UnifiedVAE or a linear-decoder
+PvaeMLPVAE. A tree with ``gyroplanes``, ``scale`` and ``dec_out`` keeps
+its reading as an RNASeqVAE, whose layout is a UnifiedVAE's on a flat
+input too (a UnifiedVAE on images passes ``model=``); without ``scale``
+(a fixed posterior scale) it is a UnifiedVAE's.
 
 Flax kernels are (in, out) and become (out, in) weights; conv kernels
 (kh, kw, in, out) become (out, in, kh, kw); transposed-conv kernels are
@@ -69,25 +87,44 @@ def _t(a) -> torch.Tensor:
 
 _FAMILIES = {"GyroplaneVAE": "gyroplane", "RNASeqVAE": "rnaseq",
              "HyperbolicImageVAE": "hyperbolic_image", "EuclideanVAE": "euclidean",
-             "Autoencoder": "autoencoder"}
+             "Autoencoder": "autoencoder", "UnifiedVAE": "unified", "VAE": "unified",
+             "PvaeMLPVAE": "pvae"}
 
 
-def _family(params: Mapping, model) -> str:
-    """The family's short name: from ``model`` (a class name, a short
-    name, or a port model) when given, else from the tree's keys."""
-    if model is not None:
-        name = model if isinstance(model, str) else type(model).__name__
-        kind = _FAMILIES.get(name, name)
-        if kind not in _FAMILIES.values():
-            raise ValueError(f"no parameter mapping for model {name!r}")
-        return kind
+def _kind(model) -> str:
+    """The short name of ``model``: a class name, a short name or a port model."""
+    name = model if isinstance(model, str) else type(model).__name__
+    kind = _FAMILIES.get(name, name)
+    if kind not in _FAMILIES.values():
+        raise ValueError(f"no parameter mapping for model {name!r}")
+    return kind
+
+
+def _family(params: Mapping, model=None, family=None) -> str:
+    """The family's short name: from ``family`` or ``model`` (a class
+    name, a short name, or a port model) when given, else from the tree's
+    keys; raises naming the candidates where the keys fit two families."""
+    if family is not None or model is not None:
+        return _kind(family if family is not None else model)
     if "conv1" in params:
         return "hyperbolic_image"
     if "latent" in params and "encoder" in params:
         return "autoencoder"
     if "encoder" in params and "log_var" in params:
         return "euclidean"
-    return "rnaseq" if "enc" in params and "dec_out" in params else "gyroplane"
+    if "enc" not in params or "dec_out" not in params:
+        return "gyroplane"
+    if "dec_geodesic" in params:
+        return "pvae"
+    if "dec_first" in params:
+        if "scale" not in params:
+            return "unified"  # a fixed posterior scale: no PvaeMLPVAE has one
+        raise ValueError("the tree (enc, mu, scale, dec_first, dec_out) is a UnifiedVAE's with a "
+                         "Euclidean latent or a PvaeMLPVAE's with a linear decoder: pass "
+                         "model='UnifiedVAE' or model='PvaeMLPVAE'")
+    # gyroplanes: an RNASeqVAE, or a UnifiedVAE on the ball, whose flat-input
+    # layout is the same
+    return "unified" if "scale" not in params else "rnaseq"
 
 
 def _chw_to_hwc_perm(c: int, h: int, w: int) -> np.ndarray:
@@ -208,16 +245,40 @@ def _conv_families(kind: str, params: Mapping, model, sd) -> None:
     _conv_decoder(dec, lambda i: f"decoder.{3 + 2 * i}", sd)
 
 
+def _mlp_families(kind: str, params: Mapping, model, sd) -> None:
+    """UnifiedVAE's and PvaeMLPVAE's trees."""
+    if kind == "unified":
+        multi = len(getattr(model, "input_size", (28, 28, 1))) > 1
+        enc = "encoder.1" if multi else "encoder.0"
+    else:
+        enc = "encoder.1"
+    _linear(params["enc"], enc, sd)
+    _linear(params["mu"], "mu.0", sd)
+    if "scale" in params:
+        _linear(params["scale"], "scale.0", sd)
+    if "gyroplanes" in params:
+        _gyro(params["gyroplanes"], "decoder.0", sd)
+    elif "dec_geodesic" in params:
+        _riemannian(params["dec_geodesic"], "decoder.0", sd)
+    else:
+        _linear(params["dec_first"], "decoder.0", sd)
+    _linear(params["dec_out"], "decoder.2", sd)
+
+
 def state_dict_from_jax_params(params: Mapping, model=None) -> Dict[str, torch.Tensor]:
     """The port's state_dict for a JAX parameter tree (the ``params``
-    collection, as nested dicts of arrays) of one of the five families;
+    collection, as nested dicts of arrays) of one of the seven families;
     ``model`` (a class name, "gyroplane", "rnaseq", ..., or a port model,
-    whose ``data_shape`` the conv families read) names the family, which
-    otherwise comes from the tree's keys."""
+    whose ``data_shape`` the conv families and whose ``input_size`` a
+    UnifiedVAE read) names the family, which otherwise comes from the
+    tree's keys (see the module's note on the trees they cannot tell)."""
     sd: Dict[str, torch.Tensor] = {}
     kind = _family(params, model)
     if kind in ("hyperbolic_image", "euclidean", "autoencoder"):
         _conv_families(kind, params, model, sd)
+        return sd
+    if kind in ("unified", "pvae"):
+        _mlp_families(kind, params, model, sd)
         return sd
     if kind == "rnaseq":
         _linear(params["enc"], "encoder.0", sd)
@@ -298,34 +359,115 @@ def gyroplane_vae_from_state_dict(
     return model
 
 
+def _default_shape(n_features: int, data_shape) -> tuple:
+    """``data_shape`` if given, else JAX's default (28, 28, 1) where its
+    size fits, else flat."""
+    if data_shape:
+        return tuple(data_shape)
+    return (28, 28, 1) if n_features == 784 else (n_features,)
+
+
+def _mlp_family_of(sd: Mapping) -> Optional[str]:
+    """The UnifiedVAE / PvaeMLPVAE / RNASeqVAE layouts told by their keys
+    (None: none of them); raises naming the candidates where the keys fit
+    two families."""
+    if "decoder.2.weight" not in sd or "decoder.4.weight" in sd:
+        return None
+    if "decoder.0._weight" in sd:
+        return "pvae"
+    flat, fixed = "encoder.0.weight" in sd, "scale.0.weight" not in sd
+    if "decoder.0.points" in sd:
+        if fixed:
+            return "unified"
+        if flat:
+            raise ValueError("the state_dict (encoder.0, mu.0, scale.0, decoder.0.points, "
+                             "decoder.2) is an RNASeqVAE's or a UnifiedVAE's on a flat input: "
+                             "pass family='RNASeqVAE' or family='UnifiedVAE'")
+        return None  # a one-hidden-layer GyroplaneVAE's layout, as before
+    if flat or fixed:
+        return "unified"  # a PvaeMLPVAE has encoder.1 and scale.0
+    raise ValueError("the state_dict (encoder.1, mu.0, scale.0, decoder.0.weight, decoder.2) is "
+                     "a UnifiedVAE's with a Euclidean latent or a PvaeMLPVAE's with a linear "
+                     "decoder: pass family='UnifiedVAE' or family='PvaeMLPVAE'")
+
+
+def _mlp_model(kind: str, sd: Mapping, device, data_shape, config: dict):
+    """A UnifiedVAE, PvaeMLPVAE or RNASeqVAE shaped by ``sd``."""
+    from hyperbolic_vae_tpu_torch.models import PvaeMLPVAE, RNASeqVAE, UnifiedVAE
+
+    enc = sd["encoder.0.weight"] if "encoder.0.weight" in sd else sd["encoder.1.weight"]
+    hidden, n_in = enc.shape
+    latent = sd["mu.0.weight"].shape[0]
+    if kind == "rnaseq":
+        config.setdefault("recon", "nb" if "nb_log_theta" in sd else "mse")
+        return RNASeqVAE(n_in, hidden, latent, device=device, **config)
+    if kind == "pvae":
+        config.setdefault("decoder_first",
+                          "geodesic" if "decoder.0._weight" in sd else "linear")
+        if sd["scale.0.weight"].shape[0] == 1 and latent > 1:
+            config.setdefault("posterior", "riemannian")
+        return PvaeMLPVAE(_default_shape(n_in, data_shape), hidden, latent, device=device,
+                          **config)
+    if "decoder.0.weight" in sd:
+        config["latent_curvature"] = None
+    if "scale.0.weight" not in sd:
+        config.setdefault("posterior_scale", "fixed")
+    shape = (n_in,) if "encoder.0.weight" in sd else _default_shape(n_in, data_shape)
+    return UnifiedVAE(shape, hidden, latent, device=device, **config)
+
+
 def model_from_state_dict(sd: Mapping[str, torch.Tensor], device: DeviceLike = None,
-                          data_shape: Optional[Sequence[int]] = None, **config):
-    """A port model holding ``sd``, the family told by its keys (the
-    reference layouts): ``encoder.net.*`` an Autoencoder, five encoder
-    convs an EuclideanVAE, three a HyperbolicImageVAE, else a
-    GyroplaneVAE (``gyroplane_vae_from_state_dict``, data_shape default
-    (28, 28, 1)). Widths, the latent size and the conv families' heads come
-    from the tensors' shapes and names; ``data_shape`` of an image family
-    defaults to square images; the rest (curvature, beta, ...) is not in a
-    state_dict and comes from ``config``. A HyperbolicImageVAE whose
-    ``decoder.0`` has ``_weight``/``_bias`` needs
-    ``decoder_first_layer_module`` ("geodesic" or "mobius"): both store
-    the same tensors. Without ``log_var`` its ``loss_recon`` defaults to
-    "bernoulli" (decode returns logits)."""
+                          data_shape: Optional[Sequence[int]] = None,
+                          family: Optional[str] = None, **config):
+    """A port model holding ``sd``, the family named by ``family`` (a class
+    name or a short name: "UnifiedVAE", "PvaeMLPVAE", "RNASeqVAE", ...) or
+    told by its keys (the reference layouts): ``encoder.net.*`` an
+    Autoencoder, five encoder convs an EuclideanVAE, three a
+    HyperbolicImageVAE; ``encoder.1``/``decoder.0._weight``/``decoder.2`` a
+    PvaeMLPVAE; ``encoder.0`` with a Linear ``decoder.0`` or any layout
+    without ``scale.0`` a UnifiedVAE; else a GyroplaneVAE
+    (``gyroplane_vae_from_state_dict``, data_shape default (28, 28, 1)).
+    Where the keys fit two families it raises naming them: an RNASeqVAE
+    or a UnifiedVAE on a flat input; a Euclidean UnifiedVAE or a
+    linear-decoder PvaeMLPVAE. Widths, the latent size and the conv
+    families' heads come from the tensors' shapes and names; ``data_shape``
+    of an image family defaults to square images, of a UnifiedVAE or
+    PvaeMLPVAE to (28, 28, 1) where 784 features fit it; the rest
+    (curvature, beta, ...) is not in a state_dict and comes from
+    ``config``. A HyperbolicImageVAE whose ``decoder.0`` has
+    ``_weight``/``_bias`` needs ``decoder_first_layer_module``
+    ("geodesic" or "mobius"): both store the same tensors. Without
+    ``log_var`` its ``loss_recon`` defaults to "bernoulli" (decode returns
+    logits)."""
     from hyperbolic_vae_tpu_torch.models import Autoencoder, EuclideanVAE, HyperbolicImageVAE
 
     sd = dict(sd)
-    if "encoder.net.0.weight" in sd:
+    if family is not None:
+        kind = _kind(family)
+    elif "encoder.net.0.weight" in sd:
+        kind = "autoencoder"
+    elif "encoder.8.weight" in sd:
+        kind = "euclidean"
+    elif "encoder.4.weight" in sd:
+        kind = "hyperbolic_image"
+    else:
+        kind = _mlp_family_of(sd) or "gyroplane"
+    if kind == "gyroplane":
+        return gyroplane_vae_from_state_dict(sd, data_shape=data_shape or (28, 28, 1),
+                                             device=device, **config)
+    if kind in ("unified", "pvae", "rnaseq"):
+        model = _mlp_model(kind, sd, device, data_shape, config)
+    elif kind == "autoencoder":
         c, ch = sd["encoder.net.0.weight"].shape[:2]
         lat, feat = sd["encoder.net.11.weight"].shape
         model = Autoencoder(data_shape or _square_shape(feat, 2 * c, ch), base_channel_size=c,
                             latent_dim=lat, device=device, **config)
-    elif "encoder.8.weight" in sd:
+    elif kind == "euclidean":
         c, ch = sd["encoder.0.weight"].shape[:2]
         lat, feat = sd["mu.weight"].shape
         model = EuclideanVAE(data_shape or _square_shape(feat, 2 * c, ch), hidden_size=c,
                              latent_dim=lat, device=device, **config)
-    elif "encoder.4.weight" in sd:
+    else:
         m, ch = sd["encoder.0.weight"].shape[:2]
         mobius = "mu._weight" in sd
         lat, feat = sd["mu._weight" if mobius else "mu.weight"].shape
@@ -342,8 +484,5 @@ def model_from_state_dict(sd: Mapping[str, torch.Tensor], device: DeviceLike = N
             data_shape or _square_shape(feat, 2 * m, ch), latent_dim=lat,
             encoder_last_layer_module="mobius" if mobius else "linear", base_channels=m,
             device=device, **config)
-    else:
-        return gyroplane_vae_from_state_dict(sd, data_shape=data_shape or (28, 28, 1),
-                                             device=device, **config)
     model.load_state_dict(sd)
     return model

@@ -1,3 +1,4 @@
+from hyperbolic_vae_tpu_torch.manifolds.euclidean import Euclidean
 from hyperbolic_vae_tpu_torch.manifolds.poincare import (
     BOUNDARY_EPS,
     MIN_NORM,
@@ -17,7 +18,7 @@ from hyperbolic_vae_tpu_torch.manifolds.stats import (
 )
 
 __all__ = [
-    "BOUNDARY_EPS", "MIN_NORM", "TANH_CLAMP", "PoincareBall", "arsinh", "artanh",
+    "BOUNDARY_EPS", "MIN_NORM", "TANH_CLAMP", "Euclidean", "PoincareBall", "arsinh", "artanh",
     "class_means", "frechet_mean", "frechet_variance", "geodesic", "log_sinh_ratio",
     "normdist2plane", "tanh",
 ]

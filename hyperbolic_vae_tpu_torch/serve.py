@@ -20,12 +20,13 @@ request semantics:
     model computes in f32, data-shaped outputs come back in the wire
     dtype and are restored to float32 numpy.
 
-A model comes from a state_dict (``from_state_dict``: the flagship or a
-conv image family, told by its keys), from a Trainer's checkpoint
-directory (``from_checkpoint``: any family whose checkpoint embeds its
+A model comes from a state_dict (``from_state_dict``: any family, told
+by its keys or by ``family=``), from a Trainer's checkpoint directory
+(``from_checkpoint``: any family whose checkpoint embeds its
 configuration), or is passed in. Image families take and return
 channels-last (n, H, W, C) arrays on every endpoint; the Autoencoder's
-``encode`` answers its code alone, and it has no ``generate``.
+``encode`` answers its code alone, and neither it nor PvaeMLPVAE has a
+``generate``.
 Everything runs under ``torch.inference_mode()``. Sharded serving
 (``mesh``) and exported program bundles are not ported yet.
 """
@@ -115,9 +116,10 @@ class Inferencer:
                         data_shape=None, **model_config) -> "Inferencer":
         """Serve the model stored at ``path`` (``.npz`` as written by
         ``experiments/export_torch_state_dict.py``, or ``.pt``): its family
-        told by the state_dict's keys, what a state_dict does not hold
-        (``data_shape``, ``manifold_curvature``, ...) from ``data_shape``
-        and ``model_config`` (``interop.model_from_state_dict``)."""
+        told by the state_dict's keys or by ``family`` in ``model_config``,
+        what a state_dict does not hold (``data_shape``,
+        ``manifold_curvature``, ...) from ``data_shape`` and
+        ``model_config`` (``interop.model_from_state_dict``)."""
         from hyperbolic_vae_tpu_torch.interop import load_state_dict_file, model_from_state_dict
 
         device = resolve_device(device)

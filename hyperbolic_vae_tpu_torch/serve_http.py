@@ -32,12 +32,12 @@ Endpoints:
 
 Run: ``python -m hyperbolic_vae_tpu_torch.serve_http --checkpoint DIR
 --name best`` (a Trainer's checkpoint directory, any model family) or
-``... --state-dict FILE [--model-config JSON]`` (a state_dict of the
-flagship or a conv image family, told by its keys; what it does not hold
-as constructor arguments, e.g. the data shape and curvature); serves on
-the CUDA device. Image families take and return channels-last arrays
-(n, H, W, C); an engine without ``generate`` (the Autoencoder) answers
-404 there.
+``... --state-dict FILE [--model-config JSON]`` (a state_dict of any
+family, told by its keys or by ``"family"`` in the JSON where they fit
+two; what it does not hold as constructor arguments, e.g. the data shape
+and curvature); serves on the CUDA device. Image families take and
+return channels-last arrays (n, H, W, C); an engine without ``generate``
+(the Autoencoder, PvaeMLPVAE) answers 404 there.
 """
 
 from __future__ import annotations
@@ -569,11 +569,12 @@ def parse_args(argv: Optional[list] = None):
     src.add_argument("--checkpoint", help="a Trainer's checkpoint_dir (any model family)")
     src.add_argument("--state-dict",
                      help="a state_dict (.npz from experiments/export_torch_state_dict.py, "
-                          "or .pt) of the flagship or a conv image family, told by its keys")
+                          "or .pt) of any family, told by its keys or --model-config's family")
     p.add_argument("--model-config", default="{}", metavar="JSON",
                    help="with --state-dict: what a state_dict does not hold, as the "
                         "model's constructor arguments, e.g. '{\"data_shape\": [32, 32, 1], "
-                        "\"manifold_curvature\": 1.4}'")
+                        "\"manifold_curvature\": 1.4}', and \"family\" (e.g. "
+                        "\"PvaeMLPVAE\") where the keys fit two families")
     p.add_argument("--name", default="best",
                    help="checkpoint name with --checkpoint (best/last/ema)")
     p.add_argument(
