@@ -38,8 +38,8 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
      eager step split into the K2 forward, the autograd backward and the
      optimizer, and one K3 step synchronised.
   Each path (serve, fused train, K3 train, default train, eval, the
-  RNA-seq family's fits, serve and eval, the conv families' and the pvae
-  phase's) zeroes
+  RNA-seq family's fits, serve and eval, the conv families', the pvae
+  phase's and the sweeps') zeroes
   the launch counters just before it and reads them just after; the graph
   runner adds each captured kernel's launches on every replay.
   5. North star: the reference protocol (at most 300 epochs, patience 10,
@@ -88,7 +88,19 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
      UnifiedVAE's 10-epoch fit served from its best checkpoint and
      ``evaluate_iwae(k=5000, k_chunk=100)`` (exactly 250 K1 launches), the
      Euclidean arm's fit with none.
-  10. Summary: a ``{"kernels": [...]}`` line (K1 four times: at the
+  10. Sweeps (``sweep_phase``): K1 at 512 planes against its plain
+     version at c = 0.5 and 1.0; experiment 6's flagship as the parity
+     protocol's 8 seed lanes (``Trainer.fit_ensemble``, a CUDA stream a
+     lane) on the default path (3 epochs, exactly 8 x 3 x 234 K1) and on
+     the K3 path (10 epochs, exactly 8 x 10 x 210 K3 and 8 x 10 x 24 K2),
+     two lanes of each equal to their own fits bit for bit; aggregate
+     train samples/s at S = 1, 2, 4, 8 beside sequential fits, and the
+     S = 8 chunk's idle share; experiment 7's (mobius, geoopt_gyroplane)
+     group as 6 curvature x beta lanes (``fit_lane_sweep``, K1 at 512
+     planes, one lane equal to its fit) and ``evaluate_lanes``; experiment
+     9's CLI with ``--lane-sweep`` (the bound at least the ELBO); a sweep
+     stopped by ``max_wall_seconds`` and resumed, bit for bit.
+  11. Summary: a ``{"kernels": [...]}`` line (K1 four times: at the
      flagship's 16 planes, the RNA-seq family's 256, the conv family's
      512 and UnifiedVAE's 100, each counted on its own paths), then, as
      the last line, ``{"ok": true, "device": {...}}``.
@@ -174,13 +186,15 @@ def _capture(fn, n: int):
     side stream, which allocates what the calls reuse)."""
     import torch
 
+    from hyperbolic_vae_tpu_torch.train.cuda_graph import no_collection
+
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
         fn()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with no_collection(), torch.cuda.graph(graph):
         for _ in range(n):
             fn()
     return graph
@@ -2499,6 +2513,400 @@ def pvae_phase():
     return k1, {p_: n["gyroplane_distances"] for p_, n in paths.items()}
 
 
+# the sweeps: the parity protocol's 8 seeds (PARITY.json), experiment 7's
+# curvature x beta grid of its (mobius, geoopt_gyroplane) shape group
+# (experiments/train_vae_hyperbolic_mnist_grid.py), experiment 9's curvature
+# lanes (experiments/pvae_replicate.py --lane-sweep)
+SWEEP_SEEDS = [42, 7, 123, 0, 1, 2, 3, 11]
+SWEEP_DEFAULT_EPOCHS, SWEEP_K3_EPOCHS = 3, 10
+GRID_CURVATURES, GRID_BETAS, GRID_EPOCHS = (0.5, 1.0, 1.4), (1.0, 3.0), 2
+PVAE_SWEEP_CURVATURES, PVAE_SWEEP_EPOCHS, PVAE_SWEEP_IWAE_K = (0.5, 1.0, 1.4), 2, 500
+SWEEP_ROWS = (60000, 10000)  # synthetic MNIST: 54,000 train, 6,000 val, 10,000 test rows
+
+
+def _kernel_busy(prof) -> dict:
+    """From a torch.profiler run: the kernels' summed time, the time at
+    least one kernel ran (the union of their intervals: kernels of
+    concurrent streams overlap) and the traced span from the first
+    kernel's start to the last one's end, in ms; idle share 1 - union /
+    span (torch.profiler's tracing stretches a window of graph replays, so
+    the union is read against the traced span, not the untraced wall)."""
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if str(e.device_type).endswith("CUDA") and e.time_range.end > e.time_range.start)
+    if not spans:
+        return {"sum_ms": float("nan"), "union_ms": float("nan"), "span_ms": float("nan"),
+                "kernels": 0, "idle": "not measured (the profiler saw no kernel)"}
+    union, (lo, hi) = 0.0, spans[0]
+    for a, b in spans[1:]:
+        if a > hi:
+            union, lo, hi = union + hi - lo, a, b
+        else:
+            hi = max(hi, b)
+    union = (union + hi - lo) / 1e3
+    span = (max(b for _, b in spans) - spans[0][0]) / 1e3
+    return {"sum_ms": sum(b - a for a, b in spans) / 1e3, "union_ms": union, "span_ms": span,
+            "kernels": len(spans), "idle": f"{1 - union / span:.4f}"}
+
+
+def _lanes_window(progs) -> dict:
+    """``_profile_train``'s window over every lane of a fitted sweep, the
+    lanes' replays in turn, each on its lane's stream, as the sweep queues
+    them: on the K3 path one train epoch a lane, else each lane's epoch
+    begin and then 20 train steps a lane (fewer if an epoch has fewer). Its wall (host clock,
+    synchronised, after one warm window) and train samples/s, then the same
+    window under torch.profiler (``_kernel_busy``)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    whole = "train epoch" in [s.name for s in progs[0].program.segments]
+    n = progs[0].ep.steps if whole else min(20, progs[0].ep.steps)
+
+    def replay(name, times=1):
+        for _ in range(times):
+            for p in progs:
+                with p.on_stream():
+                    p.program.replay(name)
+
+    def queue():
+        """The window's replays, no host sync; returns an event that
+        completes with every lane's part."""
+        if whole:
+            replay("train epoch")
+        else:
+            replay("begin epoch")
+            replay("train step", n)
+        current, done = torch.cuda.current_stream(), torch.cuda.Event()
+        for p in progs:
+            if p.stream is not None:
+                current.wait_stream(p.stream)
+        done.record(current)
+        return done
+
+    def window():
+        queue()
+        torch.cuda.synchronize()
+
+    window()
+    t0 = time.perf_counter()
+    window()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        window()
+    return {"what": f"{n} train steps a lane", "wall_ms": wall_ms,
+            "samples_per_sec": len(progs) * n * BATCH / wall_ms * 1e3, **_kernel_busy(prof),
+            **_smi_busy(queue)}
+
+
+def _smi_busy(queue, seconds: float = 4.0, settle: float = 1.0) -> dict:
+    """The card's own busy reading of a window, with no tracer to stretch
+    it: ``queue`` (the window's replays, no host sync; returns an event of
+    their end) is queued again and again for ``seconds``, two windows in
+    flight, and from ``settle`` s in, ``nvidia-smi`` samples
+    utilization.gpu (the share of its sample period, 1/6 to 1 s, in which
+    at least one kernel ran) every 100 ms. Idle share 1 - the median
+    sample / 100, integer percent."""
+    import torch
+
+    uuid = str(torch.cuda.get_device_properties(torch.cuda.current_device()).uuid)
+    uuid = uuid if uuid.startswith("GPU-") else f"GPU-{uuid}"
+    smi, inflight = None, []
+    t0 = time.perf_counter()
+    try:
+        while time.perf_counter() - t0 < seconds:
+            inflight.append(queue())
+            if len(inflight) > 2:
+                inflight.pop(0).synchronize()
+            if smi is None and time.perf_counter() - t0 > settle:
+                smi = subprocess.Popen(
+                    ["nvidia-smi", "-i", uuid, "--query-gpu=utilization.gpu",
+                     "--format=csv,noheader,nounits", "-lms", "100"],
+                    stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+    finally:
+        out = ""
+        if smi is not None:
+            smi.terminate()
+            out = smi.communicate(timeout=10)[0]
+        torch.cuda.synchronize()
+    samples = [int(v) for v in out.split() if v.isdigit()]
+    if not samples:
+        return {"smi_samples": 0, "smi_idle": "not measured (nvidia-smi gave no sample)"}
+    median = float(statistics.median(samples))
+    return {"smi_samples": len(samples), "smi_util_median": median,
+            "smi_util_range": [min(samples), max(samples)], "smi_idle": f"{1 - median / 100:.2f}"}
+
+
+def sweep_phase():
+    """Seed ensembles and hyperparameter-lane sweeps on the card
+    (``Trainer.fit_ensemble``, ``fit_lane_sweep``, ``evaluate_lanes``:
+    every lane its own captured program on its own CUDA stream), TF32 off
+    and cuDNN deterministic as ``main()`` sets them:
+
+      (a) K1 at 512 planes against its plain version (``_k1_check``'s
+          rules) at c = 0.5 and 1.0, B = 256 and 128,000: experiment 7's
+          lanes put the ball's radius at 1.41 and 1;
+      (b) experiment 6's flagship (784 -> 64 -> 16 -> 2-D ball -> 16
+          gyroplanes) on synthetic MNIST (54,000 train, 6,000 val rows),
+          batch 256, as 8 seed lanes (the parity protocol's seeds) on the
+          default path, 3 epochs in one chunk: exactly 8 x 3 x 234 K1
+          launches; seeds 42 and 11 each equal to their own graphed
+          ``fit`` bit for bit (history with lr, best, params, best params);
+      (c) the same 8 seeds on the K3 path, 10 epochs in one chunk: exactly
+          8 x 10 x 210 K3 and 8 x 10 x 24 K2 launches; seeds 42 and 11
+          equal to their fits;
+      (d) aggregate train samples/s (the sweep's, from a replay of its
+          one chunk) at S = 1, 2, 4 (and 8: (b), (c)) lanes on both paths,
+          beside S sequential fits (one fit's throughput: a second chunk
+          of (b)'s and (c)'s sequential fits, timed); for S = 8,
+          ``_lanes_window``: the steps' wall, then under torch.profiler
+          the kernel time (summed, and their union: streams overlap) and
+          the idle share, and the card's own busy reading of the window
+          queued for 3 s (``_smi_busy``: ``nvidia-smi`` utilization.gpu,
+          no tracer);
+      (e) experiment 7's (mobius, geoopt_gyroplane) shape group as 6
+          lanes (c in 0.5, 1.0, 1.4 x beta in 1, 3) of
+          ``HyperbolicImageVAE`` on MNIST padded to 32 x 32, batch 256,
+          2 epochs: exactly 6 x 2 x 234 K1 launches at 512 planes; the
+          c = 0.5, beta = 3 lane equal to its fit bit for bit;
+          ``evaluate_lanes`` on the 10,000 test rows (exactly 6 x 40 K1
+          launches), finite;
+      (f) experiment 9's CLI with ``--lane-sweep``: the Riemannian
+          posterior's lanes at c in 0.5, 1.0, 1.4, 2 epochs, each lane's
+          ``evaluate_iwae(k=500)`` on the test split finite and at least
+          its ELBO (no kernel on this path: the geodesic decoder);
+      (g) graceful stops: a K3-path sweep of seeds 42 and 11 with
+          ``max_wall_seconds=0`` stops after its first chunk
+          (``interrupted``), ``resume=True`` finishes it, and the two
+          equal the uninterrupted sweep bit for bit.
+
+    Cuts: 3 and 10 epochs a seed sweep (the protocol runs to convergence),
+    2 epochs a grid or experiment 9 lane, the bound at k = 500. Returns
+    (K1's errors at 512 planes (interior, boundary), the flagship's
+    launches by path, K1's at 512 planes by path)."""
+    import copy
+    import itertools
+    import tempfile
+
+    import torch
+
+    from hyperbolic_vae_tpu_torch.data import make_data_module, pad_to_32
+    from hyperbolic_vae_tpu_torch.experiments import pvae_replicate
+    from hyperbolic_vae_tpu_torch.models import GyroplaneVAE, HyperbolicImageVAE
+    from hyperbolic_vae_tpu_torch.ops import flagship_fused as ff
+    from hyperbolic_vae_tpu_torch.train import Trainer, evaluate_lanes
+
+    device = "cuda"
+
+    def sync():
+        torch.cuda.synchronize()
+
+    t_phase = time.perf_counter()
+    n_train, n_test = SWEEP_ROWS
+    dm = make_data_module(batch_size=BATCH, synthetic=True, n_train=n_train, n_test=n_test)
+    steps = dm.x_train.shape[0] // BATCH
+    n_val = dm.x_val.shape[0]
+    val_batches = n_val // BATCH + (1 if n_val % BATCH else 0)
+    per_epoch = steps + val_batches
+
+    def no_launches():
+        return {"gyroplane_distances": 0, "flagship_fused": 0, "flagship_train": 0}
+
+    # (a) K1 at 512 planes on the grid's other balls
+    rng = np.random.default_rng(31)
+    err_in, err_bd = _k1_check(rng, (BATCH, IWAE_ROWS), CONV_P, curvatures=(0.5, 1.0))
+    print(f"sweep (a): K1 at P={CONV_P}, c in (0.5, 1.0), B in ({BATCH}, {IWAE_ROWS}): "
+          f"max_abs_err vs plain: interior {err_in:.3e}, near boundary {err_bd:.3e} "
+          f"({time.perf_counter() - t_phase:.1f} s into the phase)", flush=True)
+
+    def trainer(path, epochs, k, seed=42, **kw):
+        m = GyroplaneVAE(generator=torch.Generator().manual_seed(0), device=device)
+        if path == "k3":
+            kw.update(loss_fn=ff.make_fused_loss_fn(m), train_step_fn=ff.make_fused_train_step(m))
+        return Trainer(m, max_epochs=epochs, epochs_per_dispatch=k, seed=seed,
+                       early_stopping_patience=None, device=device, **kw)
+
+    def sweep(path, seeds, epochs, k=None, **kw):
+        tr = trainer(path, epochs, k or epochs, **kw)
+        sync()
+        t0 = time.perf_counter()
+        res = tr.fit_ensemble(dm, seeds)
+        sync()
+        return res, tr, time.perf_counter() - t0
+
+    def sequential(path, seed, epochs):
+        """``seed``'s own graphed fit, then one more chunk of its captured
+        program, timed: one fit's train samples/s."""
+        tr = trainer(path, epochs, epochs, seed=seed)
+        res = tr.fit(dm, params=tr.init_params(seed))
+        sync()
+        t0 = time.perf_counter()
+        tr.program.run(epochs)
+        sync()
+        return res, steps * BATCH * epochs / (time.perf_counter() - t0)
+
+    paths, sps, seq_sps, windows = {}, {}, {}, {}
+    for tag, path, epochs, want in (
+            ("b", "default", SWEEP_DEFAULT_EPOCHS,
+             {**no_launches(), "gyroplane_distances": 8 * SWEEP_DEFAULT_EPOCHS * per_epoch}),
+            ("c", "k3", SWEEP_K3_EPOCHS,
+             {**no_launches(), "flagship_train": 8 * SWEEP_K3_EPOCHS * steps,
+              "flagship_fused": 8 * SWEEP_K3_EPOCHS * val_batches})):
+        _reset_launches()
+        res, tr, wall = sweep(path, SWEEP_SEEDS, epochs)
+        paths[f"sweep_{path}"] = _launches()
+        if paths[f"sweep_{path}"] != want:
+            _fail(f"sweep ({tag}): launches {paths[f'sweep_{path}']}, want {want}")
+        for r in res:
+            if r.epochs_run != epochs or not all(np.isfinite(v) for h in r.history
+                                                 for v in h.values()):
+                _fail(f"sweep ({tag}): a lane ran {r.epochs_run} epochs or has non-finite "
+                      f"metrics: {r.history}")
+        seq_sps[path] = []
+        for seed in (SWEEP_SEEDS[0], SWEEP_SEEDS[-1]):
+            seq, one = sequential(path, seed, epochs)
+            lane = res[SWEEP_SEEDS.index(seed)]
+            _same_fit(f"sweep ({tag}) seed {seed}", lane, seq, "lane", "its fit")
+            if lane.best_metric != seq.best_metric:
+                _fail(f"sweep ({tag}) seed {seed}: best {lane.best_metric} != {seq.best_metric}")
+            seq_sps[path].append(one)
+        sps[(path, 8)] = res[0].samples_per_sec
+        windows[path] = _lanes_window(tr.lane_programs)
+        print(f"sweep ({tag}): {path} path, 8 seed lanes x {epochs} epochs in {wall:.3f} s (the "
+              f"captures included); {res[0].samples_per_sec:.1f} aggregate train samples/s (a "
+              f"replay of the chunk); launches {json.dumps(paths[f'sweep_{path}'])}; seeds "
+              f"{SWEEP_SEEDS[0]} and {SWEEP_SEEDS[-1]} equal their fits bit for bit; best "
+              f"val/loss_total by seed {[round(r.best_metric, 4) for r in res]} "
+              f"({time.perf_counter() - t_phase:.1f} s into the phase)", flush=True)
+        del res, tr
+
+    # (d) throughput by lanes
+    for path, epochs in (("default", SWEEP_DEFAULT_EPOCHS), ("k3", SWEEP_K3_EPOCHS)):
+        for s in (1, 2, 4):
+            res, _, _ = sweep(path, SWEEP_SEEDS[:s], epochs)
+            sps[(path, s)] = res[0].samples_per_sec
+        one = sum(seq_sps[path]) / len(seq_sps[path])
+        w = windows[path]
+        print(f"sweep (d): {path} path, aggregate train samples/s by lanes S (a stream a lane; S "
+              f"sequential fits: {one:.1f}, one fit's, from {[round(v, 1) for v in seq_sps[path]]}): "
+              + ", ".join(f"S={s} {sps[(path, s)]:.1f} ({sps[(path, s)] / one:.3f}x)"
+                          for s in (1, 2, 4, 8))
+              + f"; S=8, {w['what']}: wall {w['wall_ms']:.3f} ms ({w['samples_per_sec']:.1f} train "
+              f"samples/s); under torch.profiler {w['kernels']} kernels, kernel time summed "
+              f"{w['sum_ms']:.3f} ms, union {w['union_ms']:.3f} ms of a {w['span_ms']:.3f} ms span, "
+              f"idle share {w['idle']}; nvidia-smi utilization.gpu over {w['smi_samples']} "
+              f"samples over the last 3 s of the window queued for 4 s: median {w.get('smi_util_median')} % "
+              f"(range {w.get('smi_util_range')}), idle share {w['smi_idle']} "
+              f"({time.perf_counter() - t_phase:.1f} s into the phase)",
+              flush=True)
+
+    # (e) experiment 7's shape group as lanes, K1 at 512 planes
+    mnist32 = pad_to_32(copy.copy(dm))  # the same rows, padded
+
+    def grid_model(hp, seed=None):
+        return HyperbolicImageVAE(
+            data_shape=mnist32.input_shape, latent_dim=D, manifold_curvature=hp["manifold_curvature"],
+            encoder_last_layer_module="mobius", decoder_first_layer_module="geoopt_gyroplane",
+            beta=hp["beta"], lr=1e-3, device=device,
+            generator=None if seed is None else torch.Generator().manual_seed(seed))
+
+    lanes = [{"manifold_curvature": c, "beta": b, "seed": 42}
+             for c, b in itertools.product(GRID_CURVATURES, GRID_BETAS)]
+    grid = Trainer(grid_model(lanes[0]), hp_model_fn=grid_model, max_epochs=GRID_EPOCHS, seed=42,
+                   early_stopping_patience=10, device=device)
+    _reset_launches()
+    sync()
+    t0 = time.perf_counter()
+    res = grid.fit_lane_sweep(mnist32, lanes)
+    sync()
+    wall = time.perf_counter() - t0
+    grid_paths = {"sweep_grid": _launches()["gyroplane_distances"]}
+    want = len(lanes) * GRID_EPOCHS * per_epoch
+    if _launches() != {**no_launches(), "gyroplane_distances": want}:
+        _fail(f"sweep (e): launches {_launches()}, want {want} K1")
+    check = lanes.index({"manifold_curvature": 0.5, "beta": 3.0, "seed": 42})
+    one = Trainer(grid_model(lanes[check]), max_epochs=GRID_EPOCHS, seed=42,
+                  early_stopping_patience=10, device=device)
+    seq = one.fit(mnist32, params=one.init_params(42))
+    _same_fit("sweep (e) c=0.5 beta=3", res[check], seq, "lane", "its fit")
+    if res[check].best_metric != seq.best_metric:
+        _fail(f"sweep (e): best {res[check].best_metric} != its fit's {seq.best_metric}")
+    _reset_launches()
+    t0 = time.perf_counter()
+    tests = evaluate_lanes(grid, mnist32, res, lanes, "test")
+    sync()
+    eval_wall = time.perf_counter() - t0
+    grid_paths["sweep_grid_eval"] = _launches()["gyroplane_distances"]
+    n_t = mnist32.x_test.shape[0]
+    want = len(lanes) * (n_t // BATCH + (1 if n_t % BATCH else 0))
+    if _launches() != {**no_launches(), "gyroplane_distances": want}:
+        _fail(f"sweep (e): evaluate_lanes launches {_launches()}, want {want} K1")
+    for lane, r, t in zip(lanes, res, tests):
+        if not (all(np.isfinite(v) for h in r.history for v in h.values())
+                and all(np.isfinite(v) for v in t.values())):
+            _fail(f"sweep (e): non-finite metrics in lane {lane}: {r.history} {t}")
+    print(f"sweep (e): experiment 7's (mobius, geoopt_gyroplane) group, {len(lanes)} lanes x "
+          f"{GRID_EPOCHS} epochs in {wall:.3f} s ({res[0].samples_per_sec:.1f} aggregate train "
+          f"samples/s after the first chunk); {grid_paths['sweep_grid']} K1 launches; the c=0.5 "
+          f"beta=3 lane equals its fit bit for bit; evaluate_lanes on {n_t} test rows in "
+          f"{eval_wall:.3f} s, {grid_paths['sweep_grid_eval']} K1 launches; test/loss_total by "
+          f"lane {[(l['manifold_curvature'], l['beta'], round(t['test/loss_total'], 3)) for l, t in zip(lanes, tests)]} "
+          f"({time.perf_counter() - t_phase:.1f} s into the phase)", flush=True)
+    del res, grid, one, seq, mnist32
+
+    # (f) experiment 9's CLI, --lane-sweep
+    with tempfile.TemporaryDirectory() as run_dir:
+        _reset_launches()
+        sync()
+        t0 = time.perf_counter()
+        out = pvae_replicate.main([
+            "--posteriors", "riemannian", "--curvatures", *map(str, PVAE_SWEEP_CURVATURES),
+            "--epochs", str(PVAE_SWEEP_EPOCHS), "--iwae-k", str(PVAE_SWEEP_IWAE_K),
+            "--n-train", str(n_train), "--n-test", str(n_test), "--lane-sweep",
+            "--device", device, "--run-dir", run_dir])
+        sync()
+        wall = time.perf_counter() - t0
+        paths["sweep_pvae"] = _launches()
+    key = f"iwae_{PVAE_SWEEP_IWAE_K}"
+    if sorted(out) != sorted(f"riemannian_c{c}_d2" for c in PVAE_SWEEP_CURVATURES):
+        _fail(f"sweep (f): cells {sorted(out)}")
+    for tag, r in out.items():
+        if not (np.isfinite(r[key]) and np.isfinite(r["best_val"]) and r[key] >= r["test_elbo"]):
+            _fail(f"sweep (f): {tag}: the bound {r[key]} is not finite or below the ELBO "
+                  f"{r['test_elbo']}")
+    if paths["sweep_pvae"] != no_launches():
+        _fail(f"sweep (f): launches {paths['sweep_pvae']}, want none")
+    print(f"sweep (f): experiment 9 --lane-sweep, riemannian, c in {PVAE_SWEEP_CURVATURES}, "
+          f"{PVAE_SWEEP_EPOCHS} epochs and IWAE-{PVAE_SWEEP_IWAE_K} a lane in {wall:.3f} s: "
+          f"{json.dumps(out)} ({time.perf_counter() - t_phase:.1f} s into the phase)", flush=True)
+
+    # (g) a graceful stop after the first chunk, resumed bit for bit
+    pair = [SWEEP_SEEDS[0], SWEEP_SEEDS[-1]]
+    ref, _, _ = sweep("k3", pair, 4, k=2)
+    with tempfile.TemporaryDirectory() as ckpt:
+        _reset_launches()
+        cut = trainer("k3", 4, 2, checkpoint_dir=ckpt, max_wall_seconds=0).fit_ensemble(dm, pair)
+        if not all(r.interrupted and "wall-clock" in r.stop_reason and r.epochs_run == 2
+                   for r in cut):
+            _fail(f"sweep (g): not stopped after the first chunk: "
+                  f"{[(r.interrupted, r.stop_reason, r.epochs_run) for r in cut]}")
+        rest = trainer("k3", 4, 2, checkpoint_dir=ckpt).fit_ensemble(dm, pair, resume=True)
+        paths["sweep_preempt"] = _launches()
+    want = {**no_launches(), "flagship_train": 2 * 4 * steps, "flagship_fused": 2 * 4 * val_batches}
+    if paths["sweep_preempt"] != want:
+        _fail(f"sweep (g): launches {paths['sweep_preempt']}, want {want}")
+    for a, b, r in zip(cut, rest, ref):
+        if b.interrupted:
+            _fail("sweep (g): the resumed sweep was interrupted")
+        b.history = a.history + b.history
+        _same_fit("sweep (g)", b, r, "stopped and resumed", "uninterrupted")
+        if b.best_metric != r.best_metric:
+            _fail(f"sweep (g): best {b.best_metric} != the uninterrupted {r.best_metric}")
+    print(f"sweep (g): max_wall_seconds=0 stopped the sweep after epoch 1 ({cut[0].stop_reason}); "
+          f"resume=True finished it; equal to the uninterrupted sweep bit for bit; launches "
+          f"{json.dumps(paths['sweep_preempt'])}", flush=True)
+    print(f"sweep: phase {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return (err_in, err_bd), paths, grid_paths
+
+
 def _rows_kernel_fit() -> None:
     """The rows kernels' shared memory at the flagship's 784 pixels against
     the wrapper's bound (which must not be below it), and how many of their
@@ -2575,6 +2983,17 @@ def main() -> int:
     k1_pvae["launches_by_path"] = pvae_paths
     k1_pvae["launches"] = sum(pvae_paths.values())
     kernels.append(k1_pvae)
+    # the sweeps: the flagship's paths on K1 at 16 planes, K2 and K3; the
+    # grid's on K1 at 512 planes, whose entry also takes (a)'s curvatures
+    (err_in, err_bd), sweep_paths, grid_paths = sweep_phase()
+    for k in kernels[:3]:
+        k["launches_by_path"].update({p: n[k["name"]] for p, n in sweep_paths.items()})
+    k1_conv["launches_by_path"].update(grid_paths)
+    k1_conv["max_abs_err"] = max(k1_conv["max_abs_err"], err_in)
+    k1_conv["max_abs_err_boundary"] = max(k1_conv["max_abs_err_boundary"], err_bd)
+    k1_conv["curvatures_checked"] = [0.5, 1.0, CONV_C]
+    for k in kernels:
+        k["launches"] = sum(k["launches_by_path"].values())
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

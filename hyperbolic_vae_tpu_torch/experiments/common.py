@@ -1,0 +1,88 @@
+"""What the port's experiment CLIs share: the common flags, the run
+directory and the Trainer options the flags drive.
+
+Port of ``experiments/common.py``. Every CLI takes ``--synthetic``
+(seeded synthetic data; nothing is downloaded) and ``--device`` (``cuda``
+by default, ``cpu`` for a small run on the CPU), and writes under
+``runs_torch/<name>`` unless ``--run-dir`` says otherwise.
+"""
+
+from __future__ import annotations
+
+import argparse
+from pathlib import Path
+
+from hyperbolic_vae_tpu_torch.data import make_data_module
+from hyperbolic_vae_tpu_torch.utils.logging import configure_handler_for_script
+
+
+def base_parser(description: str) -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(description=description)
+    p.add_argument("--epochs", type=int, default=300)
+    p.add_argument("--batch-size", type=int, default=256)
+    p.add_argument("--lr", type=float, default=1e-3)
+    p.add_argument("--seed", type=int, default=42)
+    p.add_argument("--data-dir", type=str, default="data", help="MNIST IDX files (without --synthetic)")
+    p.add_argument("--synthetic", action="store_true", help="seeded synthetic data (no downloads)")
+    p.add_argument("--n-train", type=int, default=60000, help="synthetic train size")
+    p.add_argument("--n-test", type=int, default=10000, help="synthetic test size")
+    p.add_argument("--run-dir", type=str, default=None)
+    p.add_argument("--no-early-stopping", action="store_true")
+    p.add_argument("--epochs-per-dispatch", type=int, default=1,
+                   help="K epochs a dispatch (histories are the same for every K)")
+    p.add_argument("--moment-dtype", type=str, default=None, choices=[None, "bfloat16", "float32"],
+                   help="storage type of Adam's moments (the math stays f32)")
+    p.add_argument("--lr-schedule", type=str, default=None, choices=[None, "cosine", "exponential"],
+                   help="epoch-indexed lr in place of the plateau controller: cosine to lr/100 "
+                        "at --epochs, or exponential (gamma 0.97 an epoch)")
+    p.add_argument("--warmup-epochs", type=int, default=0, help="linear lr warmup for --lr-schedule")
+    p.add_argument("--beta-warmup-epochs", type=int, default=0,
+                   help="KL annealing: beta from 0 to the model's over this many epochs")
+    p.add_argument("--grad-accum", type=int, default=1,
+                   help="A > 1: each step sums the gradients of A microbatches of batch/A rows")
+    p.add_argument("--grad-clip-norm", type=float, default=None,
+                   help="clip the gradients to this global L2 norm")
+    p.add_argument("--ema-decay", type=float, default=None,
+                   help="track an EMA of the parameters (the 'ema' checkpoint)")
+    p.add_argument("--device", type=str, default=None, help="cuda (default) or cpu")
+    p.add_argument("--log-level", type=str, default="INFO")
+    return p
+
+
+def setup(args, name: str) -> Path:
+    """Logging, and the run directory (created)."""
+    configure_handler_for_script(args.log_level)
+    run_dir = Path(args.run_dir) if args.run_dir else Path("runs_torch") / name
+    run_dir.mkdir(parents=True, exist_ok=True)
+    return run_dir
+
+
+def mnist_data(args):
+    return make_data_module(batch_size=args.batch_size, data_dir=args.data_dir,
+                            synthetic=args.synthetic, n_train=args.n_train, n_test=args.n_test)
+
+
+def trainer_extra(args, model=None) -> dict:
+    """Trainer keyword arguments from the common flags. ``model``: the one
+    whose beta ``--beta-warmup-epochs`` ramps to."""
+    from hyperbolic_vae_tpu_torch.optim import (
+        beta_warmup_schedule,
+        cosine_schedule,
+        exponential_schedule,
+    )
+
+    extra = dict(epochs_per_dispatch=args.epochs_per_dispatch, moment_dtype=args.moment_dtype,
+                 ema_decay=args.ema_decay, grad_accum_steps=args.grad_accum,
+                 grad_clip_norm=args.grad_clip_norm, device=args.device)
+    if args.beta_warmup_epochs:
+        if model is None or not hasattr(model, "beta"):
+            raise SystemExit("--beta-warmup-epochs needs a model with a beta attribute")
+        extra["beta_schedule"] = beta_warmup_schedule(float(model.beta),
+                                                      warmup_epochs=args.beta_warmup_epochs)
+    if args.lr_schedule == "cosine":
+        extra["lr_schedule"] = cosine_schedule(args.lr, args.epochs, warmup_epochs=args.warmup_epochs,
+                                               min_lr=args.lr / 100.0)
+    elif args.lr_schedule == "exponential":
+        extra["lr_schedule"] = exponential_schedule(args.lr, gamma=0.97,
+                                                    warmup_epochs=args.warmup_epochs)
+    return extra

@@ -1,11 +1,12 @@
 """Experiment 9: the pvae replication grid, WrappedNormal against
 RiemannianNormal posteriors, with the importance-weighted bound.
 
-Port of ``experiments/pvae_replicate.py``'s sequential path: for each
-posterior x curvature x latent dim, ``PvaeMLPVAE`` (784 -> 600 ReLU -> d)
-is trained with ``Trainer.fit`` (batch 128, lr 5e-4, 80 epochs by
-default) and its best parameters are scored by ``evaluate_iwae`` on the
-test split (K = ``--iwae-k``, 5000 by default). The results go to
+Port of ``experiments/pvae_replicate.py``: for each posterior x
+curvature x latent dim, ``PvaeMLPVAE`` (784 -> 600 ReLU -> d) is trained
+with ``Trainer.fit`` (batch 128, lr 5e-4, 80 epochs by default, weights
+from ``--seed``) and its best parameters are scored by ``evaluate_iwae``
+on the test split (K = ``--iwae-k``, 5000 by default), beside the split's
+mean ELBO (``test_elbo``, the bound's floor). The results go to
 ``RUN_DIR/replicate_results.json`` and, for the wrapped c = 1.4 cells,
 beside Mathieu et al. 2019's MNIST table in
 ``RUN_DIR/published_comparison.json``. Synthetic MNIST by default (no
@@ -13,9 +14,13 @@ downloads); ``--real-mnist DIR`` reads the IDX files there.
 
     python -m hyperbolic_vae_tpu_torch.experiments.pvae_replicate --synthetic
 
-Runs on the CUDA card (``--device cpu`` for a small run on the CPU).
-``--lane-sweep`` and ``--seed-mesh`` (curvature lanes in one program, and
-their mesh) are not ported yet.
+``--lane-sweep``: the curvature cells of each (posterior, latent dim)
+group are the lanes of one sweep (``Trainer(hp_model_fn=...)
+.fit_lane_sweep``), each lane its cell's sequential fit bit for bit, and
+each lane's best parameters get ``evaluate_iwae`` as the sequential path
+gives them (the weights come from ``--seed`` either way). Runs on the
+CUDA card (``--device cpu`` for a small run on the CPU). ``--seed-mesh``
+(lanes over several cards) is not ported yet.
 """
 
 from __future__ import annotations
@@ -24,6 +29,8 @@ import argparse
 import json
 from pathlib import Path
 from typing import Optional
+
+import torch
 
 from hyperbolic_vae_tpu_torch.data import make_data_module
 from hyperbolic_vae_tpu_torch.models import PvaeMLPVAE
@@ -99,16 +106,74 @@ def parse_args(argv: Optional[list] = None) -> argparse.Namespace:
     p.add_argument("--latent-dims", type=int, nargs="+", default=[2])
     p.add_argument("--iwae-k", type=int, default=5000)
     p.add_argument("--device", type=str, default=None, help="cuda (default) or cpu")
-    p.add_argument("--lane-sweep", action="store_true", help="not ported yet")
-    p.add_argument("--seed-mesh", type=int, default=0, help="not ported yet")
+    p.add_argument("--lane-sweep", action="store_true",
+                   help="each (posterior, latent dim) group's curvatures as lanes of one sweep")
+    p.add_argument("--seed-mesh", type=int, default=0, help="not ported yet (Queue 1 item 8)")
     args = p.parse_args(argv)
-    if args.lane_sweep or args.seed_mesh:
-        raise SystemExit("--lane-sweep and --seed-mesh (curvature lanes in one program) are not "
-                         "ported yet: ROADMAP.md Queue 1 item 7 (train/ensemble.py); run the "
-                         "grid sequentially without them")
+    if args.seed_mesh:
+        raise SystemExit("--seed-mesh (lanes over several cards) is not ported yet: ROADMAP.md "
+                         "Queue 1 item 8")
     if args.real_mnist:
         args.synthetic = False
     return args
+
+
+def _model(args, dm, posterior: str, c: float, d: int, seed=None):
+    gen = torch.Generator().manual_seed(seed) if seed is not None else None
+    return PvaeMLPVAE(data_shape=dm.input_shape, latent_dim=d, manifold_curvature=c,
+                      posterior=posterior, lr=args.lr, generator=gen, device=args.device)
+
+
+def _trainer(args, model, log_dir, **kw) -> Trainer:
+    return Trainer(model, lr=args.lr, max_epochs=args.epochs, seed=args.seed,
+                   early_stopping_patience=None if args.no_early_stopping else 10,
+                   log_dir=log_dir, epochs_per_dispatch=args.epochs_per_dispatch,
+                   device=args.device, **kw)
+
+
+def _scores(args, trainer, dm, result) -> dict:
+    """A cell's best val, the bound on the test split from its best
+    parameters, and the test split's mean ELBO (the bound's floor)."""
+    best = result.best_params
+    return {"best_val": float(result.best_metric),
+            f"iwae_{args.iwae_k}": float(trainer.evaluate_iwae(dm, best, k=args.iwae_k)),
+            "test_elbo": float(trainer.evaluate(dm, best, "test")["test/elbo"])}
+
+
+def sequential(args, run_dir, dm) -> dict:
+    """One ``fit`` and ``evaluate_iwae`` a cell."""
+    results = {}
+    for posterior in args.posteriors:
+        for c in args.curvatures:
+            for d in args.latent_dims:
+                tag = f"{posterior}_c{c}_d{d}"
+                trainer = _trainer(args, _model(args, dm, posterior, c, d, args.seed),
+                                   str(run_dir / tag))
+                result = trainer.fit(dm)
+                results[tag] = _scores(args, trainer, dm, result)
+                print(tag, results[tag], flush=True)
+    return results
+
+
+def lane_sweep(args, run_dir, dm) -> dict:
+    """The curvatures of each (posterior, latent dim) group as the lanes of
+    one sweep; ``evaluate_iwae`` of each lane's best parameters by a
+    Trainer of its own model (the sequential path's draws)."""
+    results = {}
+    for posterior in args.posteriors:
+        for d in args.latent_dims:
+            def model_fn(hp, _p=posterior, _d=d):
+                return _model(args, dm, _p, hp["manifold_curvature"], _d)
+
+            lanes = [{"manifold_curvature": c, "seed": args.seed} for c in args.curvatures]
+            trainer = _trainer(args, model_fn(lanes[0]), str(run_dir / f"{posterior}_d{d}"),
+                               hp_model_fn=model_fn)
+            sweep = trainer.fit_lane_sweep(dm, lanes)
+            for lane, r in zip(lanes, sweep):
+                tag = f"{posterior}_c{lane['manifold_curvature']}_d{d}"
+                results[tag] = _scores(args, _trainer(args, model_fn(lane), None), dm, r)
+                print(tag, results[tag], flush=True)
+    return results
 
 
 def main(argv: Optional[list] = None) -> dict:
@@ -117,23 +182,7 @@ def main(argv: Optional[list] = None) -> dict:
     run_dir.mkdir(parents=True, exist_ok=True)
     dm = make_data_module(batch_size=args.batch_size, data_dir=args.real_mnist or "data",
                           synthetic=args.synthetic, n_train=args.n_train, n_test=args.n_test)
-    results = {}
-    for posterior in args.posteriors:
-        for c in args.curvatures:
-            for d in args.latent_dims:
-                tag = f"{posterior}_c{c}_d{d}"
-                model = PvaeMLPVAE(data_shape=dm.input_shape, latent_dim=d, manifold_curvature=c,
-                                   posterior=posterior, lr=args.lr, device=args.device)
-                trainer = Trainer(
-                    model, lr=args.lr, max_epochs=args.epochs, seed=args.seed,
-                    early_stopping_patience=None if args.no_early_stopping else 10,
-                    log_dir=str(run_dir / tag), epochs_per_dispatch=args.epochs_per_dispatch,
-                    device=args.device)
-                result = trainer.fit(dm)
-                iwae = trainer.evaluate_iwae(dm, result.best_params, k=args.iwae_k)
-                results[tag] = {"best_val": float(result.best_metric),
-                                f"iwae_{args.iwae_k}": float(iwae)}
-                print(tag, results[tag], flush=True)
+    results = (lane_sweep if args.lane_sweep else sequential)(args, run_dir, dm)
     (run_dir / "replicate_results.json").write_text(json.dumps(results, indent=2))
     print(json.dumps(results, indent=2))
     cmp = published_comparison(results, args.iwae_k)

@@ -772,7 +772,7 @@ def _lr_tensor(lr, device) -> torch.Tensor:
 train_launches = LaunchCounter()
 _train_lib = None
 _train_cache: dict = {}  # "key": the operands' identities, "ptrs": the ctypes array
-_train_scratch: dict = {}  # (device, B, D, L) -> scratch tensor
+_train_scratch: dict = {}  # (device, stream, B, D, L) -> scratch tensor
 
 
 def _train_library():
@@ -835,7 +835,10 @@ def flagship_train_cuda(
         raise ValueError("flagship train kernel: 14 parameters and 14 of each moment")
     ptrs = _train_operands((*params, *m, *v), count, x.device, data_numel, latent_dim)
     lib = _train_library()
-    key = (x.device, B, data_numel, latent_dim)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    # one scratch a stream: launches on two streams (a sweep's lanes) may
+    # run at once, and the scratch holds a launch's gradient partial sums
+    key = (x.device, stream, B, data_numel, latent_dim)
     scratch = _train_scratch.get(key)
     if scratch is None:
         n = lib.flagship_train_scratch_floats(B, data_numel, latent_dim)
@@ -844,7 +847,6 @@ def flagship_train_cuda(
         scratch = _train_scratch[key] = torch.zeros(n, dtype=torch.float32, device=x.device)
     out = torch.empty(4, dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.flagship_train_launch(
             x.data_ptr(), eps.data_ptr(), ptrs, count.data_ptr(), scratch.data_ptr(),
             out.data_ptr(), B, data_numel, latent_dim, float(c), float(beta),

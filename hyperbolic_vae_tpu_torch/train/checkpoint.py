@@ -96,19 +96,21 @@ class CheckpointManager:
         p = self.directory / f"{name}.json"
         return json.loads(p.read_text()) if p.exists() else None
 
-    # ---- the resume unit: params, optimizer, controllers, generator ----
+    # ---- the resume units: params, optimizer, controllers, generator ----
+    # ``name``: units live side by side in one directory: "state" is a
+    # fit's, "ensemble_state" a sweep's (every lane's, train/ensemble.py)
 
-    def save_state(self, state: dict, meta: dict) -> None:
+    def save_state(self, state: dict, meta: dict, name: str = "state") -> None:
         # the metadata rides in the same file, so a stop between the two
         # writes cannot pair a state with another epoch's metadata
-        self._write("state", {"state": state, "meta": meta}, meta)
+        self._write(name, {"state": state, "meta": meta}, meta)
 
-    def restore_state(self, device: DeviceLike = "cpu"):
+    def restore_state(self, device: DeviceLike = "cpu", name: str = "state"):
         """(state, meta), or (None, None) when there is none."""
-        if not self.has_state():
+        if not self.has_state(name):
             return None, None
-        saved = torch.load(self.directory / "state.pt", map_location=resolve_device(device))
+        saved = torch.load(self.directory / f"{name}.pt", map_location=resolve_device(device))
         return saved["state"], saved["meta"]
 
-    def has_state(self) -> bool:
-        return (self.directory / "state.pt").exists()
+    def has_state(self, name: str = "state") -> bool:
+        return (self.directory / f"{name}.pt").exists()

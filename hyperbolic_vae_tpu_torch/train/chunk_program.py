@@ -14,9 +14,10 @@ Epoch by epoch, in pieces (``train/cuda_graph.py`` captures them):
 
   * ``begin_epoch``: lr = ``lr_schedule(epoch)`` if set, else the plateau
     lr, written into the optimizer's lr tensor (which K3 reads on the
-    device) and kept for the history; ``beta_schedule(epoch)`` into the
-    model's beta tensor; a copy of the state a stopped epoch restores;
-    then the epoch program's ``begin``;
+    device) and kept for the history; each key of the hyperparameter
+    schedule (``beta_schedule``, ``hp_schedule``) into the model's tensor
+    of that name; a copy of the state a stopped epoch restores; then the
+    epoch program's ``begin``;
   * the epoch program's train steps and val batches;
   * ``end_epoch``: masked skip, as JAX's production default (an epoch
     after an in-graph stop runs, then its parameters, optimizer state and
@@ -29,7 +30,8 @@ Epoch by epoch, in pieces (``train/cuda_graph.py`` captures them):
 
 from __future__ import annotations
 
-from typing import Dict, NamedTuple
+import contextlib
+from typing import Dict, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -124,7 +126,8 @@ class ChunkProgram:
     end."""
 
     def __init__(self, trainer, model, optimizer, x_train, x_val, batch_size: int, generator,
-                 start_epoch: int, *, loss_fn, beta=None):
+                 start_epoch: int, *, loss_fn, hp: Optional[Dict[str, torch.Tensor]] = None,
+                 stream: Optional[torch.cuda.Stream] = None):
         self.trainer, self.optimizer = trainer, optimizer
         dev = x_train.device
         self.device = dev
@@ -136,7 +139,8 @@ class ChunkProgram:
         self.ctrl = init_ctrl(trainer, start_epoch, dev)
         self.params = dict(model.state_dict())
         self.best = {k: v.detach().clone() for k, v in self.params.items()}
-        self.beta = beta
+        self.hp = dict(hp or {})  # scheduled key -> the model's 0-d tensor
+        self.stream = stream
         # what an epoch after a stop puts back: params, moments, EMA, count
         opt_state = [t for p in optimizer.state.values() for t in p.values()]
         self.masked = list(self.params.values()) + opt_state + [optimizer.count]
@@ -161,8 +165,9 @@ class ChunkProgram:
         segments = train + [Segment((ep.val_step,), ep.eval_steps, "val batch"),
                             Segment(end + (ep.end_val, self.end_epoch), 1, "val tail and epoch end")]
         state = (self.masked + [g["lr"] for g in optimizer.param_groups] + list(self.ctrl.values())
-                 + list(self.best.values()) + [self.krow] + ([beta] if beta is not None else []))
-        self.program = GraphedProgram(segments, device=dev, generator=generator, state=state)
+                 + list(self.best.values()) + [self.krow] + list(self.hp.values()))
+        self.program = GraphedProgram(segments, device=dev, generator=generator, state=state,
+                                      capture_stream=stream)
 
     # ---- pieces ---------------------------------------------------------
 
@@ -171,8 +176,10 @@ class ChunkProgram:
         lr = tr.lr_schedule(c["epoch"]) if tr.lr_schedule is not None else c["pl_lr"]
         self.lr_used.copy_(lr)
         self.optimizer.set_lr(self.lr_used)
-        if tr.beta_schedule is not None:
-            self.beta.copy_(tr.beta_schedule(c["epoch"]))
+        if self.hp:
+            values = tr.hp_schedule(c["epoch"])
+            for name, t in self.hp.items():
+                t.copy_(values[name])
         with torch.no_grad():
             for prev, cur in zip(self.prev, self.masked):
                 prev.copy_(cur)
@@ -208,19 +215,59 @@ class ChunkProgram:
 
     # ---- the host's side ------------------------------------------------
 
-    def run(self, k: int):
-        """k (<= epochs_per_dispatch) epochs, then one fetch: (rows (k,
-        n_cols) float64 numpy, the controllers as Python numbers)."""
-        self.krow.zero_()
-        for _ in range(k):
-            self.program.run()
-        ctrl = torch.stack([self.ctrl[name].double() for name, _ in CTRL_FIELDS])
-        flat = torch.cat([self.rows[:k].double().reshape(-1), ctrl]).cpu().numpy()
+    def on_stream(self):
+        """The program's stream as the current one (a no-op without one)."""
+        return contextlib.nullcontext() if self.stream is None else torch.cuda.stream(self.stream)
+
+    def _after_caller(self) -> None:
+        """The program's stream waits for what the caller's stream queued
+        (staging, a restored state)."""
+        if self.stream is not None:
+            self.stream.wait_stream(torch.cuda.current_stream(self.device))
+
+    def prepare(self) -> None:
+        """Capture the program's graphs on its stream now (on the card);
+        the caller's stream then waits for the state the capture put back."""
+        self._after_caller()
+        with self.on_stream():
+            self.program.capture()
+        if self.stream is not None:
+            torch.cuda.current_stream(self.device).wait_stream(self.stream)
+
+    def issue_steps(self, k: int):
+        """Queue k (<= epochs_per_dispatch) epochs, waiting for nothing, one
+        graph replay (one segment's pieces, eager) a ``next()``; the caller
+        makes each on ``on_stream()``. A sweep takes its lanes' steps in
+        turn."""
+        self._after_caller()
+
+        def steps():
+            self.krow.zero_()
+            for _ in range(k):
+                yield from self.program.replays()
+
+        return steps()
+
+    def fetch(self, k: int):
+        """The queued chunk's results in one transfer: (rows (k, n_cols)
+        float64 numpy, the controllers as Python numbers)."""
+        self._after_caller()
+        with self.on_stream():
+            ctrl = torch.stack([self.ctrl[name].double() for name, _ in CTRL_FIELDS])
+            flat = torch.cat([self.rows[:k].double().reshape(-1), ctrl]).cpu().numpy()
         rows = flat[:-len(CTRL_FIELDS)].reshape(k, -1)
         host = {}
         for (name, dt), val in zip(CTRL_FIELDS, flat[-len(CTRL_FIELDS):]):
             host[name] = bool(val) if dt == torch.bool else (int(val) if dt == torch.int32 else float(val))
         return rows, host
+
+    def run(self, k: int):
+        """k epochs queued (``issue_steps``), then ``fetch(k)``."""
+        steps = self.issue_steps(k)
+        with self.on_stream():
+            for _ in steps:
+                pass
+        return self.fetch(k)
 
     def row_metrics(self, row: np.ndarray) -> dict:
         ep = self.ep

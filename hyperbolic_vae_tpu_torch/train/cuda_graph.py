@@ -18,6 +18,13 @@ device each segment becomes one ``torch.cuda.CUDAGraph`` at the first
      eps draws advance on every replay as the eager calls would; a kernel
      wrapper's launch counter goes up once per captured launch while the
      capture runs, which is taken back and added on every replay instead.
+     ``capture_stream`` (a sweep's lane stream) captures on that stream,
+     so that the graphs of two lanes, replayed at once on their own
+     streams, never share cuBLAS's per-stream workspace; each graph has
+     its own memory pool. Python's cyclic garbage collector is held off
+     during the capture: a collection there can destroy a dead program's
+     graphs, which invalidates the capture in progress
+     (``torch.cuda.graph`` no longer collects before it captures).
 
 A capture that fails raises: the program never falls back to running the
 pieces eagerly. On the CPU, or inside :func:`run_eagerly` (the eager run
@@ -28,6 +35,7 @@ same order without graphs.
 from __future__ import annotations
 
 import contextlib
+import gc
 from typing import Dict, List, NamedTuple, Optional, Sequence
 
 import torch
@@ -49,6 +57,19 @@ def run_eagerly():
         yield
     finally:
         _EAGER = before
+
+
+@contextlib.contextmanager
+def no_collection():
+    """Around a CUDA graph capture: no automatic garbage collection until
+    the block ends (dead cycles wait until then)."""
+    was_enabled = gc.isenabled()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if was_enabled:
+            gc.enable()
 
 
 class Segment(NamedTuple):
@@ -74,12 +95,14 @@ class GraphedProgram:
     Graphed on a CUDA device unless built inside ``run_eagerly()``."""
 
     def __init__(self, segments: Sequence[Segment], *, device: torch.device,
-                 generator: torch.Generator, state: Sequence[torch.Tensor]):
+                 generator: torch.Generator, state: Sequence[torch.Tensor],
+                 capture_stream: Optional[torch.cuda.Stream] = None):
         self.segments = [s for s in segments if s.repeat > 0 and s.pieces]
         self.device = torch.device(device)
         self.generator = generator
         self.state = list(state)
         self.graphed = self.device.type == "cuda" and not _EAGER
+        self.capture_stream = capture_stream
         self._graphs: Optional[List[tuple]] = None
 
     @property
@@ -88,22 +111,35 @@ class GraphedProgram:
         return sum(s.repeat for s in self.segments) if self.graphed else 0
 
     def run(self) -> None:
+        for _ in self.replays():
+            pass
+
+    def replays(self):
+        """``run()`` one segment replay at a time: each ``next()`` queues
+        one more."""
         for i, seg in enumerate(self.segments):
             for _ in range(seg.repeat):
                 self._replay(i)
+                yield
 
     def replay(self, name: str) -> None:
         """The segment called ``name`` once (one graph replay, its launches
         counted; its pieces when eager): to time a part of the program."""
         self._replay(next(i for i, s in enumerate(self.segments) if s.name == name))
 
+    def capture(self) -> None:
+        """Capture the segments now (else the first ``run()`` does); a
+        no-op when eager. A sweep captures every lane before it replays
+        any, since a capture waits for the whole card."""
+        if self.graphed and self._graphs is None:
+            self._graphs = self._capture()
+
     def _replay(self, i: int) -> None:
         if not self.graphed:
             for piece in self.segments[i].pieces:
                 piece()
             return
-        if self._graphs is None:
-            self._graphs = self._capture()
+        self.capture()
         graph, added = self._graphs[i]
         graph.replay()
         counters = launch_counters()
@@ -134,19 +170,21 @@ class GraphedProgram:
                 self._restore(snap)
         current.wait_stream(side)
         graphs = []
-        for seg in self.segments:
-            graph = torch.cuda.CUDAGraph()
-            graph.register_generator_state(self.generator)
-            before = _counts()
-            try:
-                with torch.cuda.graph(graph):
-                    for piece in seg.pieces:
-                        piece()
-            except Exception as e:
-                raise RuntimeError(f"CUDA graph capture of {seg.name!r} failed: {e}") from e
-            after = _counts()
-            _set_counts(before)
-            graphs.append((graph, {k: after[k] - before[k] for k in after if after[k] != before[k]}))
+        with no_collection():
+            for seg in self.segments:
+                graph = torch.cuda.CUDAGraph()
+                graph.register_generator_state(self.generator)
+                before = _counts()
+                try:
+                    with torch.cuda.graph(graph, stream=self.capture_stream):
+                        for piece in seg.pieces:
+                            piece()
+                except Exception as e:
+                    raise RuntimeError(f"CUDA graph capture of {seg.name!r} failed: {e}") from e
+                after = _counts()
+                _set_counts(before)
+                graphs.append((graph, {k: after[k] - before[k] for k in after
+                                       if after[k] != before[k]}))
         self._restore(snap)
         return graphs
 

@@ -43,20 +43,23 @@ def model_with_params(trainer, params):
 
 
 @contextlib.contextmanager
-def _scheduled_beta(trainer, model):
-    """Under a ``beta_schedule``, the model's beta is the schedule's end,
-    ``beta_schedule(max_epochs)`` (as JAX evaluates at
-    ``hp_schedule(max_epochs)``), as a 0-d tensor for the call only."""
-    if trainer.beta_schedule is None:
+def _scheduled(trainer, model):
+    """Under a schedule (``beta_schedule``, ``hp_schedule``), each
+    scheduled key of the model is the schedule's end,
+    ``hp_schedule(max_epochs)`` (as JAX evaluates), as a 0-d tensor for the
+    call only."""
+    if not trainer.hp_keys:
         yield
         return
-    static = model.beta
-    model.beta = torch.as_tensor(trainer.beta_schedule(trainer.max_epochs),
-                                 dtype=torch.float32).to(trainer.device)
+    end = trainer.hp_schedule(trainer.max_epochs)
+    static = {k: getattr(model, k) for k in trainer.hp_keys}
+    for k in trainer.hp_keys:
+        setattr(model, k, torch.as_tensor(end[k], dtype=torch.float32).to(trainer.device))
     try:
         yield
     finally:
-        model.beta = static
+        for k, v in static.items():
+            setattr(model, k, v)
 
 
 def evaluate(trainer, dm: ArrayDataModule, params=None, split: str = "test") -> dict:
@@ -65,7 +68,7 @@ def evaluate(trainer, dm: ArrayDataModule, params=None, split: str = "test") -> 
     model = model_with_params(trainer, params)
     gen = torch.Generator(device=trainer.device).manual_seed(trainer.seed + 1)
     x = trainer._stage(getattr(dm, f"x_{split}"))
-    with _scheduled_beta(trainer, model):
+    with _scheduled(trainer, model):
         names, means = eval_full(model, x, dm.batch_size, gen, trainer.loss_fn or default_loss_fn)
     return {f"{split}/{k}": v for k, v in zip(names, means.tolist())}
 

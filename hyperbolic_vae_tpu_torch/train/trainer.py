@@ -15,10 +15,18 @@ card the chunk's pieces are CUDA graphs (``train/cuda_graph.py``),
 captured at the first chunk; on the CPU the same pieces run eagerly.
 ``lr_schedule`` (``optim.cosine_schedule``, ``exponential_schedule``)
 replaces the plateau lr; ``beta_schedule`` (``beta_warmup_schedule``)
-sets the model's KL weight per epoch. The host, at chunk boundaries,
-logs (every ``log_every_n_epochs``), checkpoints (``checkpoint_dir``:
-best, last, ``ema``, and the resume state that ``fit(resume=True)``
-continues from) and calls ``callbacks`` (``train/callbacks.py``). After
+sets the model's KL weight per epoch, as sugar for ``hp_schedule``, whose
+keys must be ones the model reads as a device tensor (``beta``). The
+host, at chunk boundaries, logs (every ``log_every_n_epochs``),
+checkpoints (``checkpoint_dir``: best, last, ``ema``, and, every
+``state_every_n_epochs`` and at every stop and the end, the resume state
+that ``fit(resume=True)`` continues from), calls ``callbacks``
+(``train/callbacks.py``) and checks for a graceful stop
+(``preempt_signals``, ``max_wall_seconds``: ``train/preemption.py``);
+``profile_dir`` gets a torch.profiler trace of the second chunk. Before
+staging, a memory preflight (``hbm_limit_bytes``) fails early. Seed
+ensembles and hyperparameter lanes (``hp_model_fn``) run through
+``fit_ensemble`` and ``fit_lane_sweep`` (``train/ensemble.py``). After
 training, ``evaluate``, ``evaluate_iwae``, ``evaluate_probe`` and
 ``encode_split`` delegate to ``train/evaluation.py``.
 
@@ -34,18 +42,21 @@ or ``train_step_fn``; ``grad_accum_steps`` with a model whose
 ``loss_reduction`` is not ``"per_sample_mean"``; and, in the port,
 ``moment_dtype`` with ``train_step_fn`` (K3 keeps f32 moments).
 ``fit`` trains ``model`` in place, from its current weights or from
-``params``. Still to port:
-ensembles and lanes, streaming, preemption, meshes, the memory
-preflight, TensorBoard, ``profile_dir``, ``evaluate(stream_block_rows=...)``.
+``params``. Still to port: streaming (``fit_streamed``,
+``evaluate(stream_block_rows=...)``), meshes (and the sweeps'
+``seed_mesh``), TensorBoard.
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import logging
 import math
+import signal
 import time
+from pathlib import Path
 from typing import Any, Callable, Dict, Optional, Sequence
 
 import numpy as np
@@ -62,6 +73,12 @@ from hyperbolic_vae_tpu_torch.train.metrics import MetricLogger
 logger = logging.getLogger(__name__)
 
 
+# the keys a hyperparameter schedule may set: attributes that the port's
+# models read at every call, so a 0-d device tensor can stand in for the
+# float; anything else (e.g. manifold_curvature) is baked in at build time
+SCHEDULABLE_KEYS = ("beta",)
+
+
 @dataclasses.dataclass
 class TrainResult:
     params: Dict[str, torch.Tensor]
@@ -72,10 +89,133 @@ class TrainResult:
     samples_per_sec: float
     # the parameters' EMA over the run (with ema_decay), by state_dict name
     ema_params: Optional[Dict[str, torch.Tensor]] = None
+    # True when a graceful stop (preempt_signals, max_wall_seconds) ended
+    # the run; with a checkpoint_dir its resume state was saved
+    interrupted: bool = False
+    stop_reason: Optional[str] = None
 
 
 def _snapshot(model) -> Dict[str, torch.Tensor]:
     return {k: v.detach().clone() for k, v in model.state_dict().items()}
+
+
+def init_params_of(model, seed: int, device) -> Dict[str, torch.Tensor]:
+    """Fresh weights for ``model``'s configuration (``model.hparams()``),
+    drawn on the CPU from ``seed``, on ``device``."""
+    g = torch.Generator().manual_seed(int(seed))
+    fresh = type(model)(**model.hparams(), generator=g, device="cpu")
+    return {k: v.to(device) for k, v in fresh.state_dict().items()}
+
+
+class _Run:
+    """One fit on the device: ``trainer.model`` trained in place, with its
+    optimizer, generator and chunk program (from ``params`` or a resume
+    ``state``), and the host's reading of the chunks: history, best metric,
+    epochs run. ``fit`` drives one; a sweep drives one a lane, each with its
+    own trainer (``train/ensemble.py``), so a lane is a fit by construction.
+    ``close()`` gives the model back its scheduled attributes' floats."""
+
+    def __init__(self, trainer, batch_size: int, x_train, x_val, params=None, state=None,
+                 meta=None, stream=None):
+        tr = self.trainer = trainer
+        tr.plateau = ReduceLROnPlateau(**tr._plateau_cfg)
+        if tr._early_patience:
+            tr.early_stopping = EarlyStopping(patience=tr._early_patience)
+        model = tr.model
+        if params is not None:
+            model.load_state_dict(params)
+        tr.optimizer = tr._make_optimizer()
+        self.gen = torch.Generator(device=tr.device).manual_seed(tr.seed)
+        self.start_epoch = 0
+        self.ig_best, self.stopped = math.inf, False
+        if state is not None:
+            self.start_epoch = int(meta["epoch"]) + 1
+            model.load_state_dict(state["params"])
+            tr.optimizer.load_state_dict(state["optimizer"])
+            self.gen.set_state(state["generator"].cpu())
+            tr.plateau.lr, tr.plateau.best = meta["plateau_lr"], meta["plateau_best"]
+            tr.plateau.num_bad_epochs = meta["plateau_bad"]
+            if tr.early_stopping:
+                tr.early_stopping.best, tr.early_stopping.wait = meta["early_best"], meta["early_wait"]
+            self.ig_best = float(state["chunk"]["ctrl"]["best_val"])
+            self.stopped = bool(state["chunk"]["ctrl"]["stopped"])
+        # each scheduled key as a 0-d tensor the chunk program writes per
+        # epoch (a float would be frozen into a captured graph)
+        self.static = {k: getattr(model, k) for k in tr.hp_keys}
+        hp = {k: torch.zeros((), dtype=torch.float32, device=tr.device) for k in tr.hp_keys}
+        for k, t in hp.items():
+            setattr(model, k, t)
+        try:
+            self.prog = ChunkProgram(tr, model, tr.optimizer, x_train, x_val, batch_size, self.gen,
+                                     self.start_epoch, loss_fn=tr.loss_fn or default_loss_fn, hp=hp,
+                                     stream=stream)
+            if state is not None:
+                self.prog.load_state_dict(state["chunk"])
+        except BaseException:
+            self.close()
+            raise
+        tr.program = self.prog
+        self.samples_per_epoch = x_train.shape[0] // batch_size * batch_size
+        self.history: list = []
+        self.best_metric = self.ig_best
+        self.epochs_run = self.start_epoch
+
+    def close(self) -> None:
+        for k, v in self.static.items():
+            setattr(self.trainer.model, k, v)
+
+    def absorb(self, rows: np.ndarray, ctrl: dict):
+        """A fetched chunk into the host's state: the controllers' mirrors,
+        the history (logged every ``log_every_n_epochs``), the best metric.
+        Returns the chunk's new best (epoch, metrics), or None."""
+        tr = self.trainer
+        tr.plateau.lr, tr.plateau.best = ctrl["pl_lr"], ctrl["pl_best"]
+        tr.plateau.num_bad_epochs = ctrl["pl_bad"]
+        self.stopped, self.ig_best = ctrl["stopped"], ctrl["best_val"]
+        if tr.early_stopping:
+            tr.early_stopping.best, tr.early_stopping.wait = ctrl["es_best"], ctrl["es_wait"]
+            tr.early_stopping.stopped = self.stopped
+        best_row = None
+        for i in range(ctrl["epoch"] - self.epochs_run):
+            epoch = self.epochs_run
+            metrics = self.prog.row_metrics(rows[i])
+            metrics["epoch"] = epoch
+            self.history.append(metrics)
+            self.epochs_run = epoch + 1
+            if epoch % tr.log_every_n_epochs == 0:
+                tr.metric_logger.log_scalars(epoch, metrics)
+            if tr.check_finite and not np.isfinite(metrics["train/loss_total"]):
+                logger.warning("non-finite train loss at epoch %d", epoch)
+            mon = metrics[tr.monitor]
+            if np.isfinite(mon) and mon < self.best_metric:
+                self.best_metric, best_row = mon, (epoch, metrics)
+        return best_row
+
+    def resume_state(self):
+        """(state, meta) of the resume unit: parameters, optimizer, the
+        device's controllers and best params, the generator; the host
+        controllers' mirrors in the metadata."""
+        tr = self.trainer
+        es = tr.early_stopping
+        return ({"params": _snapshot(tr.model), "optimizer": copy.deepcopy(tr.optimizer.state_dict()),
+                 "chunk": self.prog.state_dict(), "generator": self.gen.get_state()},
+                {"epoch": self.epochs_run - 1, "plateau_lr": tr.plateau.lr,
+                 "plateau_best": tr.plateau.best, "plateau_bad": tr.plateau.num_bad_epochs,
+                 "early_best": es.best if es else math.inf, "early_wait": es.wait if es else 0})
+
+    def result(self, samples_per_sec: float, stop_reason: Optional[str]) -> TrainResult:
+        tr = self.trainer
+        return TrainResult(
+            params=_snapshot(tr.model),
+            best_params={k: v.clone() for k, v in self.prog.best.items()},
+            history=self.history,
+            best_metric=self.best_metric,
+            epochs_run=self.epochs_run,
+            samples_per_sec=samples_per_sec,
+            ema_params=tr._ema_params() if tr.ema_decay is not None else None,
+            interrupted=stop_reason is not None,
+            stop_reason=stop_reason,
+        )
 
 
 class Trainer:
@@ -95,23 +235,32 @@ class Trainer:
         callbacks: Sequence = (),
         check_finite: bool = True,
         log_every_n_epochs: int = 1,
+        profile_dir: Optional[str] = None,  # a torch.profiler trace of the second chunk
+        state_every_n_epochs: int = 1,  # the resume state's cadence (also saved at every stop and at the end)
         shuffle: str = "row",  # "row" (fresh permutation) | "block" (random windows)
         epochs_per_dispatch: int = 1,  # K: epochs a chunk runs before the host looks
         loss_fn: Optional[Callable] = None,  # fn(model, batch, generator) -> metrics
         train_step_fn: Optional[Callable] = None,  # fn(model, optimizer, batch, generator) -> metrics
         moment_dtype=None,  # storage type of both Adam moments, e.g. "bfloat16"; math in f32
+        hp_model_fn: Optional[Callable] = None,  # fn(lane hparams) -> model: hyperparameter lanes (fit_lane_sweep)
+        hp_schedule: Optional[Callable] = None,  # fn(epoch) -> {key: value}, each key a tensor the model reads (beta)
         beta_schedule: Optional[Callable] = None,  # fn(epoch) -> beta, e.g. beta_warmup_schedule
         ema_decay: Optional[float] = None,  # an EMA of the parameters (TrainResult.ema_params)
         lr_schedule: Optional[Callable] = None,  # fn(epoch) -> lr; replaces the plateau lr
-        finite_guard: bool = True,  # skip a step whose loss or gradient is not finite (default step)
         grad_accum_steps: int = 1,  # A > 1: each step sums the gradients of A microbatches of batch/A rows
         grad_clip_norm: Optional[float] = None,  # clip the gradients to this global L2 norm
+        max_wall_seconds: Optional[float] = None,  # graceful stop once a fit has run this long
+        preempt_signals: Sequence[int] = (),  # e.g. (signal.SIGTERM,): graceful stops (train/preemption.py)
+        hbm_limit_bytes: Optional[int] = None,  # the memory preflight's limit (None: the card's memory)
+        finite_guard: bool = True,  # skip a step whose loss or gradient is not finite (default step)
         device: DeviceLike = None,
     ):
         if shuffle not in ("row", "block"):
             raise ValueError(f"shuffle must be 'row' or 'block', got {shuffle!r}")
         if epochs_per_dispatch < 1:
             raise ValueError(f"epochs_per_dispatch must be >= 1, got {epochs_per_dispatch}")
+        if state_every_n_epochs < 1:
+            raise ValueError(f"state_every_n_epochs must be >= 1, got {state_every_n_epochs}")
         if grad_accum_steps < 1:
             raise ValueError(f"grad_accum_steps must be >= 1, got {grad_accum_steps}")
         if grad_accum_steps > 1 and train_step_fn is not None:
@@ -131,11 +280,26 @@ class Trainer:
         if grad_clip_norm is not None and train_step_fn is not None:
             raise ValueError("grad_clip_norm does not compose with train_step_fn")
         if beta_schedule is not None:
+            if hp_model_fn is not None or hp_schedule is not None:
+                raise ValueError("beta_schedule is sugar for hp_model_fn+hp_schedule: pass "
+                                 "either the sugar or the generic form, not both")
             if loss_fn is not None or train_step_fn is not None:
                 raise ValueError("beta_schedule does not compose with loss_fn/train_step_fn")
             if not hasattr(model, "beta"):
                 raise ValueError(f"beta_schedule requires a model with a beta attribute "
                                  f"(got {type(model).__name__})")
+            hp_schedule = lambda epoch: {"beta": beta_schedule(epoch)}  # noqa: E731
+        elif hp_schedule is not None and hp_model_fn is None:
+            raise ValueError("hp_schedule requires hp_model_fn (or beta_schedule)")
+        if hp_model_fn is not None and (loss_fn is not None or train_step_fn is not None):
+            raise ValueError("hp_model_fn does not compose with loss_fn/train_step_fn")
+        self.hp_keys = tuple(hp_schedule(torch.zeros((), dtype=torch.int32))) if hp_schedule else ()
+        for key in self.hp_keys:
+            if key not in SCHEDULABLE_KEYS or not hasattr(model, key):
+                raise ValueError(
+                    f"hp_schedule key {key!r} is baked into {type(model).__name__} when it is "
+                    f"built; a schedule sets only what the model reads as a device tensor at "
+                    f"every call ({', '.join(SCHEDULABLE_KEYS)})")
         if ema_decay is not None and train_step_fn is not None:
             # the full-step override replaces the optimizer, so the EMA
             # would never update
@@ -159,17 +323,29 @@ class Trainer:
         self.callbacks = list(callbacks)
         self.check_finite = check_finite
         self.log_every_n_epochs = int(log_every_n_epochs)
+        self.profile_dir = profile_dir
+        self.state_every_n_epochs = int(state_every_n_epochs)
         self.shuffle = shuffle
         self.epochs_per_dispatch = int(epochs_per_dispatch)
         self.loss_fn = loss_fn
         self.train_step_fn = train_step_fn
         self.moment_dtype = moment_dtype
-        self.beta_schedule = beta_schedule
+        self.hp_model_fn = hp_model_fn
+        self.hp_schedule = hp_schedule
         self.ema_decay = ema_decay
         self.lr_schedule = lr_schedule
         self.finite_guard = bool(finite_guard)
         self.grad_accum_steps = int(grad_accum_steps)
         self.grad_clip_norm = float(grad_clip_norm) if grad_clip_norm is not None else None
+        self.max_wall_seconds = max_wall_seconds
+        self.preempt_signals = tuple(preempt_signals)
+        self.hbm_limit_bytes = hbm_limit_bytes
+        self._shutdown = None
+        self._fit_t0 = None
+        self._stop_reason = None
+        # a sweep replays each lane on its own CUDA stream (one stream
+        # against S: tools/lane_streams.py)
+        self._lane_streams = True
         self._plateau_cfg = dict(lr=self.lr, factor=plateau_factor, patience=plateau_patience,
                                  min_lr=plateau_min_lr)
         self._early_patience = early_stopping_patience
@@ -179,6 +355,7 @@ class Trainer:
         self.metric_logger = MetricLogger(log_dir)
         self.optimizer: Optional[RiemannianAdam] = None
         self.program: Optional[ChunkProgram] = None  # the last fit's chunk program
+        self.lane_programs: list = []  # the last sweep's chunk programs, one a lane
         self._ckpt_mgr = None
         if checkpoint_dir:
             from hyperbolic_vae_tpu_torch.train.checkpoint import CheckpointManager, model_hparams
@@ -197,58 +374,132 @@ class Trainer:
     def init_params(self, seed: Optional[int] = None) -> Dict[str, torch.Tensor]:
         """Fresh weights for the model's configuration, drawn from ``seed``
         (default: the Trainer's), on the Trainer's device."""
-        g = torch.Generator().manual_seed(self.seed if seed is None else seed)
-        fresh = type(self.model)(**self.model.hparams(), generator=g, device="cpu")
-        return {k: v.to(self.device) for k, v in fresh.state_dict().items()}
+        return init_params_of(self.model, self.seed if seed is None else seed, self.device)
 
     def _ema_params(self) -> Dict[str, torch.Tensor]:
         ema = self.optimizer.ema_params()
         names = {p: n for n, p in self.model.named_parameters()}
         return {names[p]: e.detach().clone() for p, e in ema.items()}
 
+    def _check_batch(self, dm: ArrayDataModule) -> None:
+        if dm.batch_size % self.grad_accum_steps:
+            raise ValueError(f"batch_size {dm.batch_size} not divisible by grad_accum_steps "
+                             f"{self.grad_accum_steps}")
+
+    # ---- graceful stops and the memory preflight --------------------------
+
+    def _external_stop(self) -> Optional[str]:
+        """The graceful-stop reason, or None; checked at chunk boundaries,
+        where the resume state is consistent."""
+        if self._shutdown is not None and self._shutdown.triggered:
+            return f"preemption signal {signal.Signals(self._shutdown.signum).name}"
+        if (self.max_wall_seconds is not None and self._fit_t0 is not None
+                and time.monotonic() - self._fit_t0 > self.max_wall_seconds):
+            return f"wall-clock budget ({self.max_wall_seconds}s) exceeded"
+        return None
+
+    @contextlib.contextmanager
+    def _graceful_scope(self):
+        """Around every fit-like entry point: arms the wall clock and
+        installs the preemption handlers while training runs; warns when a
+        stop could not save resume state."""
+        self._fit_t0 = time.monotonic()
+        self._stop_reason = None
+        if (self.preempt_signals or self.max_wall_seconds is not None) and not self._ckpt_mgr:
+            logger.warning("graceful-stop options (preempt_signals/max_wall_seconds) are set "
+                           "but the Trainer has no checkpoint_dir: a stop will NOT save resume "
+                           "state")
+        if not self.preempt_signals:
+            self._shutdown = None
+            yield
+            return
+        from hyperbolic_vae_tpu_torch.train.preemption import GracefulShutdown
+
+        with GracefulShutdown(self.preempt_signals) as shutdown:
+            self._shutdown = shutdown
+            try:
+                yield
+            finally:
+                self._shutdown = None
+
+    def _preflight(self, dm: ArrayDataModule, models: Sequence) -> None:
+        """Fail before staging when the fit cannot fit in the card's memory.
+        A lower bound, as JAX's HBM preflight: the staged splits (shared
+        by the lanes of a sweep) and, for each model (one a lane), its
+        parameters twice (live and best), the optimizer's moments (and
+        EMA) and one microbatch of input, reconstruction and gradient. The
+        limit is ``hbm_limit_bytes``, else the card's memory; on the CPU
+        without ``hbm_limit_bytes`` there is no check."""
+        limit = self.hbm_limit_bytes
+        if limit is None:
+            if self.device.type != "cuda":
+                return
+            limit = torch.cuda.mem_get_info(self.device)[1]
+        row_bytes = int(np.prod(dm.x_train.shape[1:])) * 4  # staged f32
+        split = (int(dm.x_train.shape[0]) * row_bytes + int(np.prod(dm.x_val.shape)) * 4)
+        moment = getattr(torch, self.moment_dtype) if isinstance(self.moment_dtype, str) else self.moment_dtype
+        p = o = 0
+        for model in models:
+            p += sum(t.numel() * t.element_size() for t in model.state_dict().values())
+            for t in model.parameters():
+                size = torch.empty((), dtype=moment).element_size() if moment else t.element_size()
+                o += t.numel() * (2 * size + (4 if self.ema_decay is not None else 0))
+        micro = dm.batch_size // self.grad_accum_steps
+        act = 3 * micro * row_bytes * len(models)  # input + recon + grad floor
+        total = split + 2 * p + o + act  # 2 * p: live + best
+        if total > limit:
+            gib = 2 ** 30
+            raise RuntimeError(
+                f"CUDA memory preflight: estimated bytes {total / gib:.2f} GiB exceed the "
+                f"card's {limit / gib:.2f} GiB (splits {split / gib:.2f} + params+best "
+                f"{2 * p / gib:.2f} + opt {o / gib:.2f} + activations {act / gib:.2f} GiB, "
+                f"{len(models)} lane(s)). Use grad_accum_steps to shrink activations, or "
+                f"sweep fewer lanes at once.")
+
+    @contextlib.contextmanager
+    def _profiled(self, on: bool):
+        """With ``profile_dir`` and ``on`` (the second chunk: the first
+        captures the graphs), torch.profiler over the block, its trace in
+        ``profile_dir/trace.json``."""
+        if not (on and self.profile_dir):
+            yield
+            return
+        from torch.profiler import ProfilerActivity, profile
+
+        acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if self.device.type == "cuda" else [])
+        with profile(activities=acts) as prof:
+            yield
+        out = Path(self.profile_dir)
+        out.mkdir(parents=True, exist_ok=True)
+        prof.export_chrome_trace(str(out / "trace.json"))
+
+    # ---- fit ---------------------------------------------------------------
+
     def fit(self, dm: ArrayDataModule, params: Optional[Dict[str, Any]] = None,
             resume: bool = False) -> TrainResult:
         """Train ``self.model`` in place (from ``params`` if given) for at
         most ``max_epochs`` epochs; with ``resume`` and a saved resume
-        state in ``checkpoint_dir``, continue that fit from its next epoch."""
-        self.plateau = ReduceLROnPlateau(**self._plateau_cfg)
-        if self._early_patience:
-            self.early_stopping = EarlyStopping(patience=self._early_patience)
-        if params is not None:
-            self.model.load_state_dict(params)
-        if dm.batch_size % self.grad_accum_steps:
-            raise ValueError(f"batch_size {dm.batch_size} not divisible by grad_accum_steps "
-                             f"{self.grad_accum_steps}")
-        self.optimizer = self._make_optimizer()
-        gen = torch.Generator(device=self.device).manual_seed(self.seed)
-        x_train, x_val = self._stage(dm.x_train), self._stage(dm.x_val)
-        state = None
+        state in ``checkpoint_dir``, continue that fit from its next epoch.
+        A graceful stop returns at a chunk boundary with ``interrupted``."""
+        with self._graceful_scope():
+            return self._fit(dm, params, resume)
+
+    def _fit(self, dm: ArrayDataModule, params, resume: bool) -> TrainResult:
+        if self.hp_model_fn is not None:
+            raise ValueError(
+                "hp_model_fn trainers sweep hyperparameter lanes: use fit_lane_sweep (a "
+                "generic hp_schedule composes with the lanes there); for a single scheduled "
+                "model use Trainer(beta_schedule=...)")
+        self._check_batch(dm)
+        state = meta = None
         if resume and self._ckpt_mgr is not None:
             state, meta = self._ckpt_mgr.restore_state(device=self.device)
-        start_epoch = 0
-        if state is not None:
-            start_epoch = int(meta["epoch"]) + 1
-            self.model.load_state_dict(state["params"])
-            self.optimizer.load_state_dict(state["optimizer"])
-            gen.set_state(state["generator"].cpu())
-            self.plateau.lr, self.plateau.best = meta["plateau_lr"], meta["plateau_best"]
-            self.plateau.num_bad_epochs = meta["plateau_bad"]
-            if self.early_stopping:
-                self.early_stopping.best, self.early_stopping.wait = meta["early_best"], meta["early_wait"]
-            logger.info("resumed from epoch %d", start_epoch)
-        static_beta = getattr(self.model, "beta", None)
-        beta = None
-        if self.beta_schedule is not None:
-            # a 0-d tensor the chunk program writes per epoch (a float would
-            # be frozen into a captured graph); the float comes back after
-            beta = torch.zeros((), dtype=torch.float32, device=self.device)
-            self.model.beta = beta
+        self._preflight(dm, [self.model])
+        run = _Run(self, dm.batch_size, self._stage(dm.x_train), self._stage(dm.x_val), params,
+                   state, meta)
         try:
-            prog = ChunkProgram(self, self.model, self.optimizer, x_train, x_val, dm.batch_size,
-                                gen, start_epoch, loss_fn=self.loss_fn or default_loss_fn, beta=beta)
-            self.program = prog
             if state is not None:
-                prog.load_state_dict(state["chunk"])
+                logger.info("resumed from epoch %d", run.start_epoch)
             self.metric_logger.log_hparams({
                 "model": self.model, "lr": self.lr, "batch_size": dm.batch_size,
                 "max_epochs": self.max_epochs, "dataset": dm.name,
@@ -256,99 +507,104 @@ class Trainer:
             for cb in self.callbacks:
                 if hasattr(cb, "on_fit_start"):
                     cb.on_fit_start(self, dm)
-            best = float(state["chunk"]["ctrl"]["best_val"]) if state is not None else math.inf
-            return self._fit_chunked(prog, gen, x_train.shape[0] // dm.batch_size * dm.batch_size,
-                                     start_epoch, best)
+            return self._fit_chunked(run)
         finally:
-            if beta is not None:
-                self.model.beta = static_beta
+            run.close()
 
-    def _fit_chunked(self, prog: ChunkProgram, gen, samples_per_epoch: int,
-                     start_epoch: int, best_metric: float) -> TrainResult:
+    def _fit_chunked(self, run: _Run) -> TrainResult:
         """The chunk loop: the host logs, checkpoints and calls back at
-        chunk boundaries; the tail chunk is cut so training never runs past
-        ``max_epochs``; the first chunk (capture and warm-up on the card)
-        is left out of ``samples_per_sec``."""
-        k = self.epochs_per_dispatch
-        history: list = []
+        chunk boundaries and saves the resume state on the
+        ``state_every_n_epochs`` cadence and at every stop and the end; the
+        tail chunk is cut so training never runs past ``max_epochs``; the
+        first chunk (capture and warm-up on the card) is left out of
+        ``samples_per_sec``."""
+        k, prog = self.epochs_per_dispatch, run.prog
         total_samples, t_start = 0, None
-        epochs_run = start_epoch
-        for chunk_start in range(start_epoch, self.max_epochs, k):
-            k_eff = min(k, self.max_epochs - chunk_start)
-            rows, ctrl = prog.run(k_eff)
+        for n, chunk_start in enumerate(range(run.start_epoch, self.max_epochs, k)):
+            with self._profiled(n == 1):
+                rows, ctrl = prog.run(min(k, self.max_epochs - chunk_start))
             if t_start is None:
                 t_start = time.perf_counter()
             else:
-                total_samples += samples_per_epoch * (ctrl["epoch"] - chunk_start)
-            stop = ctrl["stopped"]
-            # the host controllers mirror the device's (resume metadata)
-            self.plateau.lr, self.plateau.best = ctrl["pl_lr"], ctrl["pl_best"]
-            self.plateau.num_bad_epochs = ctrl["pl_bad"]
-            if self.early_stopping:
-                self.early_stopping.best, self.early_stopping.wait = ctrl["es_best"], ctrl["es_wait"]
-                self.early_stopping.stopped = stop
-            best_row = None
-            for i in range(ctrl["epoch"] - chunk_start):
-                epoch = chunk_start + i
-                metrics = prog.row_metrics(rows[i])
-                metrics["epoch"] = epoch
-                history.append(metrics)
-                epochs_run = epoch + 1
-                if epoch % self.log_every_n_epochs == 0:
-                    self.metric_logger.log_scalars(epoch, metrics)
-                if self.check_finite and not np.isfinite(metrics["train/loss_total"]):
-                    logger.warning("non-finite train loss at epoch %d", epoch)
-                mon = metrics[self.monitor]
-                if np.isfinite(mon) and mon < best_metric:
-                    best_metric, best_row = mon, (epoch, metrics)
+                total_samples += run.samples_per_epoch * (ctrl["epoch"] - chunk_start)
+            best_row = run.absorb(rows, ctrl)
+            stop = run.stopped
             if stop:
-                logger.info("early stopping at epoch %d", epochs_run - 1)
-            if self._ckpt_mgr is not None:
-                if best_row is not None:
-                    # the device's best epoch must be the host's reading of the history
-                    if ctrl["best_epoch"] != best_row[0]:
-                        raise RuntimeError(f"best epoch {ctrl['best_epoch']} on the device, "
-                                             f"{best_row[0]} in the history")
-                    self._ckpt_mgr.save_best(best_row[0], prog.best, best_row[1])
-                self._save_resume_state(prog, gen, epochs_run - 1)
+                logger.info("early stopping at epoch %d", run.epochs_run - 1)
+            if self._ckpt_mgr is not None and best_row is not None:
+                # the device's best epoch must be the host's reading of the history
+                if ctrl["best_epoch"] != best_row[0]:
+                    raise RuntimeError(f"best epoch {ctrl['best_epoch']} on the device, "
+                                       f"{best_row[0]} in the history")
+                self._ckpt_mgr.save_best(best_row[0], prog.best, best_row[1])
             for cb in self.callbacks:
                 if hasattr(cb, "on_epoch_end"):
-                    cb.on_epoch_end(self, epochs_run - 1, self.model.state_dict(),
-                                    history[-1] if history else {})
+                    cb.on_epoch_end(self, run.epochs_run - 1, self.model.state_dict(),
+                                    run.history[-1] if run.history else {})
+            # a completed run is never interrupted
+            done = run.epochs_run >= self.max_epochs
+            reason = None if done else self._external_stop()
+            n_state = self.state_every_n_epochs
+            cadence = run.epochs_run // n_state > chunk_start // n_state
+            if self._ckpt_mgr is not None and (cadence or stop or reason or done):
+                self._save_resume_state(run, run.epochs_run - 1)
             if stop:
                 break
-        if self._ckpt_mgr is not None and epochs_run > start_epoch:
-            self._ckpt_mgr.save_last(epochs_run - 1, self.model.state_dict(), history[-1])
+            if reason:
+                self._stop_reason = reason
+                logger.warning("graceful stop after epoch %d: %s", run.epochs_run - 1, reason)
+                break
+        if self._ckpt_mgr is not None and run.epochs_run > run.start_epoch:
+            self._ckpt_mgr.save_last(run.epochs_run - 1, self.model.state_dict(), run.history[-1])
             if self.ema_decay is not None:
                 self._ckpt_mgr.save_named("ema", self._ema_params(),
-                                          {"epoch": epochs_run - 1, "ema_decay": self.ema_decay})
+                                          {"epoch": run.epochs_run - 1, "ema_decay": self.ema_decay})
         elapsed = time.perf_counter() - t_start if t_start is not None else 0.0
         self.metric_logger.close()
-        return TrainResult(
-            params=_snapshot(self.model),
-            best_params={k: v.clone() for k, v in prog.best.items()},
-            history=history,
-            best_metric=best_metric,
-            epochs_run=epochs_run,
-            samples_per_sec=total_samples / elapsed if total_samples else 0.0,
-            ema_params=self._ema_params() if self.ema_decay is not None else None,
-        )
+        return run.result(total_samples / elapsed if total_samples else 0.0, self._stop_reason)
 
-    def _save_resume_state(self, prog: ChunkProgram, gen, epoch: int) -> None:
-        """Parameters, optimizer, the device's controllers and best params,
-        the generator; the host controllers' mirrors in the metadata."""
-        es = self.early_stopping
-        self._ckpt_mgr.save_state(
-            {"params": _snapshot(self.model), "optimizer": copy.deepcopy(self.optimizer.state_dict()),
-             "chunk": prog.state_dict(), "generator": gen.get_state()},
-            {"epoch": epoch, "plateau_lr": self.plateau.lr, "plateau_best": self.plateau.best,
-             "plateau_bad": self.plateau.num_bad_epochs,
-             "early_best": es.best if es else math.inf, "early_wait": es.wait if es else 0})
+    def _save_resume_state(self, run: _Run, epoch: int) -> None:
+        """The resume unit of ``run`` after ``epoch`` (``fit(resume=True)``
+        continues from it)."""
+        state, meta = run.resume_state()
+        self._ckpt_mgr.save_state(state, dict(meta, epoch=epoch))
+
+    # ---- sweeps ------------------------------------------------------------
+
+    def fit_ensemble(self, dm: ArrayDataModule, seeds: Sequence[int],
+                     epochs_per_dispatch: Optional[int] = None, seed_mesh=None,
+                     resume: bool = False) -> list:
+        """One model per seed, each a lane of one sweep
+        (``train/ensemble.py``): a ``TrainResult`` per seed, each what
+        ``fit(dm, params=init_params(seed))`` with ``seed`` gives, bit for
+        bit. Resumable and stoppable as ``fit``."""
+        from hyperbolic_vae_tpu_torch.train.ensemble import fit_ensemble
+
+        with self._graceful_scope():
+            return fit_ensemble(self, dm, seeds, epochs_per_dispatch, seed_mesh=seed_mesh,
+                                resume=resume)
+
+    def fit_lane_sweep(self, dm: ArrayDataModule, lanes: Sequence[dict],
+                       epochs_per_dispatch: Optional[int] = None, seed_mesh=None,
+                       resume: bool = False) -> list:
+        """Hyperparameter lanes: each dict of scalars (curvature, beta, ...,
+        and the reserved ``seed`` and ``lr``) trains its own
+        ``hp_model_fn(lane)`` model (``train/ensemble.py``)."""
+        if self.lr_schedule is not None and any("lr" in lane for lane in lanes):
+            # one schedule would override every lane's lr: the sweep's point
+            raise ValueError("lr_schedule does not compose with per-lane lr sweeps")
+        from hyperbolic_vae_tpu_torch.train.ensemble import fit_lane_sweep
+
+        with self._graceful_scope():
+            return fit_lane_sweep(self, dm, lanes, epochs_per_dispatch, seed_mesh=seed_mesh,
+                                  resume=resume)
+
+    # ---- after training ----------------------------------------------------
 
     def evaluate(self, dm: ArrayDataModule, params: Optional[Dict[str, Any]] = None,
                  split: str = "test") -> dict:
         """Mean loss metrics over a split (``train/evaluation.py``); under a
-        ``beta_schedule`` at ``beta_schedule(max_epochs)``."""
+        schedule at ``hp_schedule(max_epochs)``."""
         from hyperbolic_vae_tpu_torch.train.evaluation import evaluate
 
         return evaluate(self, dm, params, split)

@@ -16,7 +16,9 @@ against K = 1, and the kernels' launch counts through graph replays.
 They need no JAX: on the card's machine run them with ``--noconftest``.
 """
 
+import gc
 import json
+import weakref
 
 import numpy as np
 import pytest
@@ -27,7 +29,8 @@ from hyperbolic_vae_tpu_torch.models import GyroplaneVAE
 from hyperbolic_vae_tpu_torch.ops import launch_counters, make_fused_loss_fn, make_fused_train_step
 from hyperbolic_vae_tpu_torch.optim import beta_warmup_schedule, cosine_schedule
 from hyperbolic_vae_tpu_torch.train import CheckpointManager, Trainer, restore_model
-from hyperbolic_vae_tpu_torch.train.cuda_graph import run_eagerly
+from hyperbolic_vae_tpu_torch.train.cuda_graph import (WARMUP_PASSES, GraphedProgram, Segment,
+                                                       run_eagerly)
 
 
 @pytest.fixture(autouse=True)
@@ -218,6 +221,58 @@ def test_graphed_equals_eager_on_card(path):
         eager = _fit(3, **kw)
     _same(graphed, eager)
     assert len({h["lr"] for h in graphed[0].history}) == 2
+
+
+class _Cycle:
+    """Keeps ``obj`` in a reference cycle: only the cyclic collector frees it."""
+
+    def __init__(self, obj):
+        self.obj, self.me = obj, self
+
+
+def _graphed_matmul(dev, gen, extra=lambda: None):
+    w = torch.randn(64, 64, device=dev)
+    out = torch.zeros(64, 64, device=dev)
+
+    def piece():
+        out.copy_((w @ torch.randn(64, 64, device=dev, generator=gen)).tanh())
+        extra()
+
+    return GraphedProgram([Segment((piece,), 2, "step")], device=dev, generator=gen, state=[out])
+
+
+@pytest.mark.cuda
+def test_capture_survives_dead_graphs():
+    """A finished program left in a reference cycle (as a finished fit
+    leaves its chunk program) holds captured graphs; destroying a graph
+    while another program captures invalidates that capture. So the
+    capture runs with the cyclic collector held off: the piece below
+    becomes the last holder of a dead program and collects whenever
+    Python's collector could run, and the capture must still succeed,
+    its program replay, and the dead program be freed afterwards."""
+    dev = _card()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    dead = _graphed_matmul(dev, gen)
+    dead.run()
+    gone = weakref.ref(dead)
+    holder = [_Cycle(dead)]
+    del dead
+    calls = [0]
+
+    def drop_and_collect():
+        calls[0] += 1
+        if calls[0] == WARMUP_PASSES + 1:  # the first call under capture
+            holder.clear()
+            if gc.isenabled():
+                gc.collect()
+
+    prog = _graphed_matmul(dev, gen, drop_and_collect)
+    prog.run()
+    prog.run()
+    torch.cuda.synchronize()
+    assert calls[0] == WARMUP_PASSES + 1 and not holder
+    gc.collect()
+    assert gone() is None
 
 
 @pytest.mark.cuda

@@ -490,10 +490,9 @@ def test_pvae_serves_from_state_dict_and_checkpoint(tmp_path):
 def test_replicate_cli(tmp_path, capsys):
     from hyperbolic_vae_tpu_torch.experiments import pvae_replicate as cli
 
-    with pytest.raises(SystemExit, match="Queue 1 item 7"):
-        cli.main(["--lane-sweep"])
-    with pytest.raises(SystemExit, match="Queue 1 item 7"):
+    with pytest.raises(SystemExit, match="Queue 1 item 8"):
         cli.main(["--seed-mesh", "4"])
+    assert cli.parse_args(["--lane-sweep"]).lane_sweep  # ported: tests/test_torch_port_experiments.py
     out = cli.main(["--device", "cpu", "--epochs", "2", "--n-train", "200", "--n-test", "20",
                     "--batch-size", "32", "--iwae-k", "10", "--curvatures", "1.4",
                     "--run-dir", str(tmp_path)])
