@@ -14,8 +14,9 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
      tensors at its path's shapes, then timed beside it with CUDA events
      at the path's batch (K1 also at the IWAE decode's 128,000 rows):
      called from Python (median of 51 means of 20
-     back-to-back calls) and replayed from a CUDA graph (device time
-     alone; for K2 and K3 also per internal kernel, from torch.profiler).
+     back-to-back calls; a plain version over a millisecond a call, of 11
+     means of 3) and replayed from a CUDA graph (device time alone; for
+     K2 and K3 also per internal kernel, from torch.profiler).
      K1 (gyroplane distances, beside an empty kernel of its launch shape:
      the launch floor), K2 (the fused forward + ELBO) and K3 (the whole
      training step, lr read from device memory).
@@ -39,7 +40,7 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
      optimizer, and one K3 step synchronised.
   Each path (serve, fused train, K3 train, default train, eval, the
   RNA-seq family's fits, serve and eval, the conv families', the pvae
-  phase's and the sweeps') zeroes
+  phase's, the interop phase's and the sweeps') zeroes
   the launch counters just before it and reads them just after; the graph
   runner adds each captured kernel's launches on every replay.
   5. North star: the reference protocol (at most 300 epochs, patience 10,
@@ -88,7 +89,19 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
      UnifiedVAE's 10-epoch fit served from its best checkpoint and
      ``evaluate_iwae(k=5000, k_chunk=100)`` (exactly 250 K1 launches), the
      Euclidean arm's fit with none.
-  10. Sweeps (``sweep_phase``): K1 at 512 planes against its plain
+  10. Interop (``interop_phase``): a reference user's Lightning ``.ckpt``
+     of the flagship, built here in geoopt's form (no gyroplane bias,
+     ``manifold.k``, ``decoder.0.ball.k``, keys under ``model.``) from a
+     seeded port model: imported bit for bit; served from the ``.ckpt``
+     over HTTP (replies bit for bit the source model's, exactly 3 K1);
+     ``import_torch_checkpoint``, then a 2-epoch graphed K3-path fine-tune
+     (exactly 420 K3, 48 K2); ``eval_checkpoints --iwae 5000 --probe 10``
+     (exactly 400 K1 in the bound, 40 in the test pass, the bound at
+     least the ELBO); ``export_torch_state_dict`` equal to the source's
+     export; experiments 5 (K1 at 512 planes) and 8 (K1 at 100 planes,
+     20,480 genes) for 2 epochs and 1 (one latent, run twice: the second
+     skips the fit), 2 and 3 for one, through their CLIs.
+  11. Sweeps (``sweep_phase``): K1 at 512 planes against its plain
      version at c = 0.5 and 1.0; experiment 6's flagship as the parity
      protocol's 8 seed lanes (``Trainer.fit_ensemble``, a CUDA stream a
      lane) on the default path (3 epochs, exactly 8 x 3 x 234 K1) and on
@@ -100,9 +113,10 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
      planes, one lane equal to its fit) and ``evaluate_lanes``; experiment
      9's CLI with ``--lane-sweep`` (the bound at least the ELBO); a sweep
      stopped by ``max_wall_seconds`` and resumed, bit for bit.
-  11. Summary: a ``{"kernels": [...]}`` line (K1 four times: at the
+  12. Summary: a ``{"kernels": [...]}`` line (K1 four times: at the
      flagship's 16 planes, the RNA-seq family's 256, the conv family's
-     512 and UnifiedVAE's 100, each counted on its own paths), then, as
+     512 and UnifiedVAE's 100, each counted on its own paths, the interop
+     phase's among them), then, as
      the last line, ``{"ok": true, "device": {...}}``.
 
 Prints no result and exits 1 when CUDA is unavailable.
@@ -208,6 +222,20 @@ def _graph_ms(fn, n: int = 50) -> float:
     ms = _time_ms(graph.replay, reps=21, inner=5) / n
     del graph
     return ms
+
+
+def _in_turns(kernel, plain) -> tuple:
+    """A kernel and its plain version called from Python in turns (plain,
+    kernel, kernel, plain; ``_time_ms``), then each replayed from a CUDA
+    graph (``_graph_ms``). A plain version over a millisecond a call (K3's
+    and K2's; K1's at P = 512 and B = 128,000) is timed over 11 means of 3
+    calls and a graph of 4, so that its timing stays seconds. Returns
+    (plain_a, ms_a, ms_b, plain_b, graph_ms, plain_graph_ms)."""
+    heavy = _time_ms(plain, reps=3, inner=2) > 1.0
+    reps = dict(reps=11, inner=3) if heavy else {}
+    plain_a, ms_a, ms_b, plain_b = (_time_ms(f, **(reps if f is plain else {}))
+                                    for f in (plain, kernel, kernel, plain))
+    return plain_a, ms_a, ms_b, plain_b, _graph_ms(kernel), _graph_ms(plain, n=4 if heavy else 50)
 
 
 def _graph_split(fn, n: int = 50) -> dict:
@@ -344,14 +372,8 @@ def _k1_times(rng, b: int, p: int = P, c: float = 1.0) -> dict:
     def plain():
         return g.gyroplane_distances(x, pts, c, True, bias)
 
-    # a plain version over a millisecond a call (P = 512 at B = 128,000: ~7
-    # ms) is timed over fewer calls, so that its timing stays seconds
-    heavy = _time_ms(plain, reps=3, inner=2) > 1.0
-    reps = dict(reps=11, inner=3) if heavy else {}
-    plain_a, ms_a, ms_b, plain_b = (_time_ms(f, **(reps if f is plain else {}))
-                                    for f in (plain, kernel, kernel, plain))
+    plain_a, ms_a, ms_b, plain_b, graph_ms, plain_graph_ms = _in_turns(kernel, plain)
     ms, plain_ms = (ms_a + ms_b) / 2, (plain_a + plain_b) / 2
-    graph_ms, plain_graph_ms = _graph_ms(kernel), _graph_ms(plain, n=4 if heavy else 50)
     floor_ms = _graph_ms(_empty_launch(b, p))
     n_bytes = 4 * (b * D + p * D + p + b * p)
     n_ops = b * p * (2 * D + GYRO_EPILOGUE_OPS) + 2 * D * (b + p)
@@ -495,9 +517,8 @@ def k2_phase() -> dict:
     def plain():
         return ff.flagship_forward_torch(params, xb, eps, **cfg)
 
-    plain_a, ms_a, ms_b, plain_b = (_time_ms(f) for f in (plain, kernel, kernel, plain))
+    plain_a, ms_a, ms_b, plain_b, graph_ms, plain_graph_ms = _in_turns(kernel, plain)
     ms, plain_ms = (ms_a + ms_b) / 2, (plain_a + plain_b) / 2
-    graph_ms, plain_graph_ms = _graph_ms(kernel), _graph_ms(plain)
     split = _graph_split(kernel)
     _print_split("flagship_fused", split)
     n_par = sum(t.numel() for t in params)
@@ -676,9 +697,8 @@ def k3_phase() -> dict:
     def plain():
         return ff.flagship_train_step_torch(params, mom, vel, x, eps, lr=lr, count=count, **cfg)
 
-    plain_a, ms_a, ms_b, plain_b = (_time_ms(f) for f in (plain, kernel, kernel, plain))
+    plain_a, ms_a, ms_b, plain_b, graph_ms, plain_graph_ms = _in_turns(kernel, plain)
     ms, plain_ms = (ms_a + ms_b) / 2, (plain_a + plain_b) / 2
-    graph_ms, plain_graph_ms = _graph_ms(kernel), _graph_ms(plain)
     split = _graph_split(kernel)
     _print_split("flagship_train", split)
     n_par = sum(t.numel() for t in params)
@@ -2513,6 +2533,296 @@ def pvae_phase():
     return k1, {p_: n["gyroplane_distances"] for p_, n in paths.items()}
 
 
+# the reference user's path (interop_phase): their Lightning .ckpt of the
+# flagship, built on the machine in geoopt's form, into the port; then
+# experiments 5 and 8 (2 epochs each) and 1, 2, 3 (one epoch each, experiment
+# 1 at one latent) through their CLIs at full width
+INTEROP_ROWS = (60000, 10000)  # synthetic MNIST: 54,000 train, 6,000 val, 10,000 test rows
+INTEROP_FIT_EPOCHS, INTEROP_IWAE_K, INTEROP_PROBE_K = 2, 5000, 10
+INTEROP_EXP_EPOCHS, INTEROP_SMALL_EPOCHS, INTEROP_EXP1_LATENT = 2, 1, 128
+INTEROP_EXP8_CELLS = 1000  # experiment 8's fake cells (batch 64: 700 / 150 / 150 rows)
+INTEROP_CIFAR_ROWS = (50000, 10000)  # synthetic CIFAR-10: 45,000 train, 5,000 val, 10,000 test
+
+
+def interop_phase():
+    """The reference's own checkpoints into the port, on the card (TF32
+    off, cuDNN deterministic, as ``main()`` sets them), at the flagship's
+    published width (784 -> 64 -> 16 -> 2-D ball, c = 1, 16 gyroplanes) on
+    synthetic MNIST (54,000 train, 6,000 val, 10,000 test rows), batch 256:
+
+      (a) a reference checkpoint in geoopt's form, built here from a seeded
+          port flagship with a zero gyroplane bias: exported
+          (``export_torch_state_dict``), the bias dropped (geoopt's layer
+          has none), ``manifold.k = -1`` and ``decoder.0.ball.k = [-1]``
+          added, every key under ``model.``, wrapped as Lightning does
+          (``state_dict``, ``hyper_parameters`` with ``data_shape`` [1, 28,
+          28], ``epoch``) and ``torch.save``d as a ``.ckpt``;
+      (b) ``load_torch_state_dict`` + ``import_torch_state_dict``: the
+          source model's state_dict, bit for bit, on the card;
+      (c) served from the ``.ckpt`` (``Inferencer.from_state_dict``, the
+          ``serve_http --state-dict`` route) over HTTP on 127.0.0.1: embed
+          (300 rows, JSON), decode (64 latents, JSON), reconstruct (300
+          rows, octet-stream) each bit for bit the source model's
+          ``Inferencer``; exactly 3 K1 launches (decode 1, reconstruct 2);
+      (d) ``import_torch_checkpoint`` on the ``.ckpt``, then a 2-epoch
+          graphed fit from the imported parameters on the K3 path
+          (``train_step_fn``; K2 for val): finite losses, exactly 420 K3
+          and 48 K2 launches (as ``train_phase``);
+      (e) ``eval_checkpoints --iwae 5000 --probe 10`` on the imported
+          checkpoint over the 10,000 test rows: the bound at least the
+          ELBO, exactly 400 K1 launches in the bound (as ``eval_phase``)
+          and 40 in the CLI's test pass; its wall time;
+      (f) ``export_torch_state_dict`` of the imported checkpoint: (a)'s
+          export, zero bias included, exactly;
+      (g) experiment 5 (K1 at 512 planes, c = 1.4, MNIST padded to 32) and
+          experiment 8 (20,480 genes, hidden 100: K1 at 100 planes) through
+          their CLIs for 2 epochs: finite results, K1 once a training step,
+          val and test batch; experiments 1 (latent 128 only, run twice:
+          the second skips the fit), 2 and 3 for one epoch.
+
+    Cuts: 2 epochs (fine-tune, experiments 5 and 8) and 1 (experiments 1,
+    2, 3) where the protocols run up to 300; experiment 1 at one latent of
+    its four. Returns (the flagship's launches by path, K1's at 512 planes
+    by path, K1's at 100 planes by path)."""
+    import tempfile
+    from pathlib import Path
+
+    import torch
+
+    from hyperbolic_vae_tpu_torch.data import make_data_module, split_three_way, synthetic_mnist_arrays
+    from hyperbolic_vae_tpu_torch.experiments import (
+        eval_checkpoints,
+        export_torch_state_dict,
+        import_torch_checkpoint,
+        train_ae_euclidean_cifar10,
+        train_vae_euclidean_cifar10,
+        train_vae_euclidean_mnist,
+        train_vae_hyperbolic_mnist,
+        train_vaes_rnaseq,
+    )
+    from hyperbolic_vae_tpu_torch.interop import (
+        export_torch_state_dict as export_sd,
+        import_torch_state_dict,
+        load_torch_state_dict,
+    )
+    from hyperbolic_vae_tpu_torch.models import GyroplaneVAE
+    from hyperbolic_vae_tpu_torch.ops import flagship_fused as ff
+    from hyperbolic_vae_tpu_torch.serve import Inferencer
+    from hyperbolic_vae_tpu_torch.serve_http import InferenceServer
+    from hyperbolic_vae_tpu_torch.train import Trainer
+    from hyperbolic_vae_tpu_torch.train.checkpoint import restore_model
+
+    def k1_only(n):
+        return {"gyroplane_distances": n, "flagship_fused": 0, "flagship_train": 0}
+
+    t_phase = time.perf_counter()
+    quiet = ["--log-level", "WARNING"]
+    paths, conv_paths, uni_paths = {}, {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        # (a) the reference checkpoint, geoopt's form
+        source = GyroplaneVAE(generator=torch.Generator().manual_seed(0), device="cuda")
+        with torch.no_grad():
+            source.decoder[0].bias.zero_()
+        src = export_sd(source)
+        sd = {k: torch.from_numpy(v) for k, v in src.items() if k != "decoder.0.bias"}
+        sd["manifold.k"] = torch.tensor(-1.0)
+        sd["decoder.0.ball.k"] = torch.tensor([-1.0])
+        ckpt = tmp / "epoch=3.ckpt"
+        torch.save({"state_dict": {f"model.{k}": v for k, v in sd.items()},
+                    "hyper_parameters": {"data_shape": [1, 28, 28], "manifold_curvature": 1.0,
+                                         "beta": 1.0, "prior_scale": 1.0},
+                    "epoch": 3}, ckpt)
+        print(f"interop (a): {ckpt.name}: {len(sd)} tensors under model. (geoopt's: no "
+              f"decoder.0.bias; manifold.k, decoder.0.ball.k), {ckpt.stat().st_size} bytes",
+              flush=True)
+
+        # (b) import, bit for bit on the card
+        t0 = time.perf_counter()
+        model = import_torch_state_dict(GyroplaneVAE(device="cuda"), load_torch_state_dict(ckpt))
+        for k, v in source.state_dict().items():
+            if not torch.equal(model.state_dict()[k], v):
+                _fail(f"interop (b): imported {k} differs from the source model's")
+        print(f"interop (b): load + import {time.perf_counter() - t0:.3f} s: the source model's "
+              f"{len(source.state_dict())} tensors, bit for bit on the card", flush=True)
+
+        # (c) served from the .ckpt: every reply the source model's Inferencer's
+        inf = Inferencer.from_state_dict(ckpt, batch_size=BATCH, device="cuda")
+        ref = Inferencer(source, batch_size=BATCH, device="cuda")
+        inf.warmup()
+        ref.warmup()
+        x = synthetic_mnist_arrays(n_train=300, n_test=1, seed=0)[0]
+        z = np.random.default_rng(1).uniform(-0.6, 0.6, size=(64, 2)).astype(np.float32)
+        server = InferenceServer(inf, host="127.0.0.1", port=0).start()
+        lat = {}
+        try:
+            jhdr = {"Content-Type": "application/json"}
+            _reset_launches()
+            _, body, lat["embed 300 rows json"] = _http(
+                server, "/v1/embed", json.dumps({"data": x.tolist()}).encode(), jhdr)
+            emb = np.asarray(json.loads(body)["outputs"][0], np.float32)
+            _, body, lat["decode 64 latents json"] = _http(
+                server, "/v1/decode", json.dumps({"data": z.tolist()}).encode(), jhdr)
+            dec = np.asarray(json.loads(body)["outputs"][0], np.float32)
+            xr = np.ascontiguousarray(x, "<f4")
+            h, body, lat["reconstruct 300 rows octet-stream"] = _http(
+                server, "/v1/reconstruct", xr.tobytes(),
+                {"Content-Type": "application/octet-stream", "X-Shape": ",".join(map(str, xr.shape))})
+            rec = _shaped(h, body)
+            torch.cuda.synchronize()
+            paths["interop_serve"] = _launches()
+        finally:
+            server.shutdown()
+        for name, got, want in (("embed", emb, ref.embed(x)), ("decode", dec, ref.decode(z)),
+                                ("reconstruct", rec, ref.reconstruct(x))):
+            if got.shape != want.shape or not np.array_equal(got, want):
+                _fail(f"interop (c): served {name} differs from the source model's Inferencer")
+        print("interop (c): served from the .ckpt, embed / decode / reconstruct bit for bit the "
+              "source model's; " + ", ".join(f"{k} {v:.3f} ms" for k, v in lat.items())
+              + f"; launches {json.dumps(paths['interop_serve'])}", flush=True)
+        if paths["interop_serve"] != k1_only(3):
+            _fail(f"interop (c): launches {paths['interop_serve']}, want 3 K1 and no other")
+
+        # (d) the import CLI, then a graphed K3-path fine-tune from its parameters
+        out = tmp / "imported"
+        import_torch_checkpoint.main([str(ckpt), "--out", str(out)] + quiet)
+        tuned, params, meta = restore_model(str(out), "best", device="cuda")
+        if meta.get("imported_from") != str(ckpt) or any(
+                not torch.equal(params[k], v) for k, v in source.state_dict().items()):
+            _fail("interop (d): the imported checkpoint is not the source model's weights")
+        n_train, n_test = INTEROP_ROWS
+        dm = make_data_module(batch_size=BATCH, synthetic=True, n_train=n_train, n_test=n_test)
+        steps = dm.x_train.shape[0] // BATCH
+        val_b, test_b = -(-dm.x_val.shape[0] // BATCH), -(-dm.x_test.shape[0] // BATCH)
+        trainer = Trainer(tuned, max_epochs=INTEROP_FIT_EPOCHS, early_stopping_patience=None,
+                          loss_fn=ff.make_fused_loss_fn(tuned),
+                          train_step_fn=ff.make_fused_train_step(tuned), device="cuda")
+        torch.cuda.synchronize()
+        _reset_launches()
+        t0 = time.perf_counter()
+        res = trainer.fit(dm, params=params)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        paths["interop_finetune"] = _launches()
+        print(f"interop (d): fine-tune of the imported flagship, {res.epochs_run} epochs graphed "
+              f"on the K3 path in {wall:.3f} s (capture included); history "
+              f"{json.dumps(res.history)}; launches {json.dumps(paths['interop_finetune'])}",
+              flush=True)
+        if any(not np.isfinite(v) for row in res.history for v in row.values()):
+            _fail(f"interop (d): non-finite metrics {res.history}")
+        want = {"gyroplane_distances": 0, "flagship_train": INTEROP_FIT_EPOCHS * steps,
+                "flagship_fused": INTEROP_FIT_EPOCHS * val_b}
+        if paths["interop_finetune"] != want:
+            _fail(f"interop (d): launches {paths['interop_finetune']}, want {want}")
+
+        # (e) the eval CLI on the imported checkpoint, the bound's launches
+        # read around Trainer.evaluate_iwae inside the CLI
+        bound = {}
+        evaluate_iwae = Trainer.evaluate_iwae
+
+        def counted(self, *a, **kw):
+            torch.cuda.synchronize()
+            before, t_b = _launches(), time.perf_counter()
+            value = evaluate_iwae(self, *a, **kw)
+            torch.cuda.synchronize()
+            bound["wall"] = time.perf_counter() - t_b
+            bound["launches"] = {k: n - before[k] for k, n in _launches().items()}
+            return value
+
+        Trainer.evaluate_iwae = counted
+        try:
+            torch.cuda.synchronize()
+            _reset_launches()
+            t0 = time.perf_counter()
+            evals = eval_checkpoints.main(
+                ["--glob", str(out), "--synthetic", "--n-train", str(n_train), "--n-test",
+                 str(n_test), "--iwae", str(INTEROP_IWAE_K), "--probe", str(INTEROP_PROBE_K),
+                 "--run-dir", str(tmp / "eval")] + quiet)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            paths["interop_eval"] = _launches()
+        finally:
+            Trainer.evaluate_iwae = evaluate_iwae
+        row = evals.get(str(out), {})
+        iwae, elbo = row.get(f"test/iwae_{INTEROP_IWAE_K}"), -row.get("test/loss_total", np.nan)
+        print(f"interop (e): eval_checkpoints --iwae {INTEROP_IWAE_K} --probe {INTEROP_PROBE_K} on "
+              f"{n_test} test rows in {wall:.3f} s (data included): {json.dumps(row)}; the bound "
+              f"{bound.get('wall', float('nan')):.3f} s wall, launches "
+              f"{json.dumps(bound.get('launches'))}; the CLI's launches "
+              f"{json.dumps(paths['interop_eval'])}", flush=True)
+        if not (iwae is not None and np.isfinite(iwae) and iwae >= elbo):
+            _fail(f"interop (e): the bound {iwae} is not finite or below the ELBO {elbo}")
+        k_chunks = -(-INTEROP_IWAE_K // IWAE_K)
+        if bound.get("launches") != k1_only(test_b * k_chunks):
+            _fail(f"interop (e): the bound's launches {bound.get('launches')}, want "
+                  f"{test_b * k_chunks} K1")
+        if paths["interop_eval"] != k1_only(test_b * k_chunks + test_b):
+            _fail(f"interop (e): launches {paths['interop_eval']}, want "
+                  f"{test_b * k_chunks + test_b} K1 (the bound's and the test pass's)")
+
+        # (f) exported back: (a)'s export exactly
+        back = export_torch_state_dict.main([str(out), "--out", str(tmp / "back.npz"),
+                                             "--run-dir", str(tmp / "export")] + quiet)
+        with np.load(tmp / "back.npz") as f:
+            if sorted(f.files) != sorted(src) or sorted(back) != sorted(src) or any(
+                    not np.array_equal(f[k], src[k]) for k in src):
+                _fail("interop (f): the export of the imported checkpoint differs from (a)'s")
+        print(f"interop (f): exported back, {len(src)} tensors equal to (a)'s export (zero "
+              "decoder.0.bias included)", flush=True)
+
+        # (g) experiments 5 and 8 (2 epochs), then 1, 2 and 3 (one epoch)
+        small = ["--synthetic"] + quiet
+        mnist_rows = ["--n-train", str(n_train), "--n-test", str(n_test)]
+
+        def run(name, cli, argv, run_dir=None):
+            torch.cuda.synchronize()
+            _reset_launches()
+            t0 = time.perf_counter()
+            result = cli.main(argv + ["--run-dir", str(tmp / (run_dir or name))] + small)
+            torch.cuda.synchronize()
+            n = _launches()
+            print(f"interop (g): {name} in {time.perf_counter() - t0:.3f} s: {json.dumps(result)}; "
+                  f"launches {json.dumps(n)}", flush=True)
+            rows = result.values() if name.startswith("exp1") else [result]
+            if any(not np.isfinite(v) for r in rows for v in r.values()):
+                _fail(f"interop (g): {name} gave non-finite results {result}")
+            return result, n
+
+        exp5, n = run("exp5", train_vae_hyperbolic_mnist,
+                      ["--epochs", str(INTEROP_EXP_EPOCHS)] + mnist_rows)
+        conv_paths["interop_exp5"] = n["gyroplane_distances"]
+        want = int(exp5["epochs"]) * (steps + val_b) + test_b
+        if n != k1_only(want):
+            _fail(f"interop (g): experiment 5 launched {n}, want {want} K1")
+        exp8, n = run("exp8", train_vaes_rnaseq,
+                      ["--epochs", str(INTEROP_EXP_EPOCHS), "--n-genes", str(RNA_GENES),
+                       "--structured-fake"])
+        uni_paths["interop_exp8"] = n["gyroplane_distances"]
+        (tr, _), (va, _), (te, _) = split_three_way(np.zeros((INTEROP_EXP8_CELLS, 1)),
+                                                    np.zeros(INTEROP_EXP8_CELLS), seed=42)
+        want = (int(exp8["epochs"]) * (len(tr) // UNI_BATCH + -(-len(va) // UNI_BATCH))
+                + -(-len(te) // UNI_BATCH))
+        if n != k1_only(want):
+            _fail(f"interop (g): experiment 8 launched {n}, want {want} K1")
+        one = ["--epochs", str(INTEROP_SMALL_EPOCHS), "--n-train", str(INTEROP_CIFAR_ROWS[0]),
+               "--n-test", str(INTEROP_CIFAR_ROWS[1])]
+        run("exp2", train_vae_euclidean_cifar10, one)
+        run("exp3", train_vae_euclidean_mnist, ["--epochs", str(INTEROP_SMALL_EPOCHS)] + mnist_rows)
+        first, _ = run("exp1", train_ae_euclidean_cifar10,
+                       one + ["--latent-dims", str(INTEROP_EXP1_LATENT)])
+        again, _ = run("exp1_again", train_ae_euclidean_cifar10,
+                       one + ["--latent-dims", str(INTEROP_EXP1_LATENT)], run_dir="exp1")
+        tag = f"latent_{INTEROP_EXP1_LATENT}"
+        if first[tag]["epochs"] != INTEROP_SMALL_EPOCHS or again[tag]["epochs"] != 0 or any(
+                again[tag][k] != v for k, v in first[tag].items() if k != "epochs"):
+            _fail(f"interop (g): experiment 1's second run did not skip the fit: {first} {again}")
+    print(f"interop: cuts: {INTEROP_FIT_EPOCHS}-epoch fine-tune, experiments 5 and 8 at "
+          f"{INTEROP_EXP_EPOCHS} epochs, 1, 2 and 3 at {INTEROP_SMALL_EPOCHS}, experiment 1 at "
+          f"latent {INTEROP_EXP1_LATENT} only; phase {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return paths, conv_paths, uni_paths
+
+
 # the sweeps: the parity protocol's 8 seeds (PARITY.json), experiment 7's
 # curvature x beta grid of its (mobius, geoopt_gyroplane) shape group
 # (experiments/train_vae_hyperbolic_mnist_grid.py), experiment 9's curvature
@@ -2960,32 +3270,46 @@ def main() -> int:
             if "Compiling entry" in line or "registers" in line or "spill" in line:
                 print(f"  {line.strip()}", flush=True)
     _rows_kernel_fit()
+    seconds = {"build": round(time.perf_counter() - t0, 1)}
 
-    kernels = [kernel_phase(), k2_phase(), k3_phase()]
-    paths = {"serve": serve_phase()}
-    paths.update(train_phase())
-    paths["eval"] = eval_phase(*northstar_phase())
+    def timed(name, phase, *args):
+        t = time.perf_counter()
+        out = phase(*args)
+        seconds[name] = round(time.perf_counter() - t, 1)
+        return out
+
+    kernels = [timed("kernel", kernel_phase), timed("k2", k2_phase), timed("k3", k3_phase)]
+    paths = {"serve": timed("serve", serve_phase)}
+    paths.update(timed("train", train_phase))
+    paths["eval"] = timed("eval", eval_phase, *timed("northstar", northstar_phase))
     for k in kernels:
         k["launches_by_path"] = {p: n[k["name"]] for p, n in paths.items()}
         k["launches"] = sum(k["launches_by_path"].values())
     # K1 at the RNA-seq family's 256 planes: its own entry, counted on its paths
-    k1_rna, rna_paths = rnaseq_phase()
+    k1_rna, rna_paths = timed("rnaseq", rnaseq_phase)
     k1_rna["launches_by_path"] = rna_paths
     k1_rna["launches"] = sum(rna_paths.values())
     kernels.append(k1_rna)
     # K1 at the conv family's 512 planes, c = 1.4: its own entry, counted on its paths
-    k1_conv, conv_paths = conv_phase()
+    k1_conv, conv_paths = timed("conv", conv_phase)
     k1_conv["launches_by_path"] = conv_paths
     k1_conv["launches"] = sum(conv_paths.values())
     kernels.append(k1_conv)
     # K1 at UnifiedVAE's 100 planes: its own entry, counted on this phase's paths
-    k1_pvae, pvae_paths = pvae_phase()
+    k1_pvae, pvae_paths = timed("pvae", pvae_phase)
     k1_pvae["launches_by_path"] = pvae_paths
     k1_pvae["launches"] = sum(pvae_paths.values())
     kernels.append(k1_pvae)
+    # the reference user's path: K1 at 16 planes, K2 and K3 on the flagship's
+    # entries; experiment 5's K1 at 512 planes and experiment 8's at 100 on theirs
+    interop_paths, interop_conv, interop_uni = timed("interop", interop_phase)
+    for k in kernels[:3]:
+        k["launches_by_path"].update({p: n[k["name"]] for p, n in interop_paths.items()})
+    k1_conv["launches_by_path"].update(interop_conv)
+    k1_pvae["launches_by_path"].update(interop_uni)
     # the sweeps: the flagship's paths on K1 at 16 planes, K2 and K3; the
     # grid's on K1 at 512 planes, whose entry also takes (a)'s curvatures
-    (err_in, err_bd), sweep_paths, grid_paths = sweep_phase()
+    (err_in, err_bd), sweep_paths, grid_paths = timed("sweep", sweep_phase)
     for k in kernels[:3]:
         k["launches_by_path"].update({p: n[k["name"]] for p, n in sweep_paths.items()})
     k1_conv["launches_by_path"].update(grid_paths)
@@ -2994,6 +3318,7 @@ def main() -> int:
     k1_conv["curvatures_checked"] = [0.5, 1.0, CONV_C]
     for k in kernels:
         k["launches"] = sum(k["launches_by_path"].values())
+    print(f"phase seconds (build: from the start of the build): {json.dumps(seconds)}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -1,15 +1,19 @@
 """What the port's experiment CLIs share: the common flags, the run
 directory and the Trainer options the flags drive.
 
-Port of ``experiments/common.py``. Every CLI takes ``--synthetic``
-(seeded synthetic data; nothing is downloaded) and ``--device`` (``cuda``
-by default, ``cpu`` for a small run on the CPU), and writes under
-``runs_torch/<name>`` unless ``--run-dir`` says otherwise.
+Port of ``experiments/common.py``. Every CLI takes ``--synthetic`` (or
+``--fake``: seeded synthetic or fake data; nothing is downloaded) and
+``--device`` (``cuda`` by default, ``cpu`` for a small run on the CPU),
+and writes under ``runs_torch/<name>`` unless ``--run-dir`` says
+otherwise. A training CLI's results (test metrics, epochs, best val) go
+to ``RUN_DIR/results.json`` (``write_results``), which
+``experiments/summarize_runs.py`` tabulates.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 from pathlib import Path
 
 from hyperbolic_vae_tpu_torch.data import make_data_module
@@ -23,7 +27,8 @@ def base_parser(description: str) -> argparse.ArgumentParser:
     p.add_argument("--lr", type=float, default=1e-3)
     p.add_argument("--seed", type=int, default=42)
     p.add_argument("--data-dir", type=str, default="data", help="MNIST IDX files (without --synthetic)")
-    p.add_argument("--synthetic", action="store_true", help="seeded synthetic data (no downloads)")
+    p.add_argument("--synthetic", "--fake", dest="synthetic", action="store_true",
+                   help="seeded synthetic (or fake RNA-seq) data (no downloads)")
     p.add_argument("--n-train", type=int, default=60000, help="synthetic train size")
     p.add_argument("--n-test", type=int, default=10000, help="synthetic test size")
     p.add_argument("--run-dir", type=str, default=None)
@@ -86,3 +91,33 @@ def trainer_extra(args, model=None) -> dict:
         extra["lr_schedule"] = exponential_schedule(args.lr, gamma=0.97,
                                                     warmup_epochs=args.warmup_epochs)
     return extra
+
+
+def write_results(run_dir: Path, results: dict) -> dict:
+    """``results`` ({tag: {metric: number} or None}) as
+    ``RUN_DIR/results.json`` and on stdout; returns it."""
+    out = {k: ({m: float(v) for m, v in r.items()} if r else None) for k, r in results.items()}
+    (Path(run_dir) / "results.json").write_text(json.dumps(out, indent=2))
+    print(json.dumps(out, indent=2), flush=True)
+    return out
+
+
+def fit_and_test(args, run_dir: Path, model, dm, callbacks=(), **trainer_kw) -> dict:
+    """One fit with checkpoints (best, last) in ``RUN_DIR/ckpt``, then the
+    test split's metrics of the best checkpoint as restored from there:
+    ``{test metrics..., "epochs", "best_val"}``."""
+    from hyperbolic_vae_tpu_torch.train import Trainer
+    from hyperbolic_vae_tpu_torch.train.checkpoint import CheckpointManager
+
+    ckpt = Path(run_dir) / "ckpt"
+    trainer = Trainer(model, lr=args.lr, max_epochs=args.epochs, seed=args.seed,
+                      early_stopping_patience=None if args.no_early_stopping else 10,
+                      log_dir=str(run_dir), checkpoint_dir=str(ckpt), callbacks=list(callbacks),
+                      **trainer_extra(args, model), **trainer_kw)
+    result = trainer.fit(dm)
+    print(f"epochs={result.epochs_run} best {trainer.monitor}={result.best_metric:.4f} "
+          f"samples/sec={result.samples_per_sec:.0f}", flush=True)
+    best = CheckpointManager(str(ckpt)).restore("best", device=trainer.device)
+    test = trainer.evaluate(dm, best, "test")
+    print("test:", test, flush=True)
+    return dict(test, epochs=result.epochs_run, best_val=result.best_metric)

@@ -59,30 +59,31 @@ The port never imports ``ml_dtypes``: a bf16 leaf is read by its bits.
 
 from __future__ import annotations
 
-from pathlib import Path
+import math
 from typing import Dict, Mapping, Optional, Sequence
 
 import numpy as np
 import torch
 
 from hyperbolic_vae_tpu_torch.device import DeviceLike
+from hyperbolic_vae_tpu_torch.interop.torch_import import _tensor as _t
+from hyperbolic_vae_tpu_torch.interop.torch_import import (
+    config_from_lightning,
+    import_torch_state_dict,
+    load_lightning_hparams,
+    load_torch_state_dict,
+)
 from hyperbolic_vae_tpu_torch.models.vae_gyroplane import GyroplaneVAE
 
 __all__ = [
+    "family_of_state_dict",
     "gyroplane_vae_from_state_dict",
     "load_state_dict_file",
+    "model_from_file",
     "model_from_state_dict",
     "optimizer_state_from_jax",
     "state_dict_from_jax_params",
 ]
-
-
-def _t(a) -> torch.Tensor:
-    a = np.asarray(a)
-    if a.dtype.name == "bfloat16":
-        # the same bits: bf16 is the upper half of an f32
-        return torch.from_numpy(np.ascontiguousarray(a).view(np.uint16).copy()).view(torch.bfloat16)
-    return torch.tensor(np.asarray(a, np.float32))
 
 
 _FAMILIES = {"GyroplaneVAE": "gyroplane", "RNASeqVAE": "rnaseq",
@@ -322,15 +323,8 @@ def optimizer_state_from_jax(opt_state_inner, model) -> dict:
     }
 
 
-def load_state_dict_file(path) -> Dict[str, torch.Tensor]:
-    """Read a state_dict from an ``.npz`` (``np.savez`` of name -> array)
-    or a ``.pt`` file (``torch.save`` of a state_dict)."""
-    path = Path(path)
-    if path.suffix == ".npz":
-        with np.load(path) as f:
-            return {k: _t(f[k]) for k in f.files}
-    sd = torch.load(path, map_location="cpu", weights_only=True)
-    return {k: v.float().contiguous() for k, v in sd.items()}
+# the state_dict reader's earlier name: .npz, .pt, or a reference Lightning .ckpt
+load_state_dict_file = load_torch_state_dict
 
 
 def gyroplane_vae_from_state_dict(
@@ -341,9 +335,11 @@ def gyroplane_vae_from_state_dict(
     device: DeviceLike = None,
     beta: float = 1.0,
 ) -> GyroplaneVAE:
-    """A GyroplaneVAE holding ``sd``. Widths and the latent size come from
-    the tensors' shapes; the curvature, KL weight, prior scale and data
-    shape are not stored in a state_dict and are given here."""
+    """A GyroplaneVAE holding ``sd`` (``import_torch_state_dict``: geoopt's
+    curvature entries checked and dropped, a missing gyroplane bias zero).
+    Widths and the latent size come from the tensors' shapes; the
+    curvature, KL weight, prior scale and data shape are not stored in a
+    state_dict and are given here."""
     enc = sorted(int(k.split(".")[1]) for k in sd if k.startswith("encoder.") and k.endswith(".weight"))
     hidden = tuple(int(sd[f"encoder.{i}.weight"].shape[0]) for i in enc)
     model = GyroplaneVAE(
@@ -355,8 +351,7 @@ def gyroplane_vae_from_state_dict(
         hidden_dims=hidden,
         device=device,
     )
-    model.load_state_dict(dict(sd))
-    return model
+    return import_torch_state_dict(model, sd)
 
 
 def _default_shape(n_features: int, data_shape) -> tuple:
@@ -389,6 +384,34 @@ def _mlp_family_of(sd: Mapping) -> Optional[str]:
     raise ValueError("the state_dict (encoder.1, mu.0, scale.0, decoder.0.weight, decoder.2) is "
                      "a UnifiedVAE's with a Euclidean latent or a PvaeMLPVAE's with a linear "
                      "decoder: pass family='UnifiedVAE' or family='PvaeMLPVAE'")
+
+
+def family_of_state_dict(sd: Mapping, family: Optional[str] = None) -> str:
+    """The short name ("gyroplane", "unified", "rnaseq", "pvae",
+    "euclidean", "autoencoder", "hyperbolic_image") of the family
+    ``family`` names (a class name or a short name), else of the one the
+    keys tell (``model_from_state_dict``'s rules); raises naming the
+    candidates where the keys fit two families."""
+    if family is not None:
+        return _kind(family)
+    if "encoder.net.0.weight" in sd:
+        return "autoencoder"
+    if "encoder.8.weight" in sd:
+        return "euclidean"
+    if "encoder.4.weight" in sd:
+        return "hyperbolic_image"
+    return _mlp_family_of(sd) or "gyroplane"
+
+
+def _square_image(sd: Mapping) -> tuple:
+    """The square one-channel (H, W, 1) a GyroplaneVAE's first layer reads."""
+    first = min((k for k in sd if k.startswith("encoder.") and k.endswith(".weight")),
+                key=lambda k: int(k.split(".")[1]))
+    n = int(sd[first].shape[1])
+    side = math.isqrt(n)
+    if side * side != n:
+        raise ValueError(f"{n} input features are not a square image: pass data_shape")
+    return (side, side, 1)
 
 
 def _mlp_model(kind: str, sd: Mapping, device, data_shape, config: dict):
@@ -426,7 +449,8 @@ def model_from_state_dict(sd: Mapping[str, torch.Tensor], device: DeviceLike = N
     HyperbolicImageVAE; ``encoder.1``/``decoder.0._weight``/``decoder.2`` a
     PvaeMLPVAE; ``encoder.0`` with a Linear ``decoder.0`` or any layout
     without ``scale.0`` a UnifiedVAE; else a GyroplaneVAE
-    (``gyroplane_vae_from_state_dict``, data_shape default (28, 28, 1)).
+    (``gyroplane_vae_from_state_dict``, data_shape default the square
+    one-channel image its first layer reads: (28, 28, 1) at 784).
     Where the keys fit two families it raises naming them: an RNASeqVAE
     or a UnifiedVAE on a flat input; a Euclidean UnifiedVAE or a
     linear-decoder PvaeMLPVAE. Widths, the latent size and the conv
@@ -438,22 +462,17 @@ def model_from_state_dict(sd: Mapping[str, torch.Tensor], device: DeviceLike = N
     ``_weight``/``_bias`` needs ``decoder_first_layer_module``
     ("geodesic" or "mobius"): both store the same tensors. Without
     ``log_var`` its ``loss_recon`` defaults to "bernoulli" (decode returns
-    logits)."""
+    logits). Every family but PvaeMLPVAE loads through
+    ``import_torch_state_dict``, so the reference's own checkpoints load:
+    geoopt's curvature entries are checked against ``config``'s curvature
+    (default 1.0) and dropped, a geoopt gyroplane layer's missing bias is
+    zero."""
     from hyperbolic_vae_tpu_torch.models import Autoencoder, EuclideanVAE, HyperbolicImageVAE
 
     sd = dict(sd)
-    if family is not None:
-        kind = _kind(family)
-    elif "encoder.net.0.weight" in sd:
-        kind = "autoencoder"
-    elif "encoder.8.weight" in sd:
-        kind = "euclidean"
-    elif "encoder.4.weight" in sd:
-        kind = "hyperbolic_image"
-    else:
-        kind = _mlp_family_of(sd) or "gyroplane"
+    kind = family_of_state_dict(sd, family)
     if kind == "gyroplane":
-        return gyroplane_vae_from_state_dict(sd, data_shape=data_shape or (28, 28, 1),
+        return gyroplane_vae_from_state_dict(sd, data_shape=data_shape or _square_image(sd),
                                              device=device, **config)
     if kind in ("unified", "pvae", "rnaseq"):
         model = _mlp_model(kind, sd, device, data_shape, config)
@@ -484,5 +503,27 @@ def model_from_state_dict(sd: Mapping[str, torch.Tensor], device: DeviceLike = N
             data_shape or _square_shape(feat, 2 * m, ch), latent_dim=lat,
             encoder_last_layer_module="mobius" if mobius else "linear", base_channels=m,
             device=device, **config)
-    model.load_state_dict(sd)
-    return model
+    if kind == "pvae":  # the port's own layout: no reference class to import from
+        model.load_state_dict({k: _t(v) for k, v in sd.items()})
+        return model
+    return import_torch_state_dict(model, sd)
+
+
+def model_from_file(path, device: DeviceLike = None, data_shape: Optional[Sequence[int]] = None,
+                    family: Optional[str] = None, allow_unsafe_pickle: bool = False,
+                    hparams: Optional[Mapping] = None, **config):
+    """A port model holding the state_dict stored at ``path`` (``.npz``,
+    ``.pt`` or a reference Lightning ``.ckpt``: ``load_torch_state_dict``),
+    of the family ``family`` names or the keys tell
+    (``family_of_state_dict``), configured from the file's Lightning
+    ``hyper_parameters`` (``config_from_lightning``), over which
+    ``hparams`` (in the same names) take precedence, and over both
+    ``data_shape`` and ``config`` (``model_from_state_dict``'s)."""
+    sd = load_torch_state_dict(path, allow_unsafe_pickle=allow_unsafe_pickle)
+    kind = family_of_state_dict(sd, family)
+    hp = {**load_lightning_hparams(path, allow_unsafe_pickle=allow_unsafe_pickle),
+          **(hparams or {})}
+    cfg = {**config_from_lightning(kind, sd, hp), **config}
+    if data_shape:
+        cfg["data_shape"] = tuple(data_shape)
+    return model_from_state_dict(sd, device=device, family=kind, **cfg)

@@ -113,18 +113,23 @@ class Inferencer:
     def from_state_dict(cls, path, batch_size: int = 256,
                         max_batches_per_dispatch: int = 16, io_dtype=None,
                         sub_batch_buckets: bool = True, device: DeviceLike = None,
-                        data_shape=None, **model_config) -> "Inferencer":
+                        data_shape=None, allow_unsafe_pickle: bool = False,
+                        **model_config) -> "Inferencer":
         """Serve the model stored at ``path`` (``.npz`` as written by
-        ``experiments/export_torch_state_dict.py``, or ``.pt``): its family
+        ``experiments/export_torch_state_dict.py``, ``.pt``, or the
+        reference's Lightning ``.ckpt`` with geoopt's entries): its family
         told by the state_dict's keys or by ``family`` in ``model_config``,
         what a state_dict does not hold (``data_shape``,
-        ``manifold_curvature``, ...) from ``data_shape`` and
-        ``model_config`` (``interop.model_from_state_dict``)."""
-        from hyperbolic_vae_tpu_torch.interop import load_state_dict_file, model_from_state_dict
+        ``manifold_curvature``, ...) from a ``.ckpt``'s
+        ``hyper_parameters``, over which ``data_shape`` and
+        ``model_config`` take precedence (``interop.model_from_file``).
+        Full pickle only with ``allow_unsafe_pickle``
+        (``interop.load_torch_state_dict``)."""
+        from hyperbolic_vae_tpu_torch.interop import model_from_file
 
         device = resolve_device(device)
-        model = model_from_state_dict(load_state_dict_file(path), device=device,
-                                      data_shape=data_shape, **model_config)
+        model = model_from_file(path, device=device, data_shape=data_shape,
+                                allow_unsafe_pickle=allow_unsafe_pickle, **model_config)
         return cls(model, batch_size=batch_size,
                    max_batches_per_dispatch=max_batches_per_dispatch,
                    io_dtype=io_dtype, sub_batch_buckets=sub_batch_buckets,

@@ -35,7 +35,9 @@ Run: ``python -m hyperbolic_vae_tpu_torch.serve_http --checkpoint DIR
 ``... --state-dict FILE [--model-config JSON]`` (a state_dict of any
 family, told by its keys or by ``"family"`` in the JSON where they fit
 two; what it does not hold as constructor arguments, e.g. the data shape
-and curvature); serves on the CUDA device. Image families take and
+and curvature; the reference's Lightning ``.ckpt`` with geoopt's entries
+too, and ``--allow-unsafe-pickle`` for one the weights-only unpickler
+refuses); serves on the CUDA device. Image families take and
 return channels-last arrays (n, H, W, C); an engine without ``generate``
 (the Autoencoder, PvaeMLPVAE) answers 404 there.
 """
@@ -568,8 +570,12 @@ def parse_args(argv: Optional[list] = None):
     src = p.add_mutually_exclusive_group(required=True)
     src.add_argument("--checkpoint", help="a Trainer's checkpoint_dir (any model family)")
     src.add_argument("--state-dict",
-                     help="a state_dict (.npz from experiments/export_torch_state_dict.py, "
-                          "or .pt) of any family, told by its keys or --model-config's family")
+                     help="a state_dict (.npz from experiments/export_torch_state_dict.py, .pt, "
+                          "or the reference's Lightning .ckpt) of any family, told by its keys "
+                          "or --model-config's family")
+    p.add_argument("--allow-unsafe-pickle", action="store_true",
+                   help="with a state_dict file the weights-only unpickler refuses: full pickle, "
+                        "which EXECUTES code embedded in the file (only for your own files)")
     p.add_argument("--model-config", default="{}", metavar="JSON",
                    help="with --state-dict: what a state_dict does not hold, as the "
                         "model's constructor arguments, e.g. '{\"data_shape\": [32, 32, 1], "
@@ -615,6 +621,7 @@ def load_engines(args, device=None) -> dict:
               io_dtype=args.io_dtype, sub_batch_buckets=not args.no_sub_batch_buckets,
               device=device)
     model_config = json.loads(args.model_config)
+    unsafe = dict(allow_unsafe_pickle=args.allow_unsafe_pickle)
 
     def load_checkpoint_or_file(src: str):
         """CKPT_DIR[:NAME] (NAME defaults to best), or a state_dict file."""
@@ -623,11 +630,12 @@ def load_engines(args, device=None) -> dict:
             ckpt, name = src, "best"
         if Path(ckpt).is_dir():
             return Inferencer.from_checkpoint(ckpt, name=name, **kw)
-        return Inferencer.from_state_dict(src, **kw)
+        return Inferencer.from_state_dict(src, **kw, **unsafe)
 
     engines = {"default": (Inferencer.from_checkpoint(args.checkpoint, name=args.name, **kw)
                            if args.checkpoint
-                           else Inferencer.from_state_dict(args.state_dict, **kw, **model_config))}
+                           else Inferencer.from_state_dict(args.state_dict, **kw, **unsafe,
+                                                           **model_config))}
     for spec in args.also:
         mname, _, src = spec.partition("=")
         if not mname or not src:
