@@ -40,7 +40,7 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
      optimizer, and one K3 step synchronised.
   Each path (serve, fused train, K3 train, default train, eval, the
   RNA-seq family's fits, serve and eval, the conv families', the pvae
-  phase's, the interop phase's and the sweeps') zeroes
+  phase's, the interop phase's, the sweeps' and the deploy phase's) zeroes
   the launch counters just before it and reads them just after; the graph
   runner adds each captured kernel's launches on every replay.
   5. North star: the reference protocol (at most 300 epochs, patience 10,
@@ -113,11 +113,26 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
      planes, one lane equal to its fit) and ``evaluate_lanes``; experiment
      9's CLI with ``--lane-sweep`` (the bound at least the ELBO); a sweep
      stopped by ``max_wall_seconds`` and resumed, bit for bit.
-  12. Summary: a ``{"kernels": [...]}`` line (K1 four times: at the
+  12. Deploy (``deploy_phase``): K1 through its ``torch.library`` op
+     (``torch.ops.hvae_torch.gyroplane_distances``, what every decoder and
+     every exported program calls) against its plain version at P = 16,
+     100, 256 and 512 and equal to the ctypes call, with the host's time a
+     call of each; ``RNASeqVAE`` (20,480 genes, 8,192 train cells)
+     through ``Trainer.fit_streamed``: one block bit for bit ``fit``, four
+     blocks of 2,048 rows under a memory limit that refuses ``fit`` (its
+     remedy names ``fit_streamed``), their samples/s and the copies'
+     overlap with compute, ``evaluate(stream_block_rows=1000)``; the
+     flagship's K3 path streamed (one block bit for bit ``fit``, then 4);
+     experiment 8's CLI with ``--stream-block-rows``; the flagship's
+     bundle exported by its CLI and served in a fresh process that never
+     imports the model classes, every endpoint bit for bit the live
+     engine's, ``serve_http --bundle`` answering each method; a bf16
+     bundle's parameters exact.
+  13. Summary: a ``{"kernels": [...]}`` line (K1 four times: at the
      flagship's 16 planes, the RNA-seq family's 256, the conv family's
      512 and UnifiedVAE's 100, each counted on its own paths, the interop
-     phase's among them), then, as
-     the last line, ``{"ok": true, "device": {...}}``.
+     and deploy phases' among them, each with its op check ``via_op``),
+     then, as the last line, ``{"ok": true, "device": {...}}``.
 
 Prints no result and exits 1 when CUDA is unavailable.
 """
@@ -125,6 +140,8 @@ Prints no result and exits 1 when CUDA is unavailable.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
+import functools
 import json
 import statistics
 import subprocess
@@ -310,15 +327,18 @@ def _k1_entry(err_in: float, err_bd: float, at_batch: dict, at_iwae: dict) -> di
     }
 
 
-def _k1_check(rng, sizes, p: int, curvatures=(0.5, 1.0, 2.0)):
+def _k1_check(rng, sizes, p: int, curvatures=(0.5, 1.0, 2.0), kernel=None):
     """K1 against its plain version at each B of ``sizes`` with ``p``
     planes, each c of ``curvatures``, interior and near the boundary,
     signed and unsigned, with and without bias (``kernel_phase``'s rules).
-    Returns the max abs errors against the plain version (interior, near
-    the boundary)."""
+    ``kernel(x, points, c, signed, bias)`` is the call held (default the
+    wrapper ``gyroplane_distances_cuda``). Returns the max abs errors
+    against the plain version (interior, near the boundary)."""
     import torch
 
     from hyperbolic_vae_tpu_torch.ops import gyroplane as g
+
+    kernel = kernel or g.gyroplane_distances_cuda
 
     err_in = err_bd = 0.0
     for b in sizes:
@@ -329,7 +349,7 @@ def _k1_check(rng, sizes, p: int, curvatures=(0.5, 1.0, 2.0)):
                 bias = torch.from_numpy(rng.uniform(-1, 1, p).astype(np.float32)).cuda()
                 for signed in (True, False):
                     for bb in (None, bias):
-                        out = g.gyroplane_distances_cuda(x, pts, c, signed, bb)
+                        out = kernel(x, pts, c, signed, bb)
                         torch.cuda.synchronize()
                         ref = g.gyroplane_distances(x, pts, c, signed, bb)
                         if out.shape != (b, p) or not torch.isfinite(out).all():
@@ -1372,6 +1392,17 @@ RNA_STEP_FLOP, RNA_BENCH_STEP_FLOP = 5 * RNA_PRODUCT_FLOP, 6 * RNA_PRODUCT_FLOP
 RNA_RTOL, RNA_ATOL, RNA_SHARE_LIMIT, RNA_CONTROL_NOISE = 5e-3, 3e-4, 2.5e-2, 1e-4
 
 
+@functools.cache
+def _rnaseq_data():
+    """``make_rnaseq_data_module(fake=True, n_samples=RNA_CELLS,
+    n_genes=RNA_GENES, structured_fake=True)``, drawn once (~14 s on the
+    host) for the RNA-seq and pvae phases."""
+    from hyperbolic_vae_tpu_torch.data import make_rnaseq_data_module
+
+    return make_rnaseq_data_module(batch_size=BATCH, fake=True, n_samples=RNA_CELLS,
+                                   n_genes=RNA_GENES, structured_fake=True)
+
+
 def _dense_tree(rng, n_in: int, n_out: int) -> dict:
     """A flax Dense's parameters as its init draws them (lecun-normal
     kernel (in, out), zero bias), in numpy."""
@@ -1552,7 +1583,7 @@ def rnaseq_phase():
     t_phase = time.perf_counter()
     data_kw = dict(batch_size=BATCH, fake=True, n_samples=RNA_CELLS, n_genes=RNA_GENES,
                    structured_fake=True)
-    dm = make_rnaseq_data_module(**data_kw)
+    dm = _rnaseq_data()
     # the nb arm's raw counts on a quarter of the cells (drawing them is the
     # host's slowest set-up)
     counts = make_rnaseq_data_module(**{**data_kw, "n_samples": RNA_CELLS // 4},
@@ -2230,7 +2261,7 @@ def pvae_phase():
 
     import torch
 
-    from hyperbolic_vae_tpu_torch.data import make_data_module, make_rnaseq_data_module
+    from hyperbolic_vae_tpu_torch.data import make_data_module
     from hyperbolic_vae_tpu_torch.interop import state_dict_from_jax_params
     from hyperbolic_vae_tpu_torch.models import PvaeMLPVAE, UnifiedVAE
     from hyperbolic_vae_tpu_torch.serve import Inferencer
@@ -2244,8 +2275,7 @@ def pvae_phase():
     mnist = make_data_module(batch_size=PVAE_BATCH, synthetic=True, n_train=60000)
     mnist_small = make_data_module(batch_size=PVAE_BATCH, synthetic=True,
                                    n_train=PVAE_CHECK_ROWS, n_test=PVAE_BATCH)
-    rna = make_rnaseq_data_module(batch_size=UNI_BATCH, fake=True, n_samples=RNA_CELLS,
-                                  n_genes=RNA_GENES, structured_fake=True)
+    rna = dataclasses.replace(_rnaseq_data(), batch_size=UNI_BATCH)
     print(f"pvae: data: MNIST {mnist.x_train.shape[0]} / {mnist.x_val.shape[0]} / "
           f"{mnist.x_test.shape[0]} rows (the graphed/eager pairs on "
           f"{mnist_small.x_train.shape[0]} / {mnist_small.x_val.shape[0]}); RNA-seq "
@@ -3217,6 +3247,498 @@ def sweep_phase():
     return (err_in, err_bd), paths, grid_paths
 
 
+# the deployment paths: RNASeqVAE at rnaseq_phase's width with
+# 8,192 train cells (11,703 fake cells drawn: 8,192 / 1,755 / 1,756 rows),
+# streamed whole and in 4 blocks of 2,048 rows (167.8 MB each); the
+# flagship on the K3 path streamed whole and in 4 blocks; experiment 8's
+# CLI streamed in blocks of 500 cells; the flagship's bundle with dispatch
+# buckets {1, 2, 4}
+DEPLOY_CELLS, DEPLOY_TRAIN, DEPLOY_BLOCK = 11703, 8192, 2048
+DEPLOY_EPOCHS, DEPLOY_CAP, DEPLOY_EVAL_BLOCK, DEPLOY_EXP8_BLOCK = 2, 4, 1000, 500
+DEPLOY_REQUESTS = (100, DEPLOY_CAP * BATCH)  # rows: a row bucket (128), a 4-batch dispatch
+DEPLOY_AE_ROWS = 10000  # the Autoencoder's test split for the deterministic streamed evaluate
+
+# the bundle served in a fresh process that never imports the model classes
+_BUNDLE_CLIENT = r"""
+import json, sys, time, urllib.request
+sys.path.insert(0, sys.argv[1])
+import numpy as np
+import torch
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+from hyperbolic_vae_tpu_torch.ops import launch_counters
+from hyperbolic_vae_tpu_torch.serve import ExportedInferencer
+from hyperbolic_vae_tpu_torch.serve_http import InferenceServer, load_engines, parse_args
+
+bundle, io = sys.argv[2], np.load(sys.argv[3])
+t0 = time.perf_counter()
+exp = ExportedInferencer.load(bundle)  # its programs load at their first use
+load_s = time.perf_counter() - t0
+
+def calls():
+    out = {}
+    for n in json.loads(sys.argv[5]):
+        out[f"encode_{n}_mean"], out[f"encode_{n}_scale"] = exp.encode(io[f"x_{n}"])
+        out[f"decode_{n}"] = exp.decode(io[f"z_{n}"])
+        out[f"reconstruct_{n}"] = exp.reconstruct(io[f"x_{n}"])
+        out[f"generate_{n}"] = exp.generate(n, seed=7)
+    return out
+
+for c in launch_counters().values():
+    c.reset()
+t0 = time.perf_counter()
+out = calls()
+first_s = time.perf_counter() - t0
+launches = {k: c.count for k, c in launch_counters().items()}
+np.savez(sys.argv[4], **out)
+lat = {}
+for n in json.loads(sys.argv[5]):
+    for name, fn in (("encode", lambda: exp.encode(io[f"x_{n}"])),
+                     ("decode", lambda: exp.decode(io[f"z_{n}"])),
+                     ("reconstruct", lambda: exp.reconstruct(io[f"x_{n}"])),
+                     ("generate", lambda: exp.generate(n, seed=7))):
+        ts = []
+        for _ in range(21):
+            t = time.perf_counter()
+            fn()
+            ts.append((time.perf_counter() - t) * 1e3)
+        lat[f"{name} {n}"] = sorted(ts)[10]
+# each request at 100 rows: what it must answer is the direct call's (the same program)
+x, z = io["x_100"], io["z_100"]
+want = {"encode": out["encode_100_mean"], "embed": out["encode_100_mean"],
+        "decode": out["decode_100"], "reconstruct": out["reconstruct_100"],
+        "generate": out["generate_100"]}
+server = InferenceServer(load_engines(parse_args(["--bundle", bundle])),
+                         host="127.0.0.1", port=0).start()
+for c in launch_counters().values():
+    c.reset()
+http = {}
+try:
+    for method, body in (("encode", {"data": x.tolist()}), ("embed", {"data": x.tolist()}),
+                         ("decode", {"data": z.tolist()}),
+                         ("reconstruct", {"data": x.tolist()}), ("generate", {"n": 100, "seed": 7})):
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{server.port}/v1/{method}", data=json.dumps(body).encode(),
+            headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=120) as r:
+            got = np.asarray(json.loads(r.read())["outputs"][0], np.float32)
+        http[method] = bool(np.array_equal(got, want[method]))
+finally:
+    server.shutdown()
+http_launches = {k: c.count for k, c in launch_counters().items()}
+models = sorted(m for m in sys.modules if m.startswith("hyperbolic_vae_tpu_torch.models"))
+print(json.dumps({"load_s": load_s, "first_calls_s": first_s, "programs": exp.n_programs,
+                  "launches": launches, "latency_ms": lat, "http": http,
+                  "http_launches": http_launches, "model_modules": models}))
+"""
+
+
+def _fake_cells(n_cells: int, seed: int = 42):
+    """``make_rnaseq_data_module(fake=True, structured_fake=True)``'s kind
+    of data at ``RNA_GENES`` genes, drawn on the card (numpy's draws of
+    11,703 x 20,480 take the host ~20 s): cell types uniform over the nine,
+    each with a module of genes / 20 marker genes at Poisson rate 300 (100
+    elsewhere), z-scored per gene (ddof 0, in float64), then split 70 / 15
+    / 15 by ``split_three_way`` on the host, where the split stays."""
+    import torch
+
+    from hyperbolic_vae_tpu_torch.data import ArrayDataModule
+    from hyperbolic_vae_tpu_torch.data.core import split_three_way
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    types = torch.randint(0, 9, (n_cells,), generator=gen, device="cuda")
+    module = RNA_GENES // 20
+    rates = torch.full((9, RNA_GENES), 100.0, device="cuda")
+    for t in range(9):
+        lo = (t * module) % (RNA_GENES - module)
+        rates[t, lo:lo + module] = 300.0
+    x = torch.poisson(rates[types], generator=gen).double()
+    x = (x - x.mean(0, keepdim=True)) / x.std(0, keepdim=True, unbiased=False).clamp_min(1e-12)
+    (x_tr, y_tr), (x_va, y_va), (x_te, y_te) = split_three_way(
+        x.float().cpu().numpy(), types.int().cpu().numpy(), seed=seed)
+    return ArrayDataModule(x_tr, y_tr, x_va, y_va, x_te, y_te, batch_size=BATCH)
+
+
+def _overlap(prog) -> dict:
+    """From a streamed fit's program (``StreamedProgram.copy_spans`` and
+    ``compute_spans``, the latest 64 of each): each copy's and compute
+    span's interval (ms from the first copy's start), the share of the
+    copies' time inside some compute span (blocks and val passes), and the
+    means."""
+    ref = prog.copy_spans[0][0]
+    copies = [(ref.elapsed_time(a), ref.elapsed_time(b)) for a, b in prog.copy_spans]
+    computes = [(ref.elapsed_time(a), ref.elapsed_time(b)) for a, b in prog.compute_spans]
+    total = sum(b - a for a, b in copies)
+    inside = sum(max(0.0, min(b, e) - max(a, s)) for a, b in copies for s, e in computes)
+    return {"copies": len(copies), "compute_spans": len(computes),
+            "copy_ms_mean": total / len(copies),
+            "compute_ms_mean": sum(e - s for s, e in computes) / len(computes),
+            "copy_overlap_share": inside / total}
+
+
+def deploy_phase():
+    """The deployment paths on the card:
+
+      (a) K1 through its ``torch.library`` op
+          (``torch.ops.hvae_torch.gyroplane_distances``, what every model's
+          decoder and every exported program calls) against the plain
+          version (``_k1_check``'s rules, at c = 1 and at 512 planes 1.4)
+          at P = 16, 100, 256 and 512, at B = 256 and each one's
+          evaluation B, and equal bit for bit to the direct ctypes call; the host's time for one op call against one
+          ctypes call (in turns);
+      (b) ``RNASeqVAE`` at 20,480 genes, hidden 256 (K1 at 256 planes),
+          8,192 train cells, batch 256: ``fit_streamed(block_rows=8,192)``
+          equal to ``fit`` bit for bit, both graphed, 2 epochs; with
+          ``hbm_limit_bytes`` between the streamed and the resident memory
+          estimates, ``fit`` refused naming ``fit_streamed`` and
+          ``fit_streamed(block_rows=2,048)`` (4 blocks) run 2 epochs: its
+          train samples/s against the resident fit's, the share of its copy
+          stream's time inside block compute (CUDA events); exactly one K1
+          launch a step and val batch; the same 4-block fit under
+          ``run_eagerly()`` equal to it bit for bit (the copy stream, its
+          events, the second buffer's graphs and the mean of the block
+          means against plain calls); ``evaluate(stream_block_rows=1,000)``
+          on the test split (within 5 % of the resident evaluate: the draws
+          differ), and of an ``Autoencoder`` (no draws) on 10,000 rows
+          within 1e-5 of the resident evaluate (the order of the sums);
+      (c) the flagship on the K3 path (``train_step_fn``), synthetic MNIST
+          (54,000 / 6,000 rows): ``fit_streamed`` at ``block_rows =
+          n_train`` equal to ``fit`` bit for bit, then 4 blocks, equal bit for
+          bit to the same fit under ``run_eagerly()``, K3 and K2 launches
+          counted;
+      (d) experiment 8's CLI with ``--stream-block-rows 500`` on its 1,000
+          fake cells at 20,480 genes (K1 at 100 planes), 2 epochs;
+      (e) the flagship's bundle: ``export_serving_bundle.py`` from a seeded
+          model's state_dict (batch 256, dispatch buckets {1, 2, 4}, every
+          endpoint, for cuda); loaded in a fresh process that never imports
+          the model classes, where encode, decode, reconstruct and generate
+          at a row bucket (100 rows) and a 4-batch dispatch (1,024 rows)
+          equal the live ``Inferencer``'s bit for bit (K1 launches counted),
+          each endpoint's latency beside the live one's, and ``serve_http
+          --bundle``'s engines answer one request of each method over
+          HTTP; an ``RNASeqVAE`` bf16 bundle's parameters round-trip
+          exactly.
+
+    Returns launches by path for K1 at 16, 256 and 100 planes, K2 and K3,
+    and K1's op checks by plane count."""
+    import tempfile
+    from pathlib import Path
+
+    import torch
+
+    from hyperbolic_vae_tpu_torch.data import make_data_module
+    from hyperbolic_vae_tpu_torch.data.core import split_three_way
+    from hyperbolic_vae_tpu_torch.experiments import export_serving_bundle, train_vaes_rnaseq
+    from hyperbolic_vae_tpu_torch.interop import state_dict_from_jax_params
+    from hyperbolic_vae_tpu_torch.data import ArrayDataModule
+    from hyperbolic_vae_tpu_torch.models import Autoencoder, GyroplaneVAE, RNASeqVAE
+    from hyperbolic_vae_tpu_torch.ops import gyroplane as g
+    from hyperbolic_vae_tpu_torch.ops import make_fused_loss_fn, make_fused_train_step
+    from hyperbolic_vae_tpu_torch.serve import ExportedInferencer, Inferencer
+    from hyperbolic_vae_tpu_torch.train import Trainer
+    from hyperbolic_vae_tpu_torch.train.cuda_graph import run_eagerly
+
+    t_phase = time.perf_counter()
+    paths = {"k1_16": {}, "k1_256": {}, "k1_100": {}, "flagship_fused": {}, "flagship_train": {}}
+
+    # (a) K1 through the op
+    op = torch.ops.hvae_torch.gyroplane_distances
+    rng = np.random.default_rng(21)
+    via_op = {}
+    for p, eval_b in ((P, IWAE_ROWS), (UNI_HIDDEN, UNI_K_CHUNK * BATCH),
+                      (RNA_HIDDEN, RNA_K_CHUNK * BATCH), (CONV_P, IWAE_ROWS)):
+        # the op calls the wrapper (checked equal below), which kernel_phase
+        # and the families' phases hold at three curvatures: one here
+        err_in, err_bd = _k1_check(rng, (BATCH, eval_b), p, (CONV_C if p == CONV_P else 1.0,),
+                                   kernel=lambda x, pts, c, sg, b: op(x, pts, b, c, sg))
+        x = torch.from_numpy(_points(rng, BATCH, 1.0, "interior")).cuda()
+        pts = torch.from_numpy(_points(rng, p, 1.0, "interior")).cuda()
+        bias = torch.from_numpy(rng.uniform(-1, 1, p).astype(np.float32)).cuda()
+        direct = g.gyroplane_distances_cuda(x, pts, 1.0, True, bias)
+        if not torch.equal(op(x, pts, bias, 1.0, True), direct):
+            _fail(f"deploy (a): the op differs from the ctypes call at P={p}")
+        via_op[p] = {"max_abs_err": err_in, "max_abs_err_boundary": err_bd, "B": [BATCH, eval_b]}
+        print(f"deploy (a): K1 through the op at P={p}, B={BATCH} and {eval_b}, c = "
+              f"{CONV_C if p == CONV_P else 1.0}: max_abs_err vs "
+              f"plain interior {err_in:.3e}, near boundary {err_bd:.3e}; equal to the ctypes "
+              f"call", flush=True)
+    x = torch.from_numpy(_points(rng, BATCH, 1.0, "interior")).cuda()
+    pts = torch.from_numpy(_points(rng, P, 1.0, "interior")).cuda()
+    bias = torch.from_numpy(rng.uniform(-1, 1, P).astype(np.float32)).cuda()
+
+    def host_us(fn, n=2000):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        return (t1 - t0) / n * 1e6
+
+    host = [host_us(lambda: op(x, pts, bias, 1.0, True)),
+            host_us(lambda: g.gyroplane_distances_cuda(x, pts, 1.0, True, bias)),
+            host_us(lambda: g.gyroplane_distances_cuda(x, pts, 1.0, True, bias)),
+            host_us(lambda: op(x, pts, bias, 1.0, True))]
+    via_op[P].update(op_host_us=(host[0] + host[3]) / 2, ctypes_host_us=(host[1] + host[2]) / 2)
+    print(f"deploy (a): host time a call at B={BATCH}, P={P} (2,000 back to back, in turns): "
+          f"op {host[0]:.3f}, {host[3]:.3f} us; ctypes {host[1]:.3f}, {host[2]:.3f} us", flush=True)
+
+    print(f"deploy (a): {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+    # (b) RNASeqVAE streamed
+    t0 = time.perf_counter()
+    rna = _fake_cells(DEPLOY_CELLS)
+    n_tr, n_val = rna.x_train.shape[0], rna.x_val.shape[0]
+    print(f"deploy (b): fake cells drawn on the card: {n_tr} train, {n_val} val, "
+          f"{rna.x_test.shape[0]} test rows of {RNA_GENES} genes, z-scored "
+          f"({time.perf_counter() - t0:.2f} s)", flush=True)
+    if n_tr != DEPLOY_TRAIN:
+        _fail(f"deploy (b): {n_tr} train rows, want {DEPLOY_TRAIN}")
+    sd = state_dict_from_jax_params(_rnaseq_jax_tree(0), model="rnaseq")
+
+    def rna_model(dtype="float32"):
+        m = RNASeqVAE(RNA_GENES, RNA_HIDDEN, compute_dtype=dtype, param_dtype=dtype)
+        m.load_state_dict({k: v for k, v in sd.items() if k != "nb_log_theta"})
+        return m
+
+    def run(call, *args, **kw):
+        """``call(*args, **kw)``'s result, wall and launches (counted from 0)."""
+        torch.cuda.synchronize()
+        _reset_launches()
+        t = time.perf_counter()
+        res = call(*args, **kw)
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t, _launches()
+
+    val_b = -(-n_val // BATCH)
+    want_k1 = DEPLOY_EPOCHS * (n_tr // BATCH + val_b)
+    k1_only = lambda n: {"gyroplane_distances": n, "flagship_fused": 0, "flagship_train": 0}  # noqa: E731
+    resident, wall_r, _ = run(Trainer(rna_model(), max_epochs=DEPLOY_EPOCHS).fit, rna)
+    whole, wall_1, n = run(Trainer(rna_model(), max_epochs=DEPLOY_EPOCHS).fit_streamed,
+                           rna, block_rows=n_tr)
+    _same_fit("deploy (b) fit_streamed(block_rows=n_train)", whole, resident, "streamed",
+              "resident")
+    if n != k1_only(want_k1):
+        _fail(f"deploy (b): the single-block streamed fit launched {n}, want {want_k1} K1")
+    paths["k1_256"]["deploy_rnaseq_stream_whole"] = n["gyroplane_distances"]
+    limited = Trainer(rna_model(), max_epochs=DEPLOY_EPOCHS)
+    est = {rows: limited.memory_estimate(rna, [limited.model], stream_rows=rows)["total"]
+           for rows in (None, DEPLOY_BLOCK)}
+    limited.hbm_limit_bytes = (est[None] + est[DEPLOY_BLOCK]) // 2
+    try:
+        limited.fit(rna)
+        _fail("deploy (b): fit ran past a memory limit below its estimate")
+    except RuntimeError as e:
+        if "fit_streamed" not in str(e):
+            _fail(f"deploy (b): the preflight's remedy does not name fit_streamed: {e}")
+    blocks, wall_4, n = run(limited.fit_streamed, rna, block_rows=DEPLOY_BLOCK)
+    if n != k1_only(want_k1):
+        _fail(f"deploy (b): the 4-block streamed fit launched {n}, want {want_k1} K1")
+    paths["k1_256"]["deploy_rnaseq_stream_blocks"] = n["gyroplane_distances"]
+    losses = [h["train/loss_total"] for h in blocks.history]
+    if not np.all(np.isfinite(losses)):
+        _fail(f"deploy (b): the 4-block fit's losses {losses}")
+    ov = _overlap(limited.program)
+    ratio = blocks.samples_per_sec / resident.samples_per_sec
+    with run_eagerly():
+        eager = Trainer(rna_model(), max_epochs=DEPLOY_EPOCHS).fit_streamed(
+            rna, block_rows=DEPLOY_BLOCK)
+    _same_fit(f"deploy (b) fit_streamed(block_rows={DEPLOY_BLOCK})", blocks, eager, "graphed",
+              "eager")
+    print(f"deploy (b): RNASeqVAE {DEPLOY_EPOCHS} epochs: resident fit {wall_r:.3f} s, "
+          f"{resident.samples_per_sec:.1f} train samples/s; fit_streamed(block_rows={n_tr}) "
+          f"{wall_1:.3f} s, {whole.samples_per_sec:.1f}/s, bit for bit the resident fit; "
+          f"fit_streamed(block_rows={DEPLOY_BLOCK}) {wall_4:.3f} s, "
+          f"{blocks.samples_per_sec:.1f}/s ({ratio:.4f} of resident), bit for bit under "
+          f"run_eagerly(); memory estimates "
+          f"resident {est[None]} B, streamed {est[DEPLOY_BLOCK]} B, limit "
+          f"{limited.hbm_limit_bytes} B: fit refused naming fit_streamed; K1 {want_k1} a fit; "
+          f"copies {json.dumps(ov)}", flush=True)
+    ev_res = Trainer(rna_model()).evaluate(rna, split="test")
+    ev_st, wall_e, n = run(Trainer(rna_model()).evaluate, rna, split="test",
+                           stream_block_rows=DEPLOY_EVAL_BLOCK)
+    n_te = rna.x_test.shape[0]
+    want_e = sum(-(-min(DEPLOY_EVAL_BLOCK, n_te - s) // BATCH)
+                 for s in range(0, n_te, DEPLOY_EVAL_BLOCK))
+    if n != k1_only(want_e) or any(
+            not np.isfinite(ev_st[k]) or abs(ev_st[k] - v) > 0.05 * abs(v) for k, v in ev_res.items()):
+        _fail(f"deploy (b): evaluate(stream_block_rows={DEPLOY_EVAL_BLOCK}) {ev_st} against "
+              f"{ev_res}, launches {n} (want {want_e} K1)")
+    paths["k1_256"]["deploy_rnaseq_eval_stream"] = n["gyroplane_distances"]
+    print(f"deploy (b): evaluate(stream_block_rows={DEPLOY_EVAL_BLOCK}) {wall_e:.3f} s: "
+          f"{json.dumps(ev_st)} (resident {json.dumps(ev_res)})", flush=True)
+    # a loss with no draws: the streamed evaluate is the resident one but
+    # for the order of its sums
+    xa = np.random.default_rng(8).uniform(0.0, 1.0, (DEPLOY_AE_ROWS, 32, 32, 3)).astype(np.float32)
+    ya = np.zeros(DEPLOY_AE_ROWS, np.int32)
+    ae = Trainer(Autoencoder(generator=torch.Generator().manual_seed(0)))
+    ae_dm = ArrayDataModule(xa[:BATCH], ya[:BATCH], xa[:BATCH], ya[:BATCH], xa, ya,
+                            batch_size=BATCH)
+    ev_res = ae.evaluate(ae_dm, split="test")
+    ev_st = ae.evaluate(ae_dm, split="test", stream_block_rows=DEPLOY_EVAL_BLOCK)
+    rel = max(abs(ev_st[k] - v) / max(abs(v), 1e-30) for k, v in ev_res.items())
+    if ev_st.keys() != ev_res.keys() or not rel <= 1e-5:
+        _fail(f"deploy (b): the Autoencoder's evaluate(stream_block_rows={DEPLOY_EVAL_BLOCK}) "
+              f"{ev_st} against the resident {ev_res} (largest relative difference {rel})")
+    print(f"deploy (b): Autoencoder, {DEPLOY_AE_ROWS} test rows: evaluate(stream_block_rows="
+          f"{DEPLOY_EVAL_BLOCK}) {json.dumps(ev_st)} against resident {json.dumps(ev_res)}: "
+          f"largest relative difference {rel:.3e} (limit 1e-5)", flush=True)
+    del xa, ae_dm
+    del rna, resident, whole, blocks, limited, eager
+
+    # (c) the flagship on the K3 path, streamed
+    t0 = time.perf_counter()
+    mnist = make_data_module(batch_size=BATCH, synthetic=True, n_train=60000, n_test=10000)
+    m_tr, m_val = mnist.x_train.shape[0], mnist.x_val.shape[0]
+    print(f"deploy (c): synthetic MNIST {m_tr} train, {m_val} val rows "
+          f"({time.perf_counter() - t0:.2f} s)", flush=True)
+
+    def k3():
+        m = GyroplaneVAE(generator=torch.Generator().manual_seed(0))
+        return Trainer(m, max_epochs=DEPLOY_EPOCHS, early_stopping_patience=None,
+                       loss_fn=make_fused_loss_fn(m), train_step_fn=make_fused_train_step(m))
+
+    k2_want = DEPLOY_EPOCHS * -(-m_val // BATCH)
+    resident, wall_r, _ = run(k3().fit, mnist)
+    out = {}
+    for name, rows in (("whole", m_tr), ("blocks", m_tr // 4)):
+        res, wall, n = run(k3().fit_streamed, mnist, block_rows=rows)
+        want = {"gyroplane_distances": 0, "flagship_fused": k2_want,
+                "flagship_train": DEPLOY_EPOCHS * (m_tr // rows) * (rows // BATCH)}
+        if n != want:
+            _fail(f"deploy (c): fit_streamed(block_rows={rows}) launched {n}, want {want}")
+        paths["flagship_fused"][f"deploy_k3_stream_{name}"] = n["flagship_fused"]
+        paths["flagship_train"][f"deploy_k3_stream_{name}"] = n["flagship_train"]
+        out[name] = (res, wall)
+    _same_fit("deploy (c) K3 fit_streamed(block_rows=n_train)", out["whole"][0], resident,
+              "streamed", "resident")
+    with run_eagerly():
+        eager = k3().fit_streamed(mnist, block_rows=m_tr // 4)
+    _same_fit(f"deploy (c) K3 fit_streamed(block_rows={m_tr // 4})", out["blocks"][0], eager,
+              "graphed", "eager")
+    print(f"deploy (c): the flagship on the K3 path, {DEPLOY_EPOCHS} epochs: resident "
+          f"{wall_r:.3f} s, {resident.samples_per_sec:.1f} train samples/s; streamed whole "
+          f"{out['whole'][1]:.3f} s, {out['whole'][0].samples_per_sec:.1f}/s, bit for bit; "
+          f"4 blocks of {m_tr // 4} rows {out['blocks'][1]:.3f} s, "
+          f"{out['blocks'][0].samples_per_sec:.1f}/s, bit for bit under run_eagerly(); "
+          f"val/loss_total "
+          f"{out['blocks'][0].history[-1]['val/loss_total']:.4f}", flush=True)
+    del mnist
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        # (d) experiment 8's CLI, streamed
+        res, wall, n = run(train_vaes_rnaseq.main, [
+            "--synthetic", "--epochs", str(DEPLOY_EPOCHS), "--n-genes", str(RNA_GENES),
+            "--structured-fake", "--stream-block-rows", str(DEPLOY_EXP8_BLOCK),
+            "--run-dir", str(tmp / "exp8"), "--log-level", "WARNING"])
+        (tr, _), (va, _), (te, _) = split_three_way(np.zeros((INTEROP_EXP8_CELLS, 1)),
+                                                    np.zeros(INTEROP_EXP8_CELLS), seed=42)
+        want = (DEPLOY_EPOCHS * (DEPLOY_EXP8_BLOCK // UNI_BATCH + -(-len(va) // UNI_BATCH))
+                + -(-len(te) // UNI_BATCH))
+        if n != k1_only(want) or not all(np.isfinite(v) for v in res.values()):
+            _fail(f"deploy (d): experiment 8 streamed gave {res}, launches {n} (want {want} K1)")
+        paths["k1_100"]["deploy_exp8_stream"] = n["gyroplane_distances"]
+        print(f"deploy (d): experiment 8 with --stream-block-rows {DEPLOY_EXP8_BLOCK} "
+              f"({len(tr)} train cells: one block, {len(tr) - DEPLOY_EXP8_BLOCK} left out) "
+              f"{wall:.3f} s: {json.dumps(res)}; {want} K1", flush=True)
+
+        # (e) the flagship's bundle
+        seeded = GyroplaneVAE(generator=torch.Generator().manual_seed(0))
+        torch.save({k: v.cpu() for k, v in seeded.state_dict().items()}, tmp / "flagship.pt")
+        bundle = tmp / "bundle"
+        t0 = time.perf_counter()
+        export_serving_bundle.main([
+            "--state-dict", str(tmp / "flagship.pt"), "--out", str(bundle),
+            "--batch-size", str(BATCH), "--max-batches-per-dispatch", str(DEPLOY_CAP),
+            "--methods", "encode", "decode", "reconstruct", "generate", "--platforms", "cuda"])
+        export_s = time.perf_counter() - t0
+        size = sum(f.stat().st_size for f in bundle.iterdir())
+        n_prog = len(list(bundle.glob("*.pt2")))
+        live = Inferencer.from_state_dict(tmp / "flagship.pt", batch_size=BATCH,
+                                          max_batches_per_dispatch=DEPLOY_CAP)
+        live.warmup()
+        xs = make_data_module(batch_size=BATCH, synthetic=True, n_train=2000, n_test=1).x_train
+        zs = np.random.default_rng(3).uniform(-0.6, 0.6, (max(DEPLOY_REQUESTS), D)).astype(np.float32)
+        io = {}
+        for r in DEPLOY_REQUESTS:
+            io[f"x_{r}"], io[f"z_{r}"] = xs[:r], zs[:r]
+        np.savez(tmp / "io.npz", **io)
+        torch.cuda.synchronize()
+        _reset_launches()
+        want_out = {}
+        for r in DEPLOY_REQUESTS:
+            want_out[f"encode_{r}_mean"], want_out[f"encode_{r}_scale"] = live.encode(io[f"x_{r}"])
+            want_out[f"decode_{r}"] = live.decode(io[f"z_{r}"])
+            want_out[f"reconstruct_{r}"] = live.reconstruct(io[f"x_{r}"])
+            want_out[f"generate_{r}"] = live.generate(r, seed=7)
+        live_launches = _launches()
+        live_lat = {}
+        for r in DEPLOY_REQUESTS:
+            for name, fn in (("encode", lambda: live.encode(io[f"x_{r}"])),
+                             ("decode", lambda: live.decode(io[f"z_{r}"])),
+                             ("reconstruct", lambda: live.reconstruct(io[f"x_{r}"])),
+                             ("generate", lambda: live.generate(r, seed=7))):
+                ts = []
+                for _ in range(21):
+                    t = time.perf_counter()
+                    fn()
+                    ts.append((time.perf_counter() - t) * 1e3)
+                live_lat[f"{name} {r}"] = sorted(ts)[10]
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-c", _BUNDLE_CLIENT, str(Path(__file__).resolve().parent),
+             str(bundle), str(tmp / "io.npz"), str(tmp / "got.npz"),
+             json.dumps(list(DEPLOY_REQUESTS))],
+            capture_output=True, text=True, timeout=300)
+        client_s = time.perf_counter() - t0
+        if proc.returncode != 0:
+            _fail(f"deploy (e): the bundle's process failed: {proc.stderr[-3000:]}")
+        client = json.loads(proc.stdout.strip().splitlines()[-1])
+        with np.load(tmp / "got.npz") as got:
+            for k, v in want_out.items():
+                if not np.array_equal(got[k], v):
+                    _fail(f"deploy (e): the bundle's {k} differs from the live engine's by "
+                          f"{float(np.abs(got[k] - v).max())}")
+        # one K1 a decoded batch: decode, reconstruct and generate at 1 and 4 batches
+        want_k1 = 3 * sum(-(-r // BATCH) for r in DEPLOY_REQUESTS)
+        if client["launches"] != k1_only(want_k1) or live_launches != k1_only(want_k1):
+            _fail(f"deploy (e): launches {client['launches']} (live {live_launches}), want "
+                  f"{want_k1} K1")
+        if client["model_modules"] or not all(client["http"].values()) or len(client["http"]) != 5:
+            _fail(f"deploy (e): the bundle's process imported {client['model_modules']} or "
+                  f"answered over HTTP {client['http']}")
+        if client["http_launches"] != k1_only(3):
+            _fail(f"deploy (e): serve_http --bundle launched {client['http_launches']}, want 3 K1")
+        paths["k1_16"]["deploy_bundle"] = client["launches"]["gyroplane_distances"]
+        paths["k1_16"]["deploy_bundle_http"] = client["http_launches"]["gyroplane_distances"]
+        for k in live_lat:
+            print(f"deploy (e): latency {k} rows (median of 21): bundle "
+                  f"{client['latency_ms'][k]:.4f} ms, live {live_lat[k]:.4f} ms", flush=True)
+        print(f"deploy (e): bundle {n_prog} programs, {size} bytes, exported in {export_s:.3f} s; "
+              f"its process {client_s:.3f} s (load {client['load_s']:.3f} s, the first calls "
+              f"with their {client['programs']} programs' loads {client['first_calls_s']:.3f} s); "
+              f"every endpoint bit for bit the live engine's; {want_k1} K1; serve_http --bundle "
+              f"answered {sorted(client['http'])}, 3 K1", flush=True)
+
+        # (e) the RNA-seq family's bf16 parameters through a bundle
+        bf = rna_model("bfloat16")
+        inf = Inferencer(bf, batch_size=BATCH, max_batches_per_dispatch=1, sub_batch_buckets=False)
+        inf.export_programs(tmp / "rna_bf16", methods=("encode",), platforms=("cuda",))
+        exp = ExportedInferencer.load(tmp / "rna_bf16")
+        for k, v in bf.state_dict().items():
+            if exp.params[k].dtype != v.dtype or not torch.equal(exp.params[k], v):
+                _fail(f"deploy (e): the bf16 bundle's {k} differs from the model's")
+        xr = np.random.default_rng(4).normal(size=(BATCH, RNA_GENES)).astype(np.float32)
+        if not np.array_equal(exp.embed(xr), inf.embed(xr)):
+            _fail("deploy (e): the bf16 bundle's embed differs from the live engine's")
+        print(f"deploy (e): RNASeqVAE bf16 bundle: {len(exp.params)} parameters round-trip "
+              f"exactly ({sum(v.dtype == torch.bfloat16 for v in exp.params.values())} bf16); "
+              f"embed bit for bit", flush=True)
+    print(f"deploy: phase {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return paths, via_op
+
+
 def _rows_kernel_fit() -> None:
     """The rows kernels' shared memory at the flagship's 784 pixels against
     the wrapper's bound (which must not be below it), and how many of their
@@ -3316,6 +3838,14 @@ def main() -> int:
     k1_conv["max_abs_err"] = max(k1_conv["max_abs_err"], err_in)
     k1_conv["max_abs_err_boundary"] = max(k1_conv["max_abs_err_boundary"], err_bd)
     k1_conv["curvatures_checked"] = [0.5, 1.0, CONV_C]
+    # the deployment paths: streamed fits and evaluation, the bundle; K1
+    # held through its op at each plane count
+    deploy_paths, via_op = timed("deploy", deploy_phase)
+    for k, key in ((kernels[0], "k1_16"), (k1_rna, "k1_256"), (k1_pvae, "k1_100"),
+                   (kernels[1], "flagship_fused"), (kernels[2], "flagship_train")):
+        k["launches_by_path"].update(deploy_paths[key])
+    for k, p in ((kernels[0], P), (k1_pvae, UNI_HIDDEN), (k1_rna, RNA_HIDDEN), (k1_conv, CONV_P)):
+        k["via_op"] = via_op[p]
     for k in kernels:
         k["launches"] = sum(k["launches_by_path"].values())
     print(f"phase seconds (build: from the start of the build): {json.dumps(seconds)}", flush=True)

@@ -17,7 +17,11 @@ bound, ``train.evaluation``, the latent probes, statistics on the ball,
 the figure callbacks); and every other model family of the JAX package
 (``models``: the RNA-seq VAE, the conv image families, the pvae MLP VAE
 with its wrapped or Riemannian normal posterior, the unified VAE), with
-experiment 9's command line in ``experiments``.
+the experiments' command lines in ``experiments``; seed and lane sweeps,
+streamed training and evaluation of host-resident splits
+(``Trainer.fit_streamed``), and serving bundles that need no model code
+(``serve.ExportedInferencer``, K1 being the registered op
+``torch.ops.hvae_torch.gyroplane_distances``).
 """
 
 from hyperbolic_vae_tpu_torch.device import resolve_device

@@ -102,8 +102,10 @@ def write_results(run_dir: Path, results: dict) -> dict:
     return out
 
 
-def fit_and_test(args, run_dir: Path, model, dm, callbacks=(), **trainer_kw) -> dict:
-    """One fit with checkpoints (best, last) in ``RUN_DIR/ckpt``, then the
+def fit_and_test(args, run_dir: Path, model, dm, callbacks=(), block_rows: int = 0,
+                 **trainer_kw) -> dict:
+    """One fit with checkpoints (best, last) in ``RUN_DIR/ckpt`` (with
+    ``block_rows``, ``fit_streamed`` in blocks of that many rows), then the
     test split's metrics of the best checkpoint as restored from there:
     ``{test metrics..., "epochs", "best_val"}``."""
     from hyperbolic_vae_tpu_torch.train import Trainer
@@ -114,7 +116,7 @@ def fit_and_test(args, run_dir: Path, model, dm, callbacks=(), **trainer_kw) -> 
                       early_stopping_patience=None if args.no_early_stopping else 10,
                       log_dir=str(run_dir), checkpoint_dir=str(ckpt), callbacks=list(callbacks),
                       **trainer_extra(args, model), **trainer_kw)
-    result = trainer.fit(dm)
+    result = trainer.fit_streamed(dm, block_rows=block_rows) if block_rows else trainer.fit(dm)
     print(f"epochs={result.epochs_run} best {trainer.monitor}={result.best_metric:.4f} "
           f"samples/sec={result.samples_per_sec:.0f}", flush=True)
     best = CheckpointManager(str(ckpt)).restore("best", device=trainer.device)

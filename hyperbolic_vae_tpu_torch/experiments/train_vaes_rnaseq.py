@@ -7,10 +7,11 @@ prior scale 2.0, beta 0.5, ``kl_loss_method="logmap0_analytic"``, hidden
 100, batch 64; ``--structured-fake`` draws per-cell-type marker-gene
 modules, and ``--n-genes`` sets the fake data's width (2,000 genes by
 default, over 1,000 cells; the realistic width is 20,480 genes). Only the fake
-data: the CSV readers are ROADMAP Queue 1 item 6. ``--stream-block-rows``
-(Queue 1 item 3) and ``--tp``/``--fsdp``/``--use-mesh`` (item 8) exit
-naming the item that brings them. The results go to
-``RUN_DIR/results.json``.
+data: the CSV readers are ROADMAP Queue 1 item 6. ``--stream-block-rows
+M`` trains with ``Trainer.fit_streamed``: the train split stays on the
+host and streams through the device in blocks of M rows.
+``--tp``/``--fsdp``/``--use-mesh`` (Queue 1 item 8) exit naming the item
+that brings them. The results go to ``RUN_DIR/results.json``.
 
     python -m hyperbolic_vae_tpu_torch.experiments.train_vaes_rnaseq --fake --structured-fake
 """
@@ -54,12 +55,10 @@ def parse_args(argv: Optional[list] = None):
     p.add_argument("--fsdp", action="store_true", help="not ported yet (Queue 1 item 8)")
     p.add_argument("--use-mesh", action="store_true", help="not ported yet (Queue 1 item 8)")
     p.add_argument("--stream-block-rows", type=int, default=0,
-                   help="not ported yet (Queue 1 item 3)")
+                   help="keep the train split on the host and stream it in blocks of this "
+                        "many rows (Trainer.fit_streamed)")
     p.set_defaults(batch_size=64)
     args = p.parse_args(argv)
-    if args.stream_block_rows:
-        raise SystemExit("--stream-block-rows (host-resident data streamed in blocks) is not "
-                         "ported yet: ROADMAP.md Queue 1 item 3")
     if args.tp > 1 or args.fsdp or args.use_mesh:
         raise SystemExit("--tp, --fsdp and --use-mesh (sharding over several cards) are not "
                          "ported yet: ROADMAP.md Queue 1 item 8")
@@ -87,7 +86,7 @@ def main(argv: Optional[list] = None) -> dict:
                        learning_rate=args.lr, beta=args.beta, kl_loss_method=args.kl_method,
                        last_activation=args.last_activation, loss_recon_method=args.recon,
                        generator=torch.Generator().manual_seed(args.seed), device=args.device)
-    out = fit_and_test(args, run_dir, model, dm, callbacks)
+    out = fit_and_test(args, run_dir, model, dm, callbacks, block_rows=args.stream_block_rows)
     return write_results(run_dir, {f"vaes_{args.dataset}": out})[f"vaes_{args.dataset}"]
 
 

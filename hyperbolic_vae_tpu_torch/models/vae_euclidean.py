@@ -42,7 +42,7 @@ from hyperbolic_vae_tpu_torch.models.iwae import (
     iwae_bound,
     latent_log_weights_from_eps,
 )
-from hyperbolic_vae_tpu_torch.models.sampling import prior_sample
+from hyperbolic_vae_tpu_torch.models.sampling import prior_sample_from_eps
 from hyperbolic_vae_tpu_torch.models.vae_gyroplane import _dense, _gelu, _lecun_
 from hyperbolic_vae_tpu_torch.models.vae_rnaseq import _dtype
 
@@ -248,8 +248,12 @@ class EuclideanVAE(nn.Module):
     def generate(self, n: int = 64, generator: Optional[torch.Generator] = None):
         """Decode n prior draws z ~ N(0, I). The generator lives on the
         model's device."""
-        return self.decode(prior_sample(generator, None, n, self.latent_dim, 1.0,
-                                        device=self.device))
+        return self.generate_from_eps(torch.randn((n, self.latent_dim), generator=generator,
+                                                  device=self.device, dtype=torch.float32))
+
+    def generate_from_eps(self, eps):
+        """``generate`` for a given standard-normal draw eps (n, latent)."""
+        return self.decode(prior_sample_from_eps(None, eps, 1.0))
 
     def reconstruct(self, x, generator: Optional[torch.Generator] = None):
         """Decode one posterior sample (stochastic, as in JAX)."""

@@ -39,7 +39,7 @@ from hyperbolic_vae_tpu_torch.distributions import (
 )
 from hyperbolic_vae_tpu_torch.manifolds import PoincareBall
 from hyperbolic_vae_tpu_torch.models.iwae import iwae_bound, latent_log_weights_from_eps
-from hyperbolic_vae_tpu_torch.models.sampling import prior_sample
+from hyperbolic_vae_tpu_torch.models.sampling import prior_sample_from_eps
 from hyperbolic_vae_tpu_torch.nn import PoincareHyperplanes
 
 # flax lecun_normal: variance_scaling(1, fan_in, truncated_normal), whose
@@ -210,9 +210,12 @@ class GyroplaneVAE(nn.Module):
     def generate(self, n: int = 64, generator: Optional[torch.Generator] = None):
         """Decode n prior draws z ~ WrappedNormal(0, prior_scale): pixel
         probabilities in (0, 1). The generator lives on the model's device."""
-        z = prior_sample(generator, self.ball, n, self.latent_dim, self.prior_scale,
-                         device=self.device)
-        return self.decode(z)
+        return self.generate_from_eps(torch.randn((n, self.latent_dim), generator=generator,
+                                                  device=self.device, dtype=torch.float32))
+
+    def generate_from_eps(self, eps):
+        """``generate`` for a given standard-normal draw eps (n, latent)."""
+        return self.decode(prior_sample_from_eps(self.ball, eps, self.prior_scale))
 
     def reconstruct(self, x, generator: Optional[torch.Generator] = None):
         """Decode one posterior sample (stochastic, as in JAX; the serving

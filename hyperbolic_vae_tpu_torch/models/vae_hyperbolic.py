@@ -46,7 +46,7 @@ from hyperbolic_vae_tpu_torch.models.iwae import (
     iwae_bound,
     latent_log_weights_from_eps,
 )
-from hyperbolic_vae_tpu_torch.models.sampling import prior_sample
+from hyperbolic_vae_tpu_torch.models.sampling import prior_sample_from_eps
 from hyperbolic_vae_tpu_torch.models.vae_euclidean import (
     _check_shape,
     conv,
@@ -244,8 +244,12 @@ class HyperbolicImageVAE(nn.Module):
     def generate(self, n: int = 64, generator: Optional[torch.Generator] = None):
         """Decode n prior draws z ~ WrappedNormal(0, 1). The generator lives
         on the model's device."""
-        return self.decode(prior_sample(generator, self.ball, n, self.latent_dim, 1.0,
-                                        device=self.device))
+        return self.generate_from_eps(torch.randn((n, self.latent_dim), generator=generator,
+                                                  device=self.device, dtype=torch.float32))
+
+    def generate_from_eps(self, eps):
+        """``generate`` for a given standard-normal draw eps (n, latent)."""
+        return self.decode(prior_sample_from_eps(self.ball, eps, 1.0))
 
     def reconstruct(self, x, generator: Optional[torch.Generator] = None):
         """Decode one posterior sample (stochastic, as in JAX; the serving

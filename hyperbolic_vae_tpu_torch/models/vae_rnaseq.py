@@ -52,7 +52,7 @@ from hyperbolic_vae_tpu_torch.models.iwae import (
     iwae_bound,
     latent_log_weights_from_eps,
 )
-from hyperbolic_vae_tpu_torch.models.sampling import prior_sample
+from hyperbolic_vae_tpu_torch.models.sampling import prior_sample_from_eps
 from hyperbolic_vae_tpu_torch.models.vae_gyroplane import _dense, _gelu
 from hyperbolic_vae_tpu_torch.nn import PoincareHyperplanes
 
@@ -229,8 +229,12 @@ class RNASeqVAE(nn.Module):
         """Decode n prior draws z ~ WrappedNormal(0, 1): synthetic
         expression profiles on the sigmoid scale (n, genes). The generator
         lives on the model's device."""
-        z = prior_sample(generator, self.ball, n, self.latent_dim, 1.0, device=self.device)
-        return self.decode(z)
+        return self.generate_from_eps(torch.randn((n, self.latent_dim), generator=generator,
+                                                  device=self.device, dtype=torch.float32))
+
+    def generate_from_eps(self, eps):
+        """``generate`` for a given standard-normal draw eps (n, latent)."""
+        return self.decode(prior_sample_from_eps(self.ball, eps, 1.0))
 
     def reconstruct(self, x, generator: Optional[torch.Generator] = None):
         """Decode one posterior sample (stochastic, as in JAX; the serving

@@ -54,7 +54,7 @@ from hyperbolic_vae_tpu_torch.models.iwae import (
     iwae_bound,
     latent_log_weights_from_eps,
 )
-from hyperbolic_vae_tpu_torch.models.sampling import prior_sample, prior_sample_from_eps
+from hyperbolic_vae_tpu_torch.models.sampling import prior_sample_from_eps
 from hyperbolic_vae_tpu_torch.models.vae_gyroplane import _dense, _gelu
 from hyperbolic_vae_tpu_torch.nn import PoincareHyperplanes
 
@@ -303,9 +303,8 @@ class UnifiedVAE(nn.Module):
         N(0, prior_scale^2 I) otherwise) through
         ``transform_decoder_output``; the generator lives on the model's
         device."""
-        z = prior_sample(generator, self.ball, n, self.latent_dim, self.prior_scale,
-                         device=self.device)
-        return self.transform_decoder_output(self.decode(z))
+        return self.generate_from_eps(torch.randn((n, self.latent_dim), generator=generator,
+                                                  device=self.device, dtype=torch.float32))
 
     def generate_from_eps(self, eps):
         """``generate`` for a given standard-normal draw eps (n, latent)."""

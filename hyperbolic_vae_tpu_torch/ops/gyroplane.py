@@ -18,10 +18,18 @@ Three functions:
   * ``gyroplane_distances_cuda``: the wrapper of the hand-written CUDA
     kernel (``csrc/gyroplane.cu``), which replaces the TPU's Pallas
     ``_gyroplane_kernel``. CUDA tensors only.
-  * ``gyroplane_distances_fast``: the dispatcher the layer calls. Forward
-    runs the kernel for CUDA tensors and the plain version for CPU
-    tensors; backward is autograd through the plain version, as JAX's
-    ``_gdf_bwd`` differentiates its jnp version.
+  * ``gyroplane_distances_fast``: the dispatcher the layer calls. It
+    calls ``gyroplane_op``, K1 registered with ``torch.library`` as
+    ``torch.ops.hvae_torch.gyroplane_distances``: the kernel for CUDA
+    tensors (the wrapper above, which counts the launch), the plain
+    version for CPU tensors, a fake implementation giving (B, P) f32 for
+    ``torch.export`` and ``torch.compile``, and a backward by autograd
+    through the plain version, as JAX's ``_gdf_bwd`` differentiates its
+    jnp version. Being an op, K1 survives ``torch.export`` (the serving
+    bundles of ``serve.py``) and CUDA graph capture as an opaque node; a
+    process that loads an exported program must import this module
+    first, which registers the op. A tensor on another device raises; a
+    failed build or launch raises, with no fallback to the plain version.
 """
 
 from __future__ import annotations
@@ -165,34 +173,52 @@ def gyroplane_distances_cuda(
 
 
 # ---------------------------------------------------------------------- #
-# Differentiable dispatch.
+# The registered op (forward, fake, autograd) and the dispatcher.
 
 
-class _GyroplaneDistances(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, x, points, bias, c, signed):
-        ctx.save_for_backward(x, points, bias)
-        ctx.c, ctx.signed = c, signed
-        if x.is_cuda:
-            return gyroplane_distances_cuda(x, points, c, signed, bias)
-        if x.device.type != "cpu":
-            raise ValueError(f"gyroplane distances: no path for device {x.device}")
-        return gyroplane_distances(x, points, c, signed, bias)
+@torch.library.custom_op("hvae_torch::gyroplane_distances", mutates_args=(), device_types="cpu")
+def gyroplane_op(x: torch.Tensor, points: torch.Tensor, bias: Optional[torch.Tensor], c: float,
+                 signed: bool) -> torch.Tensor:
+    """K1 as ``torch.ops.hvae_torch.gyroplane_distances``: x (B, D),
+    points (P, D), bias (P,) or None, contiguous f32 -> (B, P) f32. On
+    CPU tensors the plain version."""
+    return gyroplane_distances(x, points, c, signed, bias)
 
-    @staticmethod
-    def backward(ctx, g):
-        x, points, bias = ctx.saved_tensors
-        inputs = [x.detach().requires_grad_(), points.detach().requires_grad_()]
-        if bias is not None:
-            inputs.append(bias.detach().requires_grad_())
-        with torch.enable_grad():
-            out = gyroplane_distances(
-                inputs[0], inputs[1], ctx.c, ctx.signed,
-                None if bias is None else inputs[2],
-            )
-            grads = torch.autograd.grad(out, inputs, g)
-        dbias = grads[2] if bias is not None else None
-        return grads[0], grads[1], dbias, None, None
+
+@gyroplane_op.register_kernel("cuda")
+def _gyroplane_op_cuda(x, points, bias, c, signed):
+    return gyroplane_distances_cuda(x, points, c, signed, bias)
+
+
+@gyroplane_op.register_fake
+def _gyroplane_op_fake(x, points, bias, c, signed):
+    return x.new_empty((x.shape[0], points.shape[0]), dtype=torch.float32)
+
+
+def _gyroplane_op_setup(ctx, inputs, output):
+    x, points, bias, c, signed = inputs
+    ctx.save_for_backward(x, points, bias)
+    ctx.c, ctx.signed = c, signed
+
+
+def _gyroplane_op_backward(ctx, g):
+    """Autograd through the plain version, as JAX's ``_gdf_bwd``
+    differentiates its jnp version."""
+    x, points, bias = ctx.saved_tensors
+    inputs = [x.detach().requires_grad_(), points.detach().requires_grad_()]
+    if bias is not None:
+        inputs.append(bias.detach().requires_grad_())
+    with torch.enable_grad():
+        out = gyroplane_distances(
+            inputs[0], inputs[1], ctx.c, ctx.signed,
+            None if bias is None else inputs[2],
+        )
+        grads = torch.autograd.grad(out, inputs, g)
+    dbias = grads[2] if bias is not None else None
+    return grads[0], grads[1], dbias, None, None
+
+
+gyroplane_op.register_autograd(_gyroplane_op_backward, setup_context=_gyroplane_op_setup)
 
 
 def gyroplane_distances_fast(
@@ -202,11 +228,13 @@ def gyroplane_distances_fast(
     signed: bool = True,
     bias: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """Gyroplane distances for 2-D x (B, D), in f32: the kernel for CUDA
-    tensors, the plain version for CPU tensors; autograd through the
-    plain version."""
+    """Gyroplane distances for 2-D x (B, D), in f32, through the registered
+    op: the kernel for CUDA tensors, the plain version for CPU tensors;
+    autograd through the plain version. Traceable by ``torch.export``."""
+    if x.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"gyroplane distances: no path for device {x.device}")
     x = x.float().contiguous()
     points = points.float().contiguous()
     if bias is not None:
         bias = bias.float().contiguous()
-    return _GyroplaneDistances.apply(x, points, bias, float(c), bool(signed))
+    return gyroplane_op(x, points, bias, float(c), bool(signed))

@@ -28,16 +28,34 @@ channels-last (n, H, W, C) arrays on every endpoint; the Autoencoder's
 ``encode`` answers its code alone, and neither it nor PvaeMLPVAE has a
 ``generate``.
 Everything runs under ``torch.inference_mode()``. Sharded serving
-(``mesh``) and exported program bundles are not ported yet.
+(``mesh``) is not ported yet.
+
+Exported bundles (JAX ``export_programs`` / ``ExportedInferencer``):
+``Inferencer.export_programs(out_dir)`` writes each (method, dispatch
+bucket) and (method, row bucket) as one ``torch.export`` program per
+device type in ``platforms``, a function of ``(params, x)`` traced
+through ``torch.func.functional_call``, so the parameters are saved once
+(``params.pt``, weights-only, dtype-preserving) beside a JSON manifest
+with JAX's keys. ``ExportedInferencer.load(dir)`` serves the bundle with
+the same bucketing front-end and no model class: it needs ``torch`` and
+this package's ``ops`` module, which registers K1's op
+(``torch.ops.hvae_torch.gyroplane_distances``) that the programs call.
+``generate``'s programs take the batch's standard-normal draws as input;
+the bundle draws them from the live engine's generators, in its order,
+so its rows are the live engine's.
 """
 
 from __future__ import annotations
 
+import copy
+import json
 import threading
+from pathlib import Path
 from typing import Optional
 
 import numpy as np
 import torch
+from torch.nn.utils.stateless import _reparametrize_module
 
 from hyperbolic_vae_tpu_torch.device import DeviceLike, resolve_device
 
@@ -81,6 +99,9 @@ class Inferencer:
                  sub_batch_buckets: bool = True, device: DeviceLike = None):
         self.device = resolve_device(device)
         self.model = model.to(self.device).eval()
+        # the feature shapes of warmup's and export's inputs
+        self.latent_dim = int(model.latent_dim)
+        self.data_shape = model_data_shape(model) if getattr(model, "data_shape", None) else None
         self.batch_size = int(batch_size)
         if io_dtype is not None:
             name = str(io_dtype).removeprefix("torch.")
@@ -189,10 +210,10 @@ class Inferencer:
         """Fetched output -> float32 numpy (half wire dtypes upcast)."""
         return t.float().numpy() if t.dtype != torch.float32 else t.numpy()
 
-    def _apply(self, method: str):
+    def _apply(self, method: str, model=None):
         """One batch on the device: wire-dtype x -> outputs (tuple of
-        tensors) in the out dtype."""
-        model = self.model
+        tensors) in the out dtype (on ``model``, default the engine's)."""
+        model = self.model if model is None else model
         out_dtype = (self.io_dtype if self.io_dtype is not None
                      and method in self._DATA_OUT else None)
 
@@ -209,6 +230,9 @@ class Inferencer:
         elif method == "decode":
             def apply(x):
                 return (cast(model.decode(x.float())),)
+        elif method == "generate":
+            def apply(eps):  # the batch's standard-normal draws (B, latent)
+                return (cast(model.generate_from_eps(eps)),)
         else:
             raise ValueError(f"unknown method {method!r}")
         return apply
@@ -234,14 +258,7 @@ class Inferencer:
         assert k > 1, "single-batch requests go through _fn directly"
         with self._programs_lock:
             apply = self._fn(method)
-
-            def make():
-                def apply_k(xk):
-                    outs = [apply(xb) for xb in xk]
-                    return tuple(torch.stack(parts) for parts in zip(*outs))
-                return apply_k
-
-            return self._register((method, k), make)
+            return self._register((method, k), lambda: _over_batches(apply))
 
     def _smallest_ready_rows(self, method: str):
         """Smallest row count some already-registered program for
@@ -317,31 +334,17 @@ class Inferencer:
 
     # ------------------------------------------------------------------ #
 
-    def _gen_fn(self):
-        """Program: generator -> one generated batch of B rows."""
-        def make():
-            model, b, out_dtype = self.model, self.batch_size, self.io_dtype
-
-            def apply(gen):
-                out = model.generate(b, generator=gen)
-                return out if out_dtype is None else out.to(out_dtype)
-            return apply
-
-        return self._register("generate", make)
-
-    def _gen_fn_k(self, k: int):
-        assert k > 1
-        with self._programs_lock:
-            apply = self._gen_fn()
-            return self._register(
-                ("generate", k), lambda: lambda gens: torch.stack([apply(g) for g in gens])
-            )
+    def _draws(self, gen: torch.Generator) -> torch.Tensor:
+        """One batch's standard-normal draws from ``gen``, as the model's
+        ``generate`` takes them."""
+        return torch.randn((self.batch_size, self.latent_dim), generator=gen,
+                           device=self.device, dtype=torch.float32)
 
     def supports_method(self, method: str) -> bool:
         """True when this engine can serve ``method`` (the HTTP front-end
         answers 404 up front otherwise)."""
         if method == "generate":
-            return callable(getattr(self.model, "generate", None))
+            return callable(getattr(self.model, "generate_from_eps", None))
         return method in ("encode", "embed", "decode", "reconstruct")
 
     def generate(self, n: int, seed: int = 0) -> np.ndarray:
@@ -357,14 +360,15 @@ class Inferencer:
         with torch.inference_mode():
             for start in range(0, n_batches, cap):
                 bucket = self._bucket(min(cap, n_batches - start))
-                gens = [
-                    torch.Generator(device=self.device).manual_seed(generate_seed(seed, i))
+                eps = [
+                    self._draws(torch.Generator(device=self.device)
+                                .manual_seed(generate_seed(seed, i)))
                     for i in range(start, start + bucket)
                 ]
                 if bucket == 1:
-                    out = self._gen_fn()(gens[0])
+                    out = self._fn("generate")(eps[0])[0]
                 else:
-                    out = self._gen_fn_k(bucket)(gens)
+                    out = self._fn_k("generate", bucket)(torch.stack(eps))[0]
                     out = out.reshape((bucket * b,) + tuple(out.shape[2:]))
                 pieces.append(self._host_restore(out.cpu()))
         return np.concatenate(pieces, axis=0)[: int(n)]
@@ -398,18 +402,187 @@ class Inferencer:
         so the kernels are built and loaded and the allocator holds the
         largest bucket's memory."""
         if methods is None:
-            methods = ("reconstruct", "encode", "decode") + (
-                ("generate",) if hasattr(self.model, "generate") else ()
-            )
-        shape = tuple(data_shape) if data_shape else model_data_shape(self.model)
+            methods = tuple(m for m in ("reconstruct", "encode", "decode", "generate")
+                            if self.supports_method(m))
+        shape = self._data_shape(data_shape)
         for method in methods:
             if method == "generate":
                 for k in self._buckets:
                     self.generate(k * self.batch_size)
                 continue
-            feat = ((int(self.model.latent_dim),) if method == "decode" else shape)
+            feat = (self.latent_dim,) if method == "decode" else shape
             for r in self._row_buckets:
                 getattr(self, method)(np.zeros((r,) + feat, np.float32))
             for k in self._buckets:
                 getattr(self, method)(np.zeros((k * self.batch_size,) + feat, np.float32))
         return self
+
+    def _data_shape(self, data_shape: Optional[tuple] = None) -> tuple:
+        """``data_shape`` if given, else the engine's."""
+        if data_shape:
+            return tuple(data_shape)
+        if self.data_shape is None:
+            raise AttributeError(
+                f"{type(self.model).__name__} exposes no data_shape — pass data_shape explicitly")
+        return self.data_shape
+
+    # ------------------------------------------------------------------ #
+
+    def export_programs(self, out_dir, methods: tuple = ("encode", "decode", "reconstruct"),
+                        data_shape: Optional[tuple] = None, latent_dim: Optional[int] = None,
+                        platforms: tuple = ("cpu", "cuda")):
+        """Write the bucketed program set as a serving bundle in
+        ``out_dir``: ``<method>_k<k>.<platform>.pt2`` for each dispatch
+        bucket, ``<method>_r<r>.<platform>.pt2`` for each row bucket
+        (not for ``generate``), ``params.pt`` and ``manifest.json``.
+        ``platforms`` names the device types the bundle holds programs
+        for; ``"cuda"`` needs the card. Programs are traced under
+        ``torch.no_grad()`` at the shapes of their bucket."""
+        out = Path(out_dir)
+        out.mkdir(parents=True, exist_ok=True)
+        methods = tuple(methods)
+        for method in methods:
+            if not self.supports_method(method) or method == "embed":
+                raise ValueError(f"cannot export method {method!r} for {type(self.model).__name__}")
+        data_shape = self._data_shape(data_shape)
+        latent_dim = int(latent_dim or self.latent_dim)
+        state = {k: v.detach() for k, v in self.model.state_dict().items()}
+        feat = {m: ((latent_dim,) if m in ("decode", "generate") else data_shape) for m in methods}
+        for platform in platforms:
+            device = resolve_device(platform)
+            model = self.model if device == self.device else _model_on(self.model, device)
+            params = {k: v.to(device) for k, v in state.items()}
+            shapes = []
+            for method in methods:
+                wire = torch.float32 if method == "generate" else self._wire_in_dtype(method)
+                shapes += [(f"{method}_k{k}", method, k, (k, self.batch_size) if k > 1
+                            else (self.batch_size,), wire) for k in self._buckets]
+                if method != "generate":
+                    shapes += [(f"{method}_r{r}", method, None, (r,), wire)
+                               for r in self._row_buckets]
+            for stem, method, k, lead, wire in shapes:
+                # one batch (rows at any count) or a (k, B, ...) stack, as
+                # the live _fn / _fn_k
+                fn = self._apply(method, model)
+                fn = _over_batches(fn) if k and k > 1 else fn
+                x = torch.zeros(lead + feat[method], dtype=wire, device=device)
+                with torch.no_grad():
+                    prog = torch.export.export(_ParamsProgram(model, fn), (params, x))
+                torch.export.save(prog, out / f"{stem}.{device.type}.pt2")
+        torch.save({k: v.cpu() for k, v in state.items()}, out / "params.pt")
+        (out / "manifest.json").write_text(json.dumps({
+            "batch_size": self.batch_size,
+            "max_batches_per_dispatch": self.max_batches_per_dispatch,
+            "buckets": self._buckets,
+            "row_buckets": self._row_buckets,
+            "methods": list(methods),
+            "data_shape": list(data_shape),
+            "latent_dim": latent_dim,
+            "platforms": [resolve_device(p).type for p in platforms],
+            "io_dtype": None if self.io_dtype is None else str(self.io_dtype).removeprefix("torch."),
+            "param_paths": list(state),
+            "param_dtypes": [str(v.dtype).removeprefix("torch.") for v in state.values()],
+            "param_shapes": [list(v.shape) for v in state.values()],
+        }))
+        return out
+
+
+def _over_batches(apply):
+    """``apply`` (one batch -> a tuple of outputs) over each batch of a
+    (k, B, ...) stack, the outputs stacked (JAX's ``lax.map``)."""
+    return lambda xk: tuple(torch.stack(parts) for parts in zip(*[apply(xb) for xb in xk]))
+
+
+def _model_on(model, device: torch.device):
+    """A copy of ``model`` on ``device`` (the bundle's programs of another
+    device type than the live engine's)."""
+    return copy.deepcopy(model).to(device)
+
+
+class _ParamsProgram(torch.nn.Module):
+    """``fn(x)`` on ``model`` as a function of ``(params, x)``: the model's
+    state is an input of the traced program, swapped in for the call as
+    ``torch.func.functional_call`` swaps it, so an exported program holds
+    no weights of its own."""
+
+    def __init__(self, model, fn):
+        super().__init__()
+        # not a registered submodule: its tensors are not the program's
+        object.__setattr__(self, "model", model)
+        self.fn = fn
+
+    def forward(self, params, x):
+        with _reparametrize_module(self.model, params, tie_weights=True):
+            return self.fn(x)
+
+
+class ExportedInferencer(Inferencer):
+    """Serve a bundle written by ``Inferencer.export_programs`` with no
+    model class and no tracing: every program is a loaded ``torch.export``
+    program. The padding and bucketing front-end is ``Inferencer``'s."""
+
+    def __init__(self, bundle_dir, params: dict, manifest: dict, device: torch.device):
+        self.model = None
+        self.bundle_dir = Path(bundle_dir)
+        self.device = device
+        self._manifest = manifest
+        self.latent_dim = int(manifest["latent_dim"])
+        self.data_shape = tuple(manifest["data_shape"])
+        io = manifest.get("io_dtype")
+        self.io_dtype = None if io is None else _IO_DTYPES[io]
+        self.batch_size = int(manifest["batch_size"])
+        self.max_batches_per_dispatch = int(manifest["max_batches_per_dispatch"])
+        self._buckets = list(manifest["buckets"])
+        self._row_buckets = list(manifest.get("row_buckets", []))
+        self.sub_batch_buckets = bool(self._row_buckets)
+        self.params = params
+        self._programs = {}  # loaded on first use; warmup() loads them all
+        self._programs_lock = threading.RLock()
+
+    @classmethod
+    def load(cls, bundle_dir, device: DeviceLike = None) -> "ExportedInferencer":
+        """The bundle in ``bundle_dir`` on ``device`` (default ``cuda``; the
+        bundle must hold programs for its device type)."""
+        # registers K1's op, which the programs call
+        import hyperbolic_vae_tpu_torch.ops.gyroplane  # noqa: F401
+
+        d = Path(bundle_dir)
+        device = resolve_device(device)
+        manifest = json.loads((d / "manifest.json").read_text())
+        if device.type not in manifest["platforms"]:
+            raise ValueError(f"the bundle holds programs for {manifest['platforms']}, "
+                             f"not for {device.type}")
+        params = torch.load(d / "params.pt", map_location=device, weights_only=True)
+        params = {k: params[k] for k in manifest["param_paths"]}
+        return cls(d, params, manifest, device)
+
+    def supports_method(self, method: str) -> bool:
+        methods = set(self._manifest["methods"])
+        if method == "embed":
+            # embed is host-side sugar over the encode program
+            return "encode" in methods
+        return method in methods
+
+    def _program(self, key, stem: str, exported: bool, what: str):
+        """The loaded program ``key`` (file ``<stem>.<device type>.pt2``),
+        as a function of x alone."""
+        if not exported:
+            raise KeyError(f"{what} {key!r} was not exported in this bundle")
+
+        def make():
+            prog = torch.export.load(self.bundle_dir / f"{stem}.{self.device.type}.pt2").module()
+            return lambda x: prog(self.params, x)
+
+        return self._register(key, make)
+
+    def _fn(self, method: str):
+        return self._program(method, f"{method}_k1", method in self._manifest["methods"],
+                             "method")
+
+    def _fn_k(self, method: str, k: int):
+        return self._program((method, k), f"{method}_k{k}", self.supports_method(method)
+                             and k in self._buckets, "bucket")
+
+    def _fn_rows(self, method: str, r: int):
+        return self._program((method, "r", r), f"{method}_r{r}", self.supports_method(method)
+                             and method != "generate" and r in self._row_buckets, "row bucket")

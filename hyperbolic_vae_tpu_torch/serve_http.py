@@ -37,7 +37,10 @@ family, told by its keys or by ``"family"`` in the JSON where they fit
 two; what it does not hold as constructor arguments, e.g. the data shape
 and curvature; the reference's Lightning ``.ckpt`` with geoopt's entries
 too, and ``--allow-unsafe-pickle`` for one the weights-only unpickler
-refuses); serves on the CUDA device. Image families take and
+refuses) or ``... --bundle DIR`` (a bundle written by
+``Inferencer.export_programs`` or ``experiments/export_serving_bundle.py``,
+served without the model's code; a method it lacks answers 404);
+serves on the CUDA device. Image families take and
 return channels-last arrays (n, H, W, C); an engine without ``generate``
 (the Autoencoder, PvaeMLPVAE) answers 404 there.
 """
@@ -55,7 +58,6 @@ from typing import Optional
 
 import numpy as np
 
-from hyperbolic_vae_tpu_torch.serve import model_data_shape
 
 _METHODS = ("encode", "embed", "decode", "reconstruct")
 
@@ -525,6 +527,8 @@ class InferenceServer:
 
     def manifest(self, name: Optional[str] = None) -> dict:
         inf = self.engines[name or self.default_name]
+        # a bundle has only what was exported
+        m = getattr(inf, "_manifest", None)
         return {
             "batch_size": inf.batch_size,
             "max_batches_per_dispatch": inf.max_batches_per_dispatch,
@@ -532,9 +536,9 @@ class InferenceServer:
             "row_buckets": list(inf._row_buckets),
             "io_dtype": (None if inf.io_dtype is None
                          else str(inf.io_dtype).removeprefix("torch.")),
-            "methods": list(_METHODS)
-            + (["generate"] if inf.supports_method("generate") else []),
-            "data_shape": list(model_data_shape(inf.model)),
+            "methods": (list(m["methods"]) if m else list(_METHODS)
+                        + (["generate"] if inf.supports_method("generate") else [])),
+            "data_shape": list(inf._data_shape()),
         }
 
     def start(self) -> "InferenceServer":
@@ -563,7 +567,7 @@ class InferenceServer:
 
 def parse_args(argv: Optional[list] = None):
     """The CLI's arguments: exactly one of ``--checkpoint DIR`` (with
-    ``--name``) and ``--state-dict FILE``."""
+    ``--name``), ``--state-dict FILE`` and ``--bundle DIR``."""
     import argparse
 
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -573,6 +577,7 @@ def parse_args(argv: Optional[list] = None):
                      help="a state_dict (.npz from experiments/export_torch_state_dict.py, .pt, "
                           "or the reference's Lightning .ckpt) of any family, told by its keys "
                           "or --model-config's family")
+    src.add_argument("--bundle", help="an exported serving bundle's directory (no model code)")
     p.add_argument("--allow-unsafe-pickle", action="store_true",
                    help="with a state_dict file the weights-only unpickler refuses: full pickle, "
                         "which EXECUTES code embedded in the file (only for your own files)")
@@ -632,10 +637,15 @@ def load_engines(args, device=None) -> dict:
             return Inferencer.from_checkpoint(ckpt, name=name, **kw)
         return Inferencer.from_state_dict(src, **kw, **unsafe)
 
-    engines = {"default": (Inferencer.from_checkpoint(args.checkpoint, name=args.name, **kw)
-                           if args.checkpoint
-                           else Inferencer.from_state_dict(args.state_dict, **kw, **unsafe,
-                                                           **model_config))}
+    if args.bundle:
+        from hyperbolic_vae_tpu_torch.serve import ExportedInferencer
+
+        default = ExportedInferencer.load(args.bundle, device=device)
+    elif args.checkpoint:
+        default = Inferencer.from_checkpoint(args.checkpoint, name=args.name, **kw)
+    else:
+        default = Inferencer.from_state_dict(args.state_dict, **kw, **unsafe, **model_config)
+    engines = {"default": default}
     for spec in args.also:
         mname, _, src = spec.partition("=")
         if not mname or not src:
@@ -645,7 +655,7 @@ def load_engines(args, device=None) -> dict:
 
 
 def main(argv: Optional[list] = None, device=None):
-    """CLI: serve a checkpoint or a state_dict over HTTP.
+    """CLI: serve a checkpoint, a state_dict or a bundle over HTTP.
     ``device`` (for callers embedding the CLI) defaults to ``cuda``."""
     from hyperbolic_vae_tpu_torch.device import resolve_device
 

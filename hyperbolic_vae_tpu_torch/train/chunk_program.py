@@ -154,24 +154,36 @@ class ChunkProgram:
         self.cfg = ControllerConfig.of(trainer)
 
         ep = self.ep
-        if trainer.train_step_fn is not None:
-            train = [Segment((self.begin_epoch, *(ep.step,) * ep.steps, ep.end_train), 1,
-                             "train epoch")]
-        else:
-            train = [Segment((self.begin_epoch,), 1, "begin epoch"),
-                     Segment((ep.step,), ep.steps, "train step"),
-                     Segment((ep.end_train,), 1, "train means")]
         end = (ep.val_tail,) if ep.rem else ()
-        segments = train + [Segment((ep.val_step,), ep.eval_steps, "val batch"),
-                            Segment(end + (ep.end_val, self.end_epoch), 1, "val tail and epoch end")]
+        segments = self._train_segments() + [
+            Segment((ep.val_step,), ep.eval_steps, "val batch"),
+            Segment(end + (ep.end_val, self.end_epoch), 1, "val tail and epoch end")]
         state = (self.masked + [g["lr"] for g in optimizer.param_groups] + list(self.ctrl.values())
                  + list(self.best.values()) + [self.krow] + list(self.hp.values()))
         self.program = GraphedProgram(segments, device=dev, generator=generator, state=state,
                                       capture_stream=stream)
 
+    def _train_segments(self) -> list:
+        ep = self.ep
+        if self.trainer.train_step_fn is not None:
+            return [Segment((self.begin_epoch, *(ep.step,) * ep.steps, ep.end_train), 1,
+                            "train epoch")]
+        return [Segment((self.begin_epoch,), 1, "begin epoch"),
+                Segment((ep.step,), ep.steps, "train step"),
+                Segment((ep.end_train,), 1, "train means")]
+
+    @property
+    def samples_per_epoch(self) -> int:
+        return self.ep.steps * self.ep.batch_size
+
     # ---- pieces ---------------------------------------------------------
 
     def begin_epoch(self) -> None:
+        self.begin_controls()
+        self.ep.begin()
+
+    def begin_controls(self) -> None:
+        """``begin_epoch`` up to the epoch program's ``begin``."""
         c, tr = self.ctrl, self.trainer
         lr = tr.lr_schedule(c["epoch"]) if tr.lr_schedule is not None else c["pl_lr"]
         self.lr_used.copy_(lr)
@@ -183,7 +195,6 @@ class ChunkProgram:
         with torch.no_grad():
             for prev, cur in zip(self.prev, self.masked):
                 prev.copy_(cur)
-        self.ep.begin()
 
     @torch.no_grad()
     def end_epoch(self) -> None:
@@ -288,3 +299,7 @@ class ChunkProgram:
             self.ctrl[k].copy_(v)
         for k, v in state["best"].items():
             self.best[k].copy_(v)
+
+    def close(self) -> None:
+        """Release what the program holds beyond its tensors (nothing
+        here; the streamed program stops its gather thread)."""

@@ -62,14 +62,32 @@ def _scheduled(trainer, model):
             setattr(model, k, v)
 
 
-def evaluate(trainer, dm: ArrayDataModule, params=None, split: str = "test") -> dict:
+def evaluate(trainer, dm: ArrayDataModule, params=None, split: str = "test",
+             stream_block_rows: Optional[int] = None) -> dict:
     """Mean loss metrics over a split (eval fold with its tail batch),
-    with draws from seed + 1."""
+    with draws from seed + 1. ``stream_block_rows`` m < n: the host split
+    is copied to the device m rows at a time, each block evaluated as a
+    split of its own and weighted by its row count (JAX's streamed
+    evaluate; the draws continue through the blocks from the one seeded
+    generator, so stochastic metrics agree with the resident path's in
+    distribution, not bit for bit)."""
     model = model_with_params(trainer, params)
     gen = torch.Generator(device=trainer.device).manual_seed(trainer.seed + 1)
-    x = trainer._stage(getattr(dm, f"x_{split}"))
+    loss_fn = trainer.loss_fn or default_loss_fn
+    x_host = getattr(dm, f"x_{split}")
+    n = int(x_host.shape[0])
     with _scheduled(trainer, model):
-        names, means = eval_full(model, x, dm.batch_size, gen, trainer.loss_fn or default_loss_fn)
+        if stream_block_rows and stream_block_rows < n:
+            m = int(stream_block_rows)
+            acc, names = None, None
+            for start in range(0, n, m):
+                blk = trainer._stage(x_host[start:start + m])
+                names, means = eval_full(model, blk, dm.batch_size, gen, loss_fn)
+                r = blk.shape[0]
+                vals = [v * r for v in means.tolist()]
+                acc = vals if acc is None else [a + v for a, v in zip(acc, vals)]
+            return {f"{split}/{k}": v / n for k, v in zip(names, acc)}
+        names, means = eval_full(model, trainer._stage(x_host), dm.batch_size, gen, loss_fn)
     return {f"{split}/{k}": v for k, v in zip(names, means.tolist())}
 
 

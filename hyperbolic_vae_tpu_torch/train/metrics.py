@@ -1,20 +1,27 @@
-"""Metric logging: JSONL scalars and PNG images.
+"""Metric logging: JSONL scalars and PNG images always; TensorBoard where
+it is installed.
 
 Port of ``hyperbolic_vae_tpu/train/metrics.py``; names keep the
 ``train/ val/ test/`` prefixes (``val/loss_total``). Images are written
-as PNG with the standard library (``zlib`` + ``struct``: the card's
-machine has no PIL). TensorBoard is still to port.
+as PNG with the standard library (``zlib`` + ``struct``: not every
+machine has PIL). With ``use_tensorboard`` (the default) and
+``torch.utils.tensorboard`` importable, a ``SummaryWriter`` in
+``log_dir`` also gets every scalar and image (HWC floats in [0, 1]);
+without it, one info line says that the log is JSONL and PNG only.
 """
 
 from __future__ import annotations
 
 import json
+import logging
 import struct
 import zlib
 from pathlib import Path
 from typing import Mapping, Optional
 
 import numpy as np
+
+logger = logging.getLogger(__name__)
 
 # PNG colour type by channel count: grey, RGB, RGBA
 _PNG_COLOR = {1: 0, 3: 2, 4: 6}
@@ -69,19 +76,31 @@ def read_png(path) -> np.ndarray:
 
 class MetricLogger:
     """Appends ``{"step": epoch, name: value, ...}`` lines to
-    ``log_dir/metrics.jsonl``; does nothing without a ``log_dir``."""
+    ``log_dir/metrics.jsonl`` (and, with TensorBoard, event files there);
+    does nothing without a ``log_dir``."""
 
-    def __init__(self, log_dir: Optional[str] = None):
+    def __init__(self, log_dir: Optional[str] = None, use_tensorboard: bool = True):
         self.log_dir = Path(log_dir) if log_dir else None
         self._jsonl = None
+        self._tb = None
         if self.log_dir:
             self.log_dir.mkdir(parents=True, exist_ok=True)
             self._jsonl = open(self.log_dir / "metrics.jsonl", "a")
+            if use_tensorboard:
+                try:
+                    from torch.utils.tensorboard import SummaryWriter
+                except ImportError:
+                    logger.info("TensorBoard unavailable; JSONL metrics and PNG images only")
+                else:
+                    self._tb = SummaryWriter(log_dir=str(self.log_dir))
 
     def log_scalars(self, step: int, scalars: Mapping[str, float]) -> None:
         if self._jsonl:
             self._jsonl.write(json.dumps({"step": step, **{k: float(v) for k, v in scalars.items()}}) + "\n")
             self._jsonl.flush()
+        if self._tb:
+            for k, v in scalars.items():
+                self._tb.add_scalar(k, float(v), step)
 
     def log_image(self, step: int, tag: str, image) -> None:
         """image (H, W, C), uint8 or floats in [0, 1]: saved as
@@ -91,6 +110,11 @@ class MetricLogger:
             if arr.dtype != np.uint8:
                 arr = (np.clip(arr, 0, 1) * 255).astype(np.uint8)
             write_png(self.log_dir / f"{tag.replace('/', '_')}_{step:05d}.png", arr)
+        if self._tb:
+            arr = np.asarray(image)
+            arr = (arr.astype(np.float32) / 255.0 if arr.dtype == np.uint8
+                   else np.clip(arr, 0, 1).astype(np.float32))
+            self._tb.add_image(tag, arr, step, dataformats="HWC")
 
     def log_hparams(self, hparams: Mapping) -> None:
         if self.log_dir:
@@ -101,3 +125,6 @@ class MetricLogger:
         if self._jsonl:
             self._jsonl.close()
             self._jsonl = None
+        if self._tb:
+            self._tb.close()
+            self._tb = None

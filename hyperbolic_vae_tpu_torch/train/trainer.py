@@ -42,9 +42,14 @@ or ``train_step_fn``; ``grad_accum_steps`` with a model whose
 ``loss_reduction`` is not ``"per_sample_mean"``; and, in the port,
 ``moment_dtype`` with ``train_step_fn`` (K3 keeps f32 moments).
 ``fit`` trains ``model`` in place, from its current weights or from
-``params``. Still to port: streaming (``fit_streamed``,
-``evaluate(stream_block_rows=...)``), meshes (and the sweeps'
-``seed_mesh``), TensorBoard.
+``params``. ``fit_streamed(dm, block_rows)`` trains a split that stays on
+the host, streamed through the card in double-buffered blocks
+(``train/streaming.py``), and ``evaluate(..., stream_block_rows=m)``
+evaluates one in blocks; the memory preflight then counts two blocks, and
+when it refuses a resident fit its remedy names ``fit_streamed``.
+``log_dir`` gets JSONL metrics, and TensorBoard event files where
+``torch.utils.tensorboard`` imports (``train/metrics.py``). Still to port:
+meshes (and the sweeps' ``seed_mesh``).
 """
 
 from __future__ import annotations
@@ -116,7 +121,7 @@ class _Run:
     ``close()`` gives the model back its scheduled attributes' floats."""
 
     def __init__(self, trainer, batch_size: int, x_train, x_val, params=None, state=None,
-                 meta=None, stream=None):
+                 meta=None, stream=None, blocks=None):
         tr = self.trainer = trainer
         tr.plateau = ReduceLROnPlateau(**tr._plateau_cfg)
         if tr._early_patience:
@@ -145,17 +150,27 @@ class _Run:
         hp = {k: torch.zeros((), dtype=torch.float32, device=tr.device) for k in tr.hp_keys}
         for k, t in hp.items():
             setattr(model, k, t)
+        loss_fn = tr.loss_fn or default_loss_fn
         try:
-            self.prog = ChunkProgram(tr, model, tr.optimizer, x_train, x_val, batch_size, self.gen,
-                                     self.start_epoch, loss_fn=tr.loss_fn or default_loss_fn, hp=hp,
-                                     stream=stream)
+            if blocks is None:
+                self.prog = ChunkProgram(tr, model, tr.optimizer, x_train, x_val, batch_size,
+                                         self.gen, self.start_epoch, loss_fn=loss_fn, hp=hp,
+                                         stream=stream)
+            else:
+                # x_train on the host, streamed in blocks (train/streaming.py)
+                from hyperbolic_vae_tpu_torch.train.streaming import StreamedProgram
+
+                block_rows, reshuffle = blocks
+                self.prog = StreamedProgram(tr, model, tr.optimizer, x_train, block_rows,
+                                            reshuffle, x_val, batch_size, self.gen,
+                                            self.start_epoch, loss_fn=loss_fn, hp=hp)
             if state is not None:
                 self.prog.load_state_dict(state["chunk"])
         except BaseException:
             self.close()
             raise
         tr.program = self.prog
-        self.samples_per_epoch = x_train.shape[0] // batch_size * batch_size
+        self.samples_per_epoch = self.prog.samples_per_epoch
         self.history: list = []
         self.best_metric = self.ig_best
         self.epochs_run = self.start_epoch
@@ -163,6 +178,8 @@ class _Run:
     def close(self) -> None:
         for k, v in self.static.items():
             setattr(self.trainer.model, k, v)
+        if hasattr(self, "prog"):  # not yet when the program's constructor raised
+            self.prog.close()
 
     def absorb(self, rows: np.ndarray, ctrl: dict):
         """A fetched chunk into the host's state: the controllers' mirrors,
@@ -422,21 +439,18 @@ class Trainer:
             finally:
                 self._shutdown = None
 
-    def _preflight(self, dm: ArrayDataModule, models: Sequence) -> None:
-        """Fail before staging when the fit cannot fit in the card's memory.
-        A lower bound, as JAX's HBM preflight: the staged splits (shared
-        by the lanes of a sweep) and, for each model (one a lane), its
-        parameters twice (live and best), the optimizer's moments (and
-        EMA) and one microbatch of input, reconstruction and gradient. The
-        limit is ``hbm_limit_bytes``, else the card's memory; on the CPU
-        without ``hbm_limit_bytes`` there is no check."""
-        limit = self.hbm_limit_bytes
-        if limit is None:
-            if self.device.type != "cuda":
-                return
-            limit = torch.cuda.mem_get_info(self.device)[1]
+    def memory_estimate(self, dm: ArrayDataModule, models: Sequence,
+                        stream_rows: Optional[int] = None) -> dict:
+        """The memory preflight's bytes, by part: a lower bound, as JAX's HBM
+        preflight: the staged splits (shared by the lanes of a sweep; when
+        streaming, two blocks of ``stream_rows`` and the val split) and, for
+        each model (one a lane), its parameters twice (live and best), the
+        optimizer's moments (and EMA) and one microbatch of input,
+        reconstruction and gradient."""
         row_bytes = int(np.prod(dm.x_train.shape[1:])) * 4  # staged f32
-        split = (int(dm.x_train.shape[0]) * row_bytes + int(np.prod(dm.x_val.shape)) * 4)
+        # streaming: the two device block buffers at the peak
+        train_rows = 2 * int(stream_rows) if stream_rows else int(dm.x_train.shape[0])
+        split = train_rows * row_bytes + int(np.prod(dm.x_val.shape)) * 4
         moment = getattr(torch, self.moment_dtype) if isinstance(self.moment_dtype, str) else self.moment_dtype
         p = o = 0
         for model in models:
@@ -446,15 +460,31 @@ class Trainer:
                 o += t.numel() * (2 * size + (4 if self.ema_decay is not None else 0))
         micro = dm.batch_size // self.grad_accum_steps
         act = 3 * micro * row_bytes * len(models)  # input + recon + grad floor
-        total = split + 2 * p + o + act  # 2 * p: live + best
-        if total > limit:
+        # 2 * p: live + best
+        return {"splits": split, "params+best": 2 * p, "opt": o, "activations": act,
+                "total": split + 2 * p + o + act}
+
+    def _preflight(self, dm: ArrayDataModule, models: Sequence,
+                   stream_rows: Optional[int] = None) -> None:
+        """Fail before staging when the fit cannot fit in the card's memory
+        (``memory_estimate``). The limit is ``hbm_limit_bytes``, else the
+        card's memory; on the CPU without ``hbm_limit_bytes`` there is no
+        check."""
+        limit = self.hbm_limit_bytes
+        if limit is None:
+            if self.device.type != "cuda":
+                return
+            limit = torch.cuda.mem_get_info(self.device)[1]
+        est = self.memory_estimate(dm, models, stream_rows)
+        if est["total"] > limit:
             gib = 2 ** 30
             raise RuntimeError(
-                f"CUDA memory preflight: estimated bytes {total / gib:.2f} GiB exceed the "
-                f"card's {limit / gib:.2f} GiB (splits {split / gib:.2f} + params+best "
-                f"{2 * p / gib:.2f} + opt {o / gib:.2f} + activations {act / gib:.2f} GiB, "
-                f"{len(models)} lane(s)). Use grad_accum_steps to shrink activations, or "
-                f"sweep fewer lanes at once.")
+                f"CUDA memory preflight: estimated bytes {est['total'] / gib:.2f} GiB exceed the "
+                f"card's {limit / gib:.2f} GiB (splits {est['splits'] / gib:.2f} + params+best "
+                f"{est['params+best'] / gib:.2f} + opt {est['opt'] / gib:.2f} + activations "
+                f"{est['activations'] / gib:.2f} GiB, {len(models)} lane(s)). Use "
+                f"fit_streamed(dm, block_rows=...) to keep x_train on the host, "
+                f"grad_accum_steps to shrink activations, or sweep fewer lanes at once.")
 
     @contextlib.contextmanager
     def _profiled(self, on: bool):
@@ -484,7 +514,30 @@ class Trainer:
         with self._graceful_scope():
             return self._fit(dm, params, resume)
 
-    def _fit(self, dm: ArrayDataModule, params, resume: bool) -> TrainResult:
+    def fit_streamed(self, dm: ArrayDataModule, block_rows: int,
+                     params: Optional[Dict[str, Any]] = None, resume: bool = False,
+                     reshuffle: str = "block_order") -> TrainResult:
+        """``fit`` for a train split that does not fit in the card's memory:
+        ``dm.x_train`` (numpy or ``np.memmap``) stays on the host and
+        streams through the device in double-buffered blocks of
+        ``block_rows`` rows (``train/streaming.py``); ``reshuffle="rows"``
+        re-deals the rows to blocks every epoch. Controllers, checkpoints,
+        resume, callbacks and graceful stops are ``fit``'s; with
+        ``block_rows == n_train`` the history is ``fit``'s bit for bit. Not
+        with ``epochs_per_dispatch > 1`` (an epoch is already J dispatches)
+        or ``hp_model_fn`` lanes. ``x_val`` stays on the device."""
+        from hyperbolic_vae_tpu_torch.train.streaming import check_blocks
+
+        if self.epochs_per_dispatch > 1:
+            raise ValueError("fit_streamed does not compose with epochs_per_dispatch>1")
+        if self.hp_model_fn is not None:
+            raise ValueError("fit_streamed does not compose with hp_model_fn lanes")
+        self._check_batch(dm)
+        check_blocks(int(dm.x_train.shape[0]), dm.batch_size, int(block_rows), reshuffle)
+        with self._graceful_scope():
+            return self._fit(dm, params, resume, blocks=(int(block_rows), reshuffle))
+
+    def _fit(self, dm: ArrayDataModule, params, resume: bool, blocks=None) -> TrainResult:
         if self.hp_model_fn is not None:
             raise ValueError(
                 "hp_model_fn trainers sweep hyperparameter lanes: use fit_lane_sweep (a "
@@ -494,9 +547,10 @@ class Trainer:
         state = meta = None
         if resume and self._ckpt_mgr is not None:
             state, meta = self._ckpt_mgr.restore_state(device=self.device)
-        self._preflight(dm, [self.model])
-        run = _Run(self, dm.batch_size, self._stage(dm.x_train), self._stage(dm.x_val), params,
-                   state, meta)
+        self._preflight(dm, [self.model], stream_rows=blocks[0] if blocks else None)
+        x_train = self._stage(dm.x_train) if blocks is None else dm.x_train
+        run = _Run(self, dm.batch_size, x_train, self._stage(dm.x_val), params, state, meta,
+                   blocks=blocks)
         try:
             if state is not None:
                 logger.info("resumed from epoch %d", run.start_epoch)
@@ -602,12 +656,14 @@ class Trainer:
     # ---- after training ----------------------------------------------------
 
     def evaluate(self, dm: ArrayDataModule, params: Optional[Dict[str, Any]] = None,
-                 split: str = "test") -> dict:
+                 split: str = "test", stream_block_rows: Optional[int] = None) -> dict:
         """Mean loss metrics over a split (``train/evaluation.py``); under a
-        schedule at ``hp_schedule(max_epochs)``."""
+        schedule at ``hp_schedule(max_epochs)``. ``stream_block_rows``: a
+        host split copied to the device a block of that many rows at a
+        time."""
         from hyperbolic_vae_tpu_torch.train.evaluation import evaluate
 
-        return evaluate(self, dm, params, split)
+        return evaluate(self, dm, params, split, stream_block_rows)
 
     def evaluate_iwae(self, dm: ArrayDataModule, params: Optional[Dict[str, Any]] = None,
                       k: int = 5000, split: str = "test", batch_chunk: int = 256,

@@ -8,6 +8,7 @@ comparison; and the JAX package's result readers (``summarize_runs.py``,
 ``runs_torch/`` results."""
 
 import json
+import logging
 import math
 import sys
 from pathlib import Path
@@ -192,12 +193,24 @@ def test_exp8_fake_rnaseq_and_mnist(tmp_path):
     assert meta["model"]["input_size"] == [40] and meta["model"]["latent_curvature"] == 1.0
 
 
-@pytest.mark.parametrize("flag,item", [(["--stream-block-rows", "64"], "item 3"),
-                                       (["--tp", "2"], "item 8"), (["--fsdp"], "item 8"),
+@pytest.mark.parametrize("flag,item", [(["--tp", "2"], "item 8"), (["--fsdp"], "item 8"),
                                        (["--use-mesh"], "item 8")])
 def test_exp8_later_items_exit_naming_them(tmp_path, flag, item):
     with pytest.raises(SystemExit, match=item):
         train_vaes_rnaseq.main(_common(tmp_path) + flag)
+
+
+def test_exp8_streamed_fit(tmp_path, caplog):
+    """``--stream-block-rows``: experiment 8 trains through fit_streamed on
+    the fake cells (800 train rows in blocks of 300: two blocks, the
+    200-row tail left out with a warning) and writes its results."""
+    with caplog.at_level(logging.WARNING):
+        out = train_vaes_rnaseq.main(_common(tmp_path, epochs=2) + [
+            "--n-genes", "40", "--hidden-dim", "8", "--stream-block-rows", "300"])
+    assert any("excluded from every epoch" in r.getMessage() for r in caplog.records)
+    res = json.loads((tmp_path / "results.json").read_text())["vaes_rnaseq"]
+    assert res == out and res["epochs"] == 2
+    assert all(math.isfinite(v) for v in res.values())
 
 
 def test_probe_geometry_compare(tmp_path):
