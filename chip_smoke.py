@@ -78,7 +78,7 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
      (784 -> 600 -> 2-D ball, geodesic decoder, batch 128, lr 5e-4,
      synthetic MNIST) with the wrapped and the Riemannian posterior, and
      ``UnifiedVAE`` at experiment 8's config (20,480 genes -> hidden 100:
-     K1 at 100 planes, on its runtime path; batch 64) and its Euclidean
+     K1 at 100 planes, on its wide kernel; batch 64) and its Euclidean
      arm: K1 at 100 planes against its plain version and timed; five
      steps card vs CPU for the four arms; each arm graphed against eager,
      bit for bit, with the graphed step's wall, busy and idle share; the
@@ -371,6 +371,44 @@ def _k1_check(rng, sizes, p: int, curvatures=(0.5, 1.0, 2.0), kernel=None):
     if err_in > 1e-5:
         _fail(f"gyroplane kernel: interior max abs err {err_in} > 1e-5 at P={p}")
     return err_in, err_bd
+
+
+def _k1_wide_check(label: str, sizes, p: int, curvatures, seed: int) -> None:
+    """K1's wide kernel at ``p`` planes: each shape must take it (no model's
+    shape reaches the fallback kernel), and its output must equal the
+    fallback kernel's (``gyroplane_distances_fallback_cuda``, not counted)
+    bit for bit at each B of ``sizes`` and each c of ``curvatures``,
+    interior and near the boundary, signed and unsigned, with and without
+    bias. Draws from its own generator, so the phase's draws stay as they
+    were."""
+    import torch
+
+    from hyperbolic_vae_tpu_torch.ops import gyroplane as g
+
+    rng = np.random.default_rng(seed)
+    calls = 0
+    for b in sizes:
+        for c in curvatures:
+            for region in ("interior", "boundary"):
+                x = torch.from_numpy(_points(rng, b, c, region)).cuda()
+                pts = torch.from_numpy(_points(rng, p, c, region)).cuda()
+                bias = torch.from_numpy(rng.uniform(-1, 1, p).astype(np.float32)).cuda()
+                path = g.kernel_path(x, pts)
+                if path != "wide":
+                    _fail(f"{label}: K1 at B={b} P={p} takes the {path} kernel, not the wide one")
+                for signed in (True, False):
+                    for bb in (None, bias):
+                        out = g.gyroplane_distances_cuda(x, pts, c, signed, bb)
+                        ref = g.gyroplane_distances_fallback_cuda(x, pts, c, signed, bb)
+                        torch.cuda.synchronize()
+                        differ = int((out.view(torch.int32) != ref.view(torch.int32)).sum())
+                        if differ:
+                            _fail(f"{label}: K1's wide kernel differs from the fallback in "
+                                  f"{differ} outputs at B={b} P={p} c={c} {region} "
+                                  f"signed={signed} bias={bb is not None}")
+                        calls += 1
+    print(f"{label}: K1 at P={p} takes the wide kernel at B={', '.join(map(str, sizes))}, "
+          f"bit for bit the fallback kernel's in {calls} calls", flush=True)
 
 
 def _k1_times(rng, b: int, p: int = P, c: float = 1.0) -> dict:
@@ -1530,8 +1568,10 @@ def rnaseq_phase():
 
       (a) K1 at 256 planes against its plain version (``_k1_check``'s
           rules) at B = 256 (every training, validation and serving batch)
-          and 25,600 (the IWAE decode), timed from Python and from graph
-          replay beside an empty launch of its grid;
+          and 25,600 (the IWAE decode), at both on the wide kernel and
+          bit for bit the fallback kernel's (``_k1_wide_check``), timed
+          from Python and from graph replay beside an empty launch of its
+          grid;
       (b) five eager f32 steps (``loss_from_eps``, autograd backward,
           RiemannianAdam) on the card and on the CPU from the same weights,
           batches and eps: every loss, first-step gradient and parameter
@@ -1607,6 +1647,7 @@ def rnaseq_phase():
     err_in, err_bd = _k1_check(rng, (BATCH, iwae_rows), RNA_HIDDEN)
     print(f"rnaseq (a): K1 at P={RNA_HIDDEN}: max_abs_err vs plain: interior {err_in:.3e}, "
           f"near boundary {err_bd:.3e}", flush=True)
+    _k1_wide_check("rnaseq (a)", (BATCH, iwae_rows), RNA_HIDDEN, (1.0,), seed=13)
     k1 = _k1_entry(err_in, err_bd, _k1_times(rng, BATCH, RNA_HIDDEN),
                    _k1_times(rng, iwae_rows, RNA_HIDDEN))
 
@@ -1856,7 +1897,9 @@ def conv_phase():
       (a) K1 at 512 planes, c = 1.4, against its plain version
           (``_k1_check``'s rules) at B = 256 (every training, validation and
           serving batch) and 128,000 (the IWAE decode, k_chunk 500 x 256
-          rows), and timed (``_k1_times``, beside an empty launch);
+          rows), at both on the wide kernel and bit for bit the fallback
+          kernel's (``_k1_wide_check``), and timed (``_k1_times``, beside
+          an empty launch);
       (b) five eager f32 steps of experiment 5 card vs CPU from numpy-seeded
           weights in JAX's tree (``_exp5_jax_tree``) carried through
           ``state_dict_from_jax_params`` (``_card_vs_cpu``'s rules);
@@ -1918,6 +1961,7 @@ def conv_phase():
     err_in, err_bd = _k1_check(rng, (BATCH, IWAE_ROWS), CONV_P, curvatures=(CONV_C,))
     print(f"conv (a): K1 at P={CONV_P}, c={CONV_C}: max_abs_err vs plain: interior "
           f"{err_in:.3e}, near boundary {err_bd:.3e}", flush=True)
+    _k1_wide_check("conv (a)", (BATCH, IWAE_ROWS), CONV_P, (CONV_C,), seed=23)
     k1 = _k1_entry(err_in, err_bd, _k1_times(rng, BATCH, CONV_P, CONV_C),
                    _k1_times(rng, IWAE_ROWS, CONV_P, CONV_C))
 
@@ -2217,16 +2261,17 @@ def pvae_phase():
     54,000 train, 6,000 val, 10,000 test rows) with the Riemannian and the
     wrapped posterior, and ``UnifiedVAE`` at experiment 8's config (20,480
     genes -> hidden 100 -> 2-D ball, c = 1, prior scale 2, beta 0.5,
-    logmap0_analytic, sigmoid, MSE; K1 at 100 planes, on its runtime
-    path) on the z-scored fake Jerby-Arnon data (8,192 cells: 5,734 train,
+    logmap0_analytic, sigmoid, MSE; K1 at 100 planes, on its wide
+    kernel) on the z-scored fake Jerby-Arnon data (8,192 cells: 5,734 train,
     1,228 val, 1,230 test rows), batch 64, and its Euclidean arm
     (``latent_curvature=None``):
 
       (a) K1 at P = 100, D = 2, c = 1 against its plain version
           (``_k1_check``'s rules) at B = 64 (every UnifiedVAE training and
           validation batch) and 25,600 (its IWAE decode, k_chunk 100 x 256
-          rows), timed from Python and from graph replay beside an empty
-          launch of its grid (``_k1_times``);
+          rows), at both on the wide kernel and bit for bit the fallback
+          kernel's (``_k1_wide_check``), timed from Python and from graph
+          replay beside an empty launch of its grid (``_k1_times``);
       (b) five eager f32 steps card vs CPU from numpy-seeded weights in
           JAX's tree (``_pvae_jax_tree``, ``_unified_jax_tree``) carried
           through ``state_dict_from_jax_params``, the same batches and
@@ -2319,6 +2364,7 @@ def pvae_phase():
     err_in, err_bd = _k1_check(rng, (UNI_BATCH, iwae_rows), UNI_HIDDEN, curvatures=(1.0,))
     print(f"pvae (a): K1 at P={UNI_HIDDEN}: max_abs_err vs plain: interior {err_in:.3e}, "
           f"near boundary {err_bd:.3e}", flush=True)
+    _k1_wide_check("pvae (a)", (UNI_BATCH, iwae_rows), UNI_HIDDEN, (1.0,), seed=33)
     k1 = _k1_entry(err_in, err_bd, _k1_times(rng, UNI_BATCH, UNI_HIDDEN),
                    _k1_times(rng, iwae_rows, UNI_HIDDEN))
 

@@ -50,12 +50,34 @@
 // What bounds it now is instruction issue (~50 instructions an output, most
 // of them the plain version's rounding sequence), not bytes: see PERF.md.
 //
-// The flagship's shape (D = 2, P a multiple of 4 up to 4 kMaxGroupsD2) takes
-// that path. Any other (P, D), or an x or out that is not aligned for the
-// vector accesses, takes the runtime path: one thread per (row, group of 4
-// planes) by a linear index, the points and |p|^2 in shared memory as the
-// first design laid them out (so any P the wrapper admits fits), the other
-// constants computed per output, and scalar stores.
+// Three kernels; choose() picks one from (P, D) and the alignment of x and
+// out:
+//
+//   * D = 2, P a multiple of 4 up to 4 kMaxGroupsD2 = 64 (the flagship's
+//     16): gyroplane_d2_kernel, the design above;
+//   * D = 2, P a multiple of 4 above 64 (UnifiedVAE's 100, RNASeqVAE's 256,
+//     experiments 5's and 7's 512): gyroplane_wide_kernel, the same design
+//     built for wide P. A block holds T groups of one tile of planes by
+//     256 / T rows. A tile holds up to kMaxTileGroups = 256 groups, so up
+//     to 1,024 planes take one tile; a wider P is cut into equal tiles
+//     over the grid's second dimension. The grid's first dimension is one
+//     wave of blocks (shared among the tiles), each walking the rows. The
+//     points never pass through shared memory, nothing is divided per
+//     output, the plane constants are computed once a thread. At P = 512
+//     and B = 128,000 the op moves 263 MB (78.6 us at 3.35 TB/s), and its
+//     loop issues 54 SASS instructions an output (48 of them distance()'s):
+//     ~106 us of issue for the 65.5 M outputs at 1.98 GHz. Issue, not
+//     bytes, bounds it (PERF.md);
+//   * anything else (D != 2, P not a multiple of 4, an x or out not
+//     aligned for the vector accesses): gyroplane_any_kernel, the first
+//     design's layout: one thread per (row, group of 4 planes) by a linear
+//     index, the points and |p|^2 in shared memory (so any P the wrapper
+//     admits fits), the other constants computed per output, and scalar
+//     stores. No model's shape takes it. Its launch is exported on its own
+//     (gyroplane_distances_launch_any), and the wide kernel gives its bits
+//     exactly: the same operations in the same order, <x, p> summed from 0
+//     as its loop sums it, and the bias added as its r += bias[j] adds it
+//     (a missing bias is -0, which leaves every value as it is, -0 too).
 //
 // The build passes -fmad=false, so nothing is fused that the source does not
 // write as fmaf: <x, p> (as cuBLAS computes the plain version's product),
@@ -69,8 +91,9 @@ namespace {
 
 constexpr float kMinNorm = 1e-15f;
 constexpr int kThreads = 256;
-constexpr int kGroup = 4;           // planes a thread: one 16-byte store
-constexpr int kMaxGroupsD2 = 16;    // the D = 2 path: P <= 64
+constexpr int kGroup = 4;            // planes a thread: one 16-byte store
+constexpr int kMaxGroupsD2 = 16;     // the D = 2 path: P <= 64
+constexpr int kMaxTileGroups = 256;  // the wide path: up to 1,024 planes a tile
 
 struct Consts {
   float c;               // c
@@ -182,6 +205,57 @@ gyroplane_d2_kernel(const float2* __restrict__ x, const float* __restrict__ poin
   }
 }
 
+// D = 2, P = 4 G planes (G > kMaxGroupsD2); x 8-byte and out 16-byte
+// aligned. Block (T, 256 / T): thread (t, r) of tile blockIdx.y keeps
+// group g = blockIdx.y T + t's constants in registers (a g past G, in the
+// last tile, has nothing to do) and walks rows blockIdx.x (256 / T) + r,
+// then every gridDim.x (256 / T) rows. Its first row's x is loaded before
+// the constants are, and each next row's before this one is computed, so
+// the loads wait behind arithmetic. Each output is rounded as
+// gyroplane_any_kernel rounds it (see the header).
+__global__ void __launch_bounds__(kThreads)
+gyroplane_wide_kernel(const float2* __restrict__ x, const float* __restrict__ points,
+                      const float* __restrict__ bias, float4* __restrict__ out, int B, int G,
+                      Consts k, int is_signed) {
+  const int g = blockIdx.y * blockDim.x + threadIdx.x;
+  int row = blockIdx.x * blockDim.y + threadIdx.y;
+  if (g >= G || row >= B) return;
+  float2 xv = x[row];
+  float px[kGroup], py[kGroup], p2[kGroup], omc[kGroup], c2p2[kGroup], pn[kGroup], b[kGroup];
+#pragma unroll
+  for (int i = 0; i < kGroup; ++i) {
+    const int j = kGroup * g + i;
+    px[i] = __ldg(points + 2 * j);
+    py[i] = __ldg(points + 2 * j + 1);
+    b[i] = bias != nullptr ? __ldg(bias + j) : -0.0f;
+    p2[i] = px[i] * px[i] + py[i] * py[i];
+    omc[i] = 1.0f - k.c * p2[i];
+    c2p2[i] = k.c_sq * p2[i];
+    pn[i] = sqrtf(fmaxf(p2[i], kMinNorm * kMinNorm));
+  }
+  // 32-bit rows (B < 2^31) and pointers stepped a row at a time
+  const int stride = gridDim.x * blockDim.y;
+  const float2* xr = x + row;
+  float4* o = out + (long long)row * G + g;
+  for (;;) {
+    const bool more = row < B - stride;
+    const float2 xn = more ? xr[stride] : xv;
+    const float x2 = xv.x * xv.x + xv.y * xv.y;
+    const float cx2 = k.c * x2;
+    float d[kGroup];
+#pragma unroll
+    for (int i = 0; i < kGroup; ++i)
+      d[i] = distance(fmaf(xv.y, py[i], fmaf(xv.x, px[i], 0.0f)), x2, cx2, p2[i], omc[i],
+                      c2p2[i], pn[i], k, is_signed) + b[i];
+    *o = make_float4(d[0], d[1], d[2], d[3]);
+    if (!more) break;
+    row += stride;
+    xr += stride;
+    o += (long long)stride * G;
+    xv = xn;
+  }
+}
+
 // Any P and D, any alignment: the points and |p|^2 in dynamic shared
 // memory, (P D + P) floats; G = ceil(P / 4) groups a row, the last masked.
 __global__ void __launch_bounds__(kThreads)
@@ -219,51 +293,111 @@ gyroplane_any_kernel(const float* __restrict__ x, const float* __restrict__ poin
   }
 }
 
+enum Path { kPathD2 = 0, kPathWide = 1, kPathAny = 2 };
+
+// The kernel for P planes of width D, x and out at these addresses.
+Path choose(const void* x, const void* out, int P, int D) {
+  const bool vec = D == 2 && P % kGroup == 0 && reinterpret_cast<uintptr_t>(x) % 8 == 0 &&
+                   reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  if (!vec) return kPathAny;
+  return P / kGroup <= kMaxGroupsD2 ? kPathD2 : kPathWide;
+}
+
 struct Launch {
-  bool d2;       // the D = 2 path
-  unsigned blocks;
+  Path path;
+  dim3 grid;
   dim3 block;
-  size_t smem;   // dynamic shared memory (the runtime path's)
+  size_t smem;   // dynamic shared memory (the fallback's)
   int groups;    // G, groups a row
 };
 
-// Blocks of the D = 2 kernel the card holds at once (one wave): its grid
-// is at most this, each thread walking several rows.
-int d2_wave_blocks() {
-  static int blocks = 0;
-  if (blocks == 0) {
+// Blocks of `kernel` at `threads` threads a block that the card holds at
+// once (one wave), cached by block size in cache[threads].
+template <typename Kernel>
+int wave_blocks(Kernel kernel, int threads, int* cache) {
+  if (cache[threads] == 0) {
     int dev = 0, sms = 0, per_sm = 0;
     cudaGetDevice(&dev);
     cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, gyroplane_d2_kernel, kThreads, 0);
-    blocks = sms * (per_sm > 0 ? per_sm : 1);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, 0);
+    cache[threads] = sms * (per_sm > 0 ? per_sm : 1);
   }
-  return blocks;
+  return cache[threads];
 }
+
+int d2_cache[kThreads + 1];
+int wide_cache[kThreads + 1];
 
 Launch plan(const void* x, const void* out, int B, int P, int D) {
   Launch l;
   l.groups = (P + kGroup - 1) / kGroup;
-  l.d2 = D == 2 && P % kGroup == 0 && l.groups <= kMaxGroupsD2 &&
-         reinterpret_cast<uintptr_t>(x) % 8 == 0 && reinterpret_cast<uintptr_t>(out) % 16 == 0;
-  if (l.d2) {
+  l.path = choose(x, out, P, D);
+  l.smem = 0;
+  if (l.path == kPathD2) {
+    // one wave of blocks, each thread walking several rows
     const int rows = kThreads / l.groups;
     const long long need = ((long long)B + rows - 1) / rows;
+    const int wave = wave_blocks(gyroplane_d2_kernel, kThreads, d2_cache);
     l.block = dim3(l.groups, rows);
-    l.blocks = (unsigned)(need < d2_wave_blocks() ? need : d2_wave_blocks());
-    l.smem = 0;
+    l.grid = dim3((unsigned)(need < wave ? need : wave));
+  } else if (l.path == kPathWide) {
+    // equal tiles of at most kMaxTileGroups groups; one wave shared among them
+    const int tiles = (l.groups + kMaxTileGroups - 1) / kMaxTileGroups;
+    const int t = (l.groups + tiles - 1) / tiles;
+    const int rows = kThreads / t;
+    const long long need = ((long long)B + rows - 1) / rows;
+    const int wave = wave_blocks(gyroplane_wide_kernel, t * rows, wide_cache) / tiles;
+    const long long per_tile = wave > 1 ? wave : 1;
+    l.block = dim3(t, rows);
+    l.grid = dim3((unsigned)(need < per_tile ? need : per_tile), tiles);
   } else {
     l.block = dim3(kThreads);
-    l.blocks = (unsigned)(((long long)B * l.groups + kThreads - 1) / kThreads);
+    l.grid = dim3((unsigned)(((long long)B * l.groups + kThreads - 1) / kThreads));
     l.smem = sizeof(float) * ((size_t)P * D + P);
   }
   return l;
+}
+
+Consts consts(double c) {
+  Consts k;
+  k.c = (float)c;
+  k.two_c = (float)(2.0 * c);
+  k.c_sq = (float)(c * c);
+  k.ln2_inv_sqrt_c = (float)(log(2.0) / sqrt(c));
+  k.two_sqrt_c = (float)(2.0 * sqrt(c));
+  k.max_d2 = (float)((1.0 - 1e-4) * (1.0 - 1e-4) / c);
+  return k;
+}
+
+// gyroplane_any_kernel at (B, P, D), whatever kernel plan() would pick.
+int launch_any(const void* x, const void* points, const void* bias, void* out, int B, int P,
+               int D, const Consts& k, int is_signed, cudaStream_t s) {
+  const int groups = (P + kGroup - 1) / kGroup;
+  const size_t smem = sizeof(float) * ((size_t)P * D + P);
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        gyroplane_any_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const unsigned blocks = (unsigned)(((long long)B * groups + kThreads - 1) / kThreads);
+  gyroplane_any_kernel<<<blocks, kThreads, smem, s>>>(
+      static_cast<const float*>(x), static_cast<const float*>(points),
+      static_cast<const float*>(bias), static_cast<float*>(out), B, P, D, groups, k, is_signed);
+  return (int)cudaGetLastError();
 }
 
 // does nothing: the floor under the kernel's time (see below)
 __global__ void empty_kernel() {}
 
 }  // namespace
+
+// The kernel that gyroplane_distances_launch runs for (B, P, D) with x and
+// out at these addresses: 0 the D = 2 kernel (P <= 64), 1 the wide D = 2
+// kernel, 2 the fallback; -1 for an empty shape. Touches no device.
+extern "C" int gyroplane_path(const void* x, const void* out, int B, int P, int D) {
+  if (B <= 0 || P <= 0 || D <= 0) return -1;
+  return (int)choose(x, out, P, D);
+}
 
 // An empty kernel launched with the grid, block and dynamic shared memory
 // that gyroplane_distances_launch uses for (B, P, D) on aligned tensors:
@@ -274,7 +408,7 @@ extern "C" int gyroplane_empty_launch(int B, int P, int D, void* stream) {
   // any 16-byte aligned address plans as an aligned tensor would
   const Launch l = plan(reinterpret_cast<const void*>(256), reinterpret_cast<const void*>(256),
                         B, P, D);
-  empty_kernel<<<l.blocks, l.block, l.smem, static_cast<cudaStream_t>(stream)>>>();
+  empty_kernel<<<l.grid, l.block, l.smem, static_cast<cudaStream_t>(stream)>>>();
   return (int)cudaGetLastError();
 }
 
@@ -285,29 +419,33 @@ extern "C" int gyroplane_distances_launch(const void* x, const void* points,
                                           int P, int D, double c,
                                           int is_signed, void* stream) {
   if (B <= 0 || P <= 0 || D <= 0) return (int)cudaErrorInvalidValue;
-  Consts k;
-  k.c = (float)c;
-  k.two_c = (float)(2.0 * c);
-  k.c_sq = (float)(c * c);
-  k.ln2_inv_sqrt_c = (float)(log(2.0) / sqrt(c));
-  k.two_sqrt_c = (float)(2.0 * sqrt(c));
-  k.max_d2 = (float)((1.0 - 1e-4) * (1.0 - 1e-4) / c);
+  const Consts k = consts(c);
   const float* bf = static_cast<const float*>(bias);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Launch l = plan(x, out, B, P, D);
-  if (l.d2) {
-    gyroplane_d2_kernel<<<l.blocks, l.block, 0, s>>>(
+  if (l.path == kPathD2) {
+    gyroplane_d2_kernel<<<l.grid, l.block, 0, s>>>(
         static_cast<const float2*>(x), static_cast<const float*>(points), bf,
         static_cast<float4*>(out), B, k, is_signed);
     return (int)cudaGetLastError();
   }
-  if (l.smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        gyroplane_any_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)l.smem);
-    if (e != cudaSuccess) return (int)e;
+  if (l.path == kPathWide) {
+    gyroplane_wide_kernel<<<l.grid, l.block, 0, s>>>(
+        static_cast<const float2*>(x), static_cast<const float*>(points), bf,
+        static_cast<float4*>(out), B, l.groups, k, is_signed);
+    return (int)cudaGetLastError();
   }
-  gyroplane_any_kernel<<<l.blocks, l.block, l.smem, s>>>(
-      static_cast<const float*>(x), static_cast<const float*>(points), bf,
-      static_cast<float*>(out), B, P, D, l.groups, k, is_signed);
-  return (int)cudaGetLastError();
+  return launch_any(x, points, bias, out, B, P, D, k, is_signed, s);
+}
+
+// The fallback kernel (gyroplane_any_kernel) at any (B, P, D), with
+// gyroplane_distances_launch's arguments: what the other kernels are held
+// to, bit for bit, on the card.
+extern "C" int gyroplane_distances_launch_any(const void* x, const void* points,
+                                              const void* bias, void* out, int B,
+                                              int P, int D, double c,
+                                              int is_signed, void* stream) {
+  if (B <= 0 || P <= 0 || D <= 0) return (int)cudaErrorInvalidValue;
+  return launch_any(x, points, bias, out, B, P, D, consts(c), is_signed,
+                    static_cast<cudaStream_t>(stream));
 }

@@ -17,7 +17,9 @@ Three functions:
     dims). The CPU path and the reference the kernel is checked against.
   * ``gyroplane_distances_cuda``: the wrapper of the hand-written CUDA
     kernel (``csrc/gyroplane.cu``), which replaces the TPU's Pallas
-    ``_gyroplane_kernel``. CUDA tensors only.
+    ``_gyroplane_kernel``. CUDA tensors only. ``kernel_path`` names which
+    of its three kernels a shape takes; ``gyroplane_distances_fallback_cuda``
+    forces the fallback, which the others equal bit for bit.
   * ``gyroplane_distances_fast``: the dispatcher the layer calls. It
     calls ``gyroplane_op``, K1 registered with ``torch.library`` as
     ``torch.ops.hvae_torch.gyroplane_distances``: the kernel for CUDA
@@ -111,21 +113,22 @@ class LaunchCounter:
 
 
 launches = LaunchCounter()
-_fn = None
+_fns: dict = {}
 
 
-def _launcher():
-    global _fn
-    if _fn is None:
+def _launcher(name: str = "gyroplane_distances_launch"):
+    """The C entry ``name`` of the built library, with the launch's
+    argument types (``gyroplane_distances_launch`` or ``..._launch_any``)."""
+    if name not in _fns:
         from hyperbolic_vae_tpu_torch.ops._build import load_library
 
-        fn = load_library("gyroplane").gyroplane_distances_launch
+        fn = getattr(load_library("gyroplane"), name)
         fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [
             ctypes.c_double, ctypes.c_int, ctypes.c_void_p,
         ]
         fn.restype = ctypes.c_int
-        _fn = fn
-    return _fn
+        _fns[name] = fn
+    return _fns[name]
 
 
 def gyroplane_distances_cuda(
@@ -169,6 +172,53 @@ def gyroplane_distances_cuda(
     if err != 0:
         raise RuntimeError(f"gyroplane kernel launch failed: cudaError {err}")
     launches.add()
+    return out
+
+
+_KERNELS = ("d2", "wide", "fallback")  # gyroplane_path's codes 0, 1, 2
+
+
+def kernel_path(x: torch.Tensor, points: torch.Tensor) -> str:
+    """The kernel that ``gyroplane_distances_cuda(x, points, ...)`` launches:
+    "d2" (D = 2, P a multiple of 4 up to 64), "wide" (D = 2, P a multiple
+    of 4 above 64) or "fallback" (any other shape, or an x not 8-byte
+    aligned). The output the wrapper allocates is always aligned. Needs the
+    built library, not a card."""
+    from hyperbolic_vae_tpu_torch.ops._build import load_library
+
+    fn = load_library("gyroplane").gyroplane_path
+    fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3
+    fn.restype = ctypes.c_int
+    code = fn(x.data_ptr(), 256, x.shape[0], points.shape[0], x.shape[1])
+    if code < 0:
+        raise ValueError(f"gyroplane kernel: no path for x {tuple(x.shape)}, points "
+                         f"{tuple(points.shape)}")
+    return _KERNELS[code]
+
+
+def gyroplane_distances_fallback_cuda(
+    x: torch.Tensor,
+    points: torch.Tensor,
+    c: float,
+    signed: bool = True,
+    bias: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """The fallback kernel (``gyroplane_any_kernel``) at any shape, for the
+    checks that hold the other kernels to it bit for bit. The tensors are
+    the wrapper's (x (B, D), points (P, D), bias (P,) or None, contiguous
+    f32 on one CUDA device, B > 0), unchecked. Not counted in ``launches``:
+    no path of the port calls it."""
+    B, D = x.shape
+    P = points.shape[0]
+    out = torch.empty((B, P), dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        err = _launcher("gyroplane_distances_launch_any")(
+            x.data_ptr(), points.data_ptr(), None if bias is None else bias.data_ptr(),
+            out.data_ptr(), B, P, D, float(c), int(bool(signed)),
+            torch.cuda.current_stream(x.device).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"gyroplane fallback kernel launch failed: cudaError {err}")
     return out
 
 

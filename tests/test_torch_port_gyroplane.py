@@ -172,7 +172,7 @@ def test_kernel_matches_plain_on_card(b, region):
 def test_kernel_runtime_shapes_match_plain_on_card(p, d, misaligned):
     """The kernel's other shapes against the plain version on the card,
     interior points, atol 1e-5: a width other than 2, a P that is not 4 x
-    a power of 2, more than 64 planes (the runtime path), and an x that is
+    a power of 2, more than 64 planes (the wide kernel), and an x that is
     not 8-byte aligned (a view one float into its storage)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")

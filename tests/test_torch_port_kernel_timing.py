@@ -49,3 +49,14 @@ def test_tools_refuse_to_run_without_a_card(monkeypatch, capsys):
     assert k3_path.main(["--tree", str(_build.CSRC.parents[1])]) == 1
     assert k1_compare.main(["--other", str(_build.CSRC)]) == 1
     assert "needs a CUDA card" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("argv", [["--planes", "512", "--c", "1.4"],
+                                  ["--planes", "100", "256", "512", "--c", "1.0", "1.4"]])
+def test_k1_compare_takes_planes_and_curvatures_and_refuses_without_a_card(
+        monkeypatch, capsys, argv):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert k1_compare.main(["--other", str(_build.CSRC), *argv]) == 1
+    assert "needs a CUDA card" in capsys.readouterr().err
+    with pytest.raises(SystemExit):
+        k1_compare.main(["--other", str(_build.CSRC), "--planes", "wide"])
