@@ -40,9 +40,10 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
      optimizer, and one K3 step synchronised.
   Each path (serve, fused train, K3 train, default train, eval, the
   RNA-seq family's fits, serve and eval, the conv families', the pvae
-  phase's, the interop phase's, the sweeps' and the deploy phase's) zeroes
-  the launch counters just before it and reads them just after; the graph
-  runner adds each captured kernel's launches on every replay.
+  phase's, the interop phase's, the sweeps', the deploy phase's and the
+  data-mesh phase's) zeroes the launch counters just before it and reads
+  them just after; the graph runner adds each captured kernel's launches
+  on every replay.
   5. North star: the reference protocol (at most 300 epochs, patience 10,
      ReduceLROnPlateau(0.2, 20, 5e-5), lr 1e-3, batch 256) on the graphed
      K3 path with ``epochs_per_dispatch=10``; fails unless the best
@@ -69,7 +70,7 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
      deterministic: K1 at 512 planes, c = 1.4, against its plain version
      and timed; five steps card vs CPU; each family (and experiment 5 in
      bf16) graphed against eager, bit for bit, with the graphed step's
-     wall, busy and idle share; a 10-epoch fit with checkpoints, served
+     wall, busy and idle share; a 6-epoch fit with checkpoints, served
      over HTTP from its best checkpoint, and the Euclidean controls from
      their own (the Autoencoder's generate 404); ``evaluate_iwae(k=5000)``
      on 1,024 test rows
@@ -86,7 +87,7 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
      319.970) and ``evaluate_iwae(k=5000)`` (within 1 % of JAX's
      -320.655, at least the test ELBO); the wrapped posterior's 10-epoch
      fit served over HTTP from its best checkpoint (generate 404);
-     UnifiedVAE's 10-epoch fit served from its best checkpoint and
+     UnifiedVAE's 6-epoch fit served from its best checkpoint and
      ``evaluate_iwae(k=5000, k_chunk=100)`` (exactly 250 K1 launches), the
      Euclidean arm's fit with none.
   10. Interop (``interop_phase``): a reference user's Lightning ``.ckpt``
@@ -128,11 +129,23 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
      imports the model classes, every endpoint bit for bit the live
      engine's, ``serve_http --bundle`` answering each method; a bf16
      bundle's parameters exact.
-  13. Summary: a ``{"kernels": [...]}`` line (K1 four times: at the
+  13. Data and meshes (``data_mesh_phase``): GEO's GSE115978 layout at
+     20,480 genes x 2,048 cells written from the fake factory, parsed by
+     the port's C++ parser (built with g++; timed, held to Python's parse)
+     and loaded by ``make_rnaseq_data_module(data_dir=...)`` with pandas
+     hidden (bit for bit the written arrays' module); experiment 8's CLI
+     on it with ``--use-mesh`` (K1 at 100 planes); graphed fits at world
+     size 1 over NCCL (the flagship's default and K3 paths, ``RNASeqVAE``
+     at 20,480 genes) bit for bit their unmeshed twins, with the NCCL
+     kernels and ops a step and the step's wall beside the unmeshed one;
+     experiment 6's ``--seed-mesh 1`` against the same sweep. The parquet
+     splits (``data/jerby_arnon_parquet.py``) are a host path that needs
+     pandas and pyarrow and does not run here.
+  14. Summary: a ``{"kernels": [...]}`` line (K1 four times: at the
      flagship's 16 planes, the RNA-seq family's 256, the conv family's
-     512 and UnifiedVAE's 100, each counted on its own paths, the interop
-     and deploy phases' among them, each with its op check ``via_op``),
-     then, as the last line, ``{"ok": true, "device": {...}}``.
+     512 and UnifiedVAE's 100, each counted on its own paths, the interop,
+     deploy and data-mesh phases' among them, each with its op check
+     ``via_op``), then, as the last line, ``{"ok": true, "device": {...}}``.
 
 Prints no result and exits 1 when CUDA is unavailable.
 """
@@ -1843,7 +1856,8 @@ CONV_P = 2 * CONV_BASE * (CONV_SHAPE[0] // 8) * (CONV_SHAPE[1] // 8)
 EXP5 = dict(data_shape=CONV_SHAPE, latent_dim=D, manifold_curvature=CONV_C,
             encoder_last_layer_module="mobius", decoder_first_layer_module="geoopt_gyroplane",
             loss_recon="mse", base_channels=CONV_BASE)
-CONV_FIT_EPOCHS, CONV_IWAE_K, CONV_TEST_ROWS = 10, 5000, 1024
+# the fit's epochs: 10 until PR 13, cut to 6 (two chunks of 3) to make room for data_mesh_phase
+CONV_FIT_EPOCHS, CONV_IWAE_K, CONV_TEST_ROWS = 6, 5000, 1024
 
 
 def _top(prof: dict) -> str:
@@ -1922,7 +1936,7 @@ def conv_phase():
           ``evaluate_iwae(k=1)``'s; its wall time, then K1's share of the
           kernel time under torch.profiler.
 
-    Cuts: 1,024 test rows, not 10,000; a 10-epoch fit, not a converged one;
+    Cuts: 1,024 test rows, not 10,000; a 6-epoch fit, not a converged one;
     two epochs a graphed/eager pair. Returns (K1's entry at 512 planes,
     launches by path)."""
     import tempfile
@@ -2048,7 +2062,7 @@ def conv_phase():
     with tempfile.TemporaryDirectory() as ckpt:
         # (d) the fit, and serving its best checkpoint
         _reset_launches()
-        res, trainer, wall = fit(make_exp5(), mnist, CONV_FIT_EPOCHS, epochs_per_dispatch=5,
+        res, trainer, wall = fit(make_exp5(), mnist, CONV_FIT_EPOCHS, epochs_per_dispatch=3,
                                  checkpoint_dir=ckpt)
         paths["conv_fit"] = _launches()
         vals = [h["val/loss_total"] for h in res.history]
@@ -2206,7 +2220,8 @@ PVAE_SHARE_LIMIT = RNA_SHARE_LIMIT / 10
 # experiment 8 (experiments/train_vaes_rnaseq.py:24-31): UnifiedVAE on the
 # z-scored fake Jerby-Arnon data, hidden 100 (K1's planes), latent 2, c = 1,
 # prior scale 2, beta 0.5, logmap0_analytic KL, sigmoid output, MSE, batch 64
-UNI_HIDDEN, UNI_BATCH, UNI_FIT_EPOCHS, UNI_K_CHUNK = 100, 64, 10, 100
+# UnifiedVAE's fits: 10 epochs until PR 13, cut to 6 (two chunks of 3) for data_mesh_phase
+UNI_HIDDEN, UNI_BATCH, UNI_FIT_EPOCHS, UNI_K_CHUNK = 100, 64, 6, 100
 EXP8 = dict(hidden_layer_dim=UNI_HIDDEN, latent_dim=D, prior_scale=2.0,
             posterior_scale="learned", learning_rate=1e-3, beta=0.5,
             kl_loss_method="logmap0_analytic", last_activation="sigmoid",
@@ -2294,7 +2309,7 @@ def pvae_phase():
           checkpoints, its best served over HTTP: embed, and reconstruct
           of 2,048 rows as octet-stream (bit for bit the restored model's
           decode of its posterior mean, batch by batch); generate 404;
-      (f) UnifiedVAE: a 10-epoch graphed fit with checkpoints, its best
+      (f) UnifiedVAE: a 6-epoch graphed fit with checkpoints, its best
           served over HTTP (embed, decode, reconstruct of 2,048 rows,
           generate), ``evaluate_iwae(k=5000, k_chunk=100)`` on the test
           split (exactly 250 K1 launches: 5 batch chunks x 50 k chunks;
@@ -2513,7 +2528,7 @@ def pvae_phase():
     # (f) UnifiedVAE at experiment 8's config, and its Euclidean arm
     with tempfile.TemporaryDirectory() as ckpt:
         _reset_launches()
-        res, trainer, wall = fit(make_unified(True), rna, UNI_FIT_EPOCHS, epochs_per_dispatch=5,
+        res, trainer, wall = fit(make_unified(True), rna, UNI_FIT_EPOCHS, epochs_per_dispatch=3,
                                  checkpoint_dir=ckpt)
         paths["unified_fit"] = _launches()
         vals = [h["val/loss_total"] for h in res.history]
@@ -2596,7 +2611,7 @@ def pvae_phase():
         _fail(f"pvae (f): the bound {bound} is not finite or below k = 1's {bound_1}")
     del trainer, res, best
     _reset_launches()
-    res, _, wall = fit(make_unified(False), rna, UNI_FIT_EPOCHS, epochs_per_dispatch=5)
+    res, _, wall = fit(make_unified(False), rna, UNI_FIT_EPOCHS, epochs_per_dispatch=3)
     paths["unified_fit_euclidean"] = _launches()
     vals = [h["val/loss_total"] for h in res.history]
     print(f"pvae (f): the Euclidean UnifiedVAE, {res.epochs_run} epochs graphed in {wall:.3f} s; "
@@ -3785,6 +3800,326 @@ def deploy_phase():
     return paths, via_op
 
 
+# data_mesh_phase: (a)'s GEO pair at the realistic 20,480 genes, cut from
+# GSE115978's ~7,186 cells to 2,048 (~170 MB of text) for the phase's time
+MESH_CELLS, MESH_EPOCHS = 2048, 2
+MESH_MNIST = (20000, 2000)  # (c)'s synthetic MNIST: 18,000 train, 2,000 val rows
+MESH_RNA_CELLS = 4096  # (c)'s RNASeqVAE cells: 2,867 train, 614 val rows
+MESH_SEEDS = ["42", "7"]
+def _write_geo_pair(d, x, cell_types, cell_ids, genes) -> list:
+    """GEO's layout of GSE115978 in ``d``: ``annotations.csv`` (cells,
+    cell.types, samples; the types with '?', NA spellings and the
+    vocabulary's synonyms) and ``tpm.csv`` (genes as rows, an empty first
+    header field, the counts as integers), the text built with numpy.
+    Returns the cell types as a reader must give them."""
+    from hyperbolic_vae_tpu_torch.data.jerby_arnon import nice_to_weirds
+
+    want, spelled = [], []
+    for i, t in enumerate(cell_types):
+        t = str(t)
+        if i % 13 == 0:
+            spelled.append(["?", "NA", "", "N/A", "null"][i // 13 % 5])
+            want.append("Unknown")
+        elif i % 3 == 0 and nice_to_weirds[t]:
+            spelled.append(nice_to_weirds[t][i % len(nice_to_weirds[t])])
+            want.append(t)
+        else:
+            spelled.append(t)
+            want.append(t)
+    with open(d / "annotations.csv", "w") as f:
+        f.write("cells,cell.types,samples\n")
+        f.writelines(f'{c},"{t}",Mel{i % 31}\n' for i, (c, t) in enumerate(zip(cell_ids, spelled)))
+    counts = x.T.astype(np.int64)  # (genes, cells)
+    if counts.min() < 0 or counts.max() > 999 or {len(g) for g in genes} != {10}:
+        _fail("data_mesh (a): the writer takes counts of up to 3 digits and 10-character genes")
+    n_genes, n_cells = counts.shape
+    buf = np.empty((n_genes, 11 + 4 * n_cells), np.uint8)
+    keep = np.ones(buf.shape, bool)
+    buf[:, :11] = np.frombuffer("".join(g + "," for g in genes).encode(), np.uint8).reshape(-1, 11)
+    body, kb = buf[:, 11:].reshape(n_genes, n_cells, 4), keep[:, 11:].reshape(n_genes, n_cells, 4)
+    for k, place in enumerate((100, 10, 1)):  # the digits, most significant first
+        body[..., k] = 48 + counts // place % 10
+    body[..., 3] = ord(",")
+    body[:, -1, 3] = ord("\n")
+    kb[..., 0], kb[..., 1] = counts >= 100, counts >= 10
+    with open(d / "tpm.csv", "wb") as f:
+        f.write(("," + ",".join(cell_ids) + "\n").encode())
+        f.write(buf[keep].tobytes())
+    return want
+
+
+def _collective_window(prog, n: int = 20) -> dict:
+    """After a fit: the step's graph (the K3 path's: its epoch graph)
+    replayed ``n`` times under torch.profiler (the device's kernels a step
+    and the NCCL kernels among them), and 3 steps of the same pieces run
+    eagerly under it with the host's ops, where an issued collective shows
+    as ``nccl:all_reduce`` whether or not it launches a kernel."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    gp = prog.program
+    names = [s.name for s in gp.segments]
+    name = "train epoch" if "train epoch" in names else "train step"
+    # an epoch's steps at most after its begin (the step counter indexes them)
+    n, per = (n, prog.ep.steps) if name == "train epoch" else (min(n, prog.ep.steps), 1)
+    if name == "train step":
+        gp.replay("begin epoch")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            gp.replay(name)
+        torch.cuda.synchronize()
+    rows = [(e.key, getattr(e, "self_device_time_total", 0.0), e.count)
+            for e in prof.key_averages() if str(e.device_type).endswith("CUDA")]
+    nccl = [r for r in rows if "nccl" in r[0].lower()]
+    prog.ep.begin()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as eager:
+        for _ in range(3):
+            prog.ep.step()
+        torch.cuda.synchronize()
+    ops = {e.key: e.count / 3 for e in eager.key_averages() if "nccl" in e.key.lower()}
+    steps = n * per
+    return {"graph": name, "nccl_kernels_a_step": sum(r[2] for r in nccl) / steps,
+            "nccl_ms_a_step": sum(r[1] for r in nccl) / 1e3 / steps,
+            "kernels_a_step": sum(r[2] for r in rows) / steps, "eager_nccl_a_step": ops}
+
+
+def data_mesh_phase():
+    """The Jerby-Arnon data paths and data and seed parallelism at world
+    size 1 over NCCL:
+
+      (a) the port's C++ CSV parser built with g++ (``data/native.py``;
+          ``is_available()`` must hold); GEO's pair written from
+          ``make_fake_arrays(structured=True)`` at 20,480 genes x 2,048
+          cells (``_write_geo_pair``); ``read_csv_matrix`` timed (wall, MB/s,
+          the host's CPUs) and held bit for bit to Python's ``float`` of 16
+          sampled rows; ``make_rnaseq_data_module(data_dir=...)`` with pandas
+          made unimportable, equal bit for bit to the module built from
+          the written arrays (sorted by cell id, the NA spellings
+          "Unknown", the synonyms their names, z-scored, split), its load
+          wall;
+      (b) experiment 8's CLI with ``--rnaseq-dir`` and ``--use-mesh`` on that
+          pair, 2 epochs (UnifiedVAE, K1 at 100 planes), its K1 launches
+          counted;
+      (c) graphed fits of 2 epochs with ``mesh=make_mesh()`` (NCCL, world
+          size 1) against the same fits without a mesh, bit for bit
+          (history, best and final parameters): the flagship's default path
+          (K1 at 16 planes), ``RNASeqVAE`` at 20,480 genes and hidden 256
+          (K1 at 256) and the flagship's K3 path (whole batch, no
+          collective); for each the step graph's node kinds meshed and
+          not, the NCCL kernels a step under torch.profiler, and the step's
+          wall meshed against unmeshed;
+      (d) experiment 6's CLI with ``--seeds 42 7 --seed-mesh 1`` against
+          the same sweep without it, bit for bit.
+
+    Returns launches by path for K1 at 16, 256 and 100 planes, K2 and K3."""
+    import importlib.util
+    import os
+    import tempfile
+    from pathlib import Path
+
+    import torch
+    import torch.distributed as dist
+
+    from hyperbolic_vae_tpu_torch.data import (
+        ArrayDataModule,
+        filter_gene_symbols,
+        make_data_module,
+        make_fake_arrays,
+        make_rnaseq_data_module,
+        native,
+        normalize_rnaseq,
+    )
+    from hyperbolic_vae_tpu_torch.data.core import split_three_way
+    from hyperbolic_vae_tpu_torch.data.jerby_arnon import _labels_to_int
+    from hyperbolic_vae_tpu_torch.experiments import (
+        train_vae_hyperbolic_mnist_gyroplane,
+        train_vaes_rnaseq,
+    )
+    from hyperbolic_vae_tpu_torch.models import GyroplaneVAE, RNASeqVAE
+    from hyperbolic_vae_tpu_torch.ops import make_fused_loss_fn, make_fused_train_step
+    from hyperbolic_vae_tpu_torch.parallel import make_mesh
+    from hyperbolic_vae_tpu_torch.train import Trainer
+
+    t_phase = time.perf_counter()
+    paths = {"k1_16": {}, "k1_256": {}, "k1_100": {}, "flagship_fused": {}, "flagship_train": {}}
+    # NCCL's bootstrap of a world of one on the loopback (the machine has no network)
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+
+    def run(call, *args, **kw):
+        """``call(*args, **kw)``'s result, wall and launches (counted from 0)."""
+        torch.cuda.synchronize()
+        _reset_launches()
+        t = time.perf_counter()
+        res = call(*args, **kw)
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t, _launches()
+
+    def k1_only(n):
+        return {"gyroplane_distances": n, "flagship_fused": 0, "flagship_train": 0}
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        # (a) the native parse and the pandas-free load
+        t0 = time.perf_counter()
+        if not native.is_available():
+            _fail(f"data_mesh (a): the C++ CSV parser did not build: {native.build_error()}")
+        build_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        x, types, genes, cells = make_fake_arrays(MESH_CELLS, RNA_GENES, structured=True)
+        want_types = _write_geo_pair(tmp, x, types, cells, genes)
+        write_s = time.perf_counter() - t0
+        tpm = tmp / "tpm.csv"
+        size = tpm.stat().st_size
+        t0 = time.perf_counter()
+        m = native.read_csv_matrix(tpm)
+        parse_s = time.perf_counter() - t0
+        if m.shape != (RNA_GENES, MESH_CELLS):
+            _fail(f"data_mesh (a): parsed {m.shape}, want {(RNA_GENES, MESH_CELLS)}")
+        sampled = set(np.random.default_rng(5).choice(RNA_GENES, 16, replace=False).tolist())
+        with open(tpm) as f:
+            f.readline()
+            for i, line in enumerate(f):
+                if i in sampled:
+                    plain = np.array([float(v) for v in line.rstrip("\n").split(",")[1:]],
+                                     np.float32)
+                    if not np.array_equal(plain.view(np.uint32), m[i].view(np.uint32)):
+                        _fail(f"data_mesh (a): row {i} differs from Python's parse")
+        del m
+        cpus = len(os.sched_getaffinity(0))
+        print(f"data_mesh (a): the C++ parser built in {build_s:.2f} s; wrote GEO's pair "
+              f"({size / 1e6:.1f} MB tpm.csv, {RNA_GENES} genes x {MESH_CELLS} cells) in "
+              f"{write_s:.2f} s; read_csv_matrix {parse_s:.3f} s = {size / 1e6 / parse_s:.1f} MB/s "
+              f"on {cpus} CPUs (os.cpu_count {os.cpu_count()}); 16 sampled rows bit for bit "
+              f"Python's float", flush=True)
+        # the module make_rnaseq_data_module builds from these arrays: cells in
+        # id order, the gene filter (which keeps every fake gene), z-scores
+        order = sorted(range(MESH_CELLS), key=lambda i: cells[i])
+        xw = normalize_rnaseq(filter_gene_symbols(x[order], genes)[0], "z_score").astype(np.float32)
+        y, vocab = _labels_to_int(np.asarray(want_types, dtype=object)[order])
+        (x_tr, y_tr), (x_va, y_va), (x_te, y_te) = split_three_way(xw, y, seed=42)
+        want = ArrayDataModule(x_tr, y_tr, x_va, y_va, x_te, y_te, batch_size=UNI_BATCH,
+                               label_names=vocab, name="jerby_arnon")
+        has_pandas = "pandas" in sys.modules or importlib.util.find_spec("pandas") is not None
+        blocked = sys.modules.get("pandas", "absent")
+        sys.modules["pandas"] = None  # the pandas-free route, whatever the machine has
+        try:
+            t0 = time.perf_counter()
+            got = make_rnaseq_data_module(batch_size=UNI_BATCH, data_dir=str(tmp))
+            load_s = time.perf_counter() - t0
+            for split in ("train", "val", "test"):
+                for a in ("x", "y"):
+                    g, w = getattr(got, f"{a}_{split}"), getattr(want, f"{a}_{split}")
+                    if g.dtype != w.dtype or not np.array_equal(g, w):
+                        _fail(f"data_mesh (a): {a}_{split} differs from the written arrays'")
+            if list(got.label_names) != vocab or got.name != want.name:
+                _fail(f"data_mesh (a): labels {got.label_names}, want {vocab}")
+            print(f"data_mesh (a): make_rnaseq_data_module(data_dir=...) without pandas "
+                  f"{load_s:.3f} s, bit for bit the written arrays' module ({len(got.x_train)} / "
+                  f"{len(got.x_val)} / {len(got.x_test)} cells, {got.x_train.shape[1]} genes, "
+                  f"labels {vocab}); pandas on this machine: {has_pandas}",
+                  flush=True)
+
+            # (b) experiment 8 on the CSVs, data parallel at world size 1
+            res, wall, n = run(train_vaes_rnaseq.main, [
+                "--rnaseq-dir", str(tmp), "--use-mesh", "--epochs", str(MESH_EPOCHS),
+                "--run-dir", str(tmp / "exp8"), "--log-level", "WARNING"])
+        finally:
+            if blocked == "absent":
+                del sys.modules["pandas"]
+            else:
+                sys.modules["pandas"] = blocked
+        if not dist.is_initialized() or "nccl" not in str(dist.get_backend()):
+            _fail("data_mesh (b): --use-mesh did not start an NCCL world")
+        want_k1 = (int(res["epochs"]) * (len(x_tr) // UNI_BATCH + -(-len(x_va) // UNI_BATCH))
+                   + -(-len(x_te) // UNI_BATCH))
+        if n != k1_only(want_k1) or not all(np.isfinite(v) for v in res.values()):
+            _fail(f"data_mesh (b): experiment 8 gave {res}, launches {n} (want {want_k1} K1)")
+        paths["k1_100"]["data_mesh_exp8_csv"] = n["gyroplane_distances"]
+        print(f"data_mesh (b): experiment 8 --rnaseq-dir --use-mesh (NCCL, world size "
+              f"{dist.get_world_size()}) {wall:.3f} s: {json.dumps(res)}; {want_k1} K1 at "
+              f"{UNI_HIDDEN} planes", flush=True)
+
+        # (c) graphed data-parallel fits at world size 1 against unmeshed ones
+        mesh = make_mesh()
+        mnist = make_data_module(batch_size=BATCH, synthetic=True, n_train=MESH_MNIST[0],
+                                 n_test=MESH_MNIST[1])
+        rna = _fake_cells(MESH_RNA_CELLS)
+
+        def flagship(m, k3=False):
+            model = GyroplaneVAE(generator=torch.Generator().manual_seed(0))
+            # the K3 path's val batches through K2, as train_phase's K3 fit
+            kw = ({"train_step_fn": make_fused_train_step(model),
+                   "loss_fn": make_fused_loss_fn(model)} if k3 else {})
+            return Trainer(model, max_epochs=MESH_EPOCHS, early_stopping_patience=None, mesh=m,
+                           **kw)
+
+        def rnaseq(m):
+            model = RNASeqVAE(RNA_GENES, RNA_HIDDEN, generator=torch.Generator().manual_seed(0))
+            return Trainer(model, max_epochs=MESH_EPOCHS, early_stopping_patience=None, mesh=m)
+
+        def steps_of(dm):
+            return len(dm.x_train) // dm.batch_size, -(-len(dm.x_val) // dm.batch_size)
+
+        for label, make, dm, key, want_fn in (
+                ("flagship default path", flagship, mnist, "k1_16",
+                 lambda s, v: k1_only(MESH_EPOCHS * (s + v))),
+                ("RNASeqVAE 20,480 genes", rnaseq, rna, "k1_256",
+                 lambda s, v: k1_only(MESH_EPOCHS * (s + v))),
+                ("flagship K3 path", functools.partial(flagship, k3=True), mnist, "flagship_train",
+                 lambda s, v: {"gyroplane_distances": 0, "flagship_fused": MESH_EPOCHS * v,
+                               "flagship_train": MESH_EPOCHS * s})):
+            t_meshed, t_plain = make(mesh), make(None)
+            r_meshed, wall_m, n = run(t_meshed.fit, dm)
+            r_plain, wall_p, _ = run(t_plain.fit, dm)
+            _same_fit(f"data_mesh (c) {label}", r_meshed, r_plain, "meshed", "unmeshed")
+            if n != want_fn(*steps_of(dm)):
+                _fail(f"data_mesh (c) {label}: launches {n}, want {want_fn(*steps_of(dm))}")
+            if key == "flagship_train":
+                paths["flagship_train"]["data_mesh_k3"] = n["flagship_train"]
+                paths["flagship_fused"]["data_mesh_k3"] = n["flagship_fused"]
+            else:
+                paths[key][f"data_mesh_{label.split()[0].lower()}"] = n["gyroplane_distances"]
+            pm = _profile_train(t_meshed.program, "cuda")
+            pp = _profile_train(t_plain.program, "cuda")
+            cm, cp = _collective_window(t_meshed.program), _collective_window(t_plain.program)
+            issued = sum(cm["eager_nccl_a_step"].values())
+            # a row-split step issues one all-reduce (K3's path none), unmeshed none
+            if issued != (0 if key == "flagship_train" else 1) or cp["eager_nccl_a_step"]:
+                _fail(f"data_mesh (c) {label}: NCCL ops a step {cm['eager_nccl_a_step']} meshed, "
+                      f"{cp['eager_nccl_a_step']} unmeshed")
+            print(f"data_mesh (c) {label}: meshed = unmeshed bit for bit ({MESH_EPOCHS} epochs, "
+                  f"fits {wall_m:.3f} / {wall_p:.3f} s, launches {json.dumps(n)}); "
+                  f"replaying the {cm['graph']} graph: NCCL kernels a step "
+                  f"{cm['nccl_kernels_a_step']:.2f} ({cm['nccl_ms_a_step']:.5f} ms), kernels a "
+                  f"step {cm['kernels_a_step']:.1f} against {cp['kernels_a_step']:.1f}; eager, "
+                  f"NCCL ops a step {json.dumps(cm['eager_nccl_a_step'])} against "
+                  f"{json.dumps(cp['eager_nccl_a_step'])}; step wall "
+                  f"{pm['wall_ms']:.4f} ms meshed against {pp['wall_ms']:.4f} ms ({pm['what']}), "
+                  f"busy {pm['busy_ms']:.4f} / {pp['busy_ms']:.4f} ms", flush=True)
+            del t_meshed, t_plain, r_meshed, r_plain
+
+        # (d) experiment 6's seed sweep on a seed mesh of one rank
+        argv = ["--synthetic", "--epochs", str(MESH_EPOCHS), "--n-train", str(MESH_MNIST[0]),
+                "--n-test", str(MESH_MNIST[1]), "--seeds", *MESH_SEEDS, "--log-level", "WARNING"]
+        meshed, wall_m, n = run(train_vae_hyperbolic_mnist_gyroplane.main,
+                                argv + ["--seed-mesh", "1", "--run-dir", str(tmp / "exp6m")])
+        plain, wall_p, _ = run(train_vae_hyperbolic_mnist_gyroplane.main,
+                               argv + ["--run-dir", str(tmp / "exp6")])
+        for seed, a, b in zip(MESH_SEEDS, meshed, plain):
+            _same_fit(f"data_mesh (d) seed {seed}", a, b, "seed mesh", "no mesh")
+        s, v = len(mnist.x_train) // BATCH, -(-len(mnist.x_val) // BATCH)
+        if n != k1_only(len(MESH_SEEDS) * MESH_EPOCHS * (s + v)):
+            _fail(f"data_mesh (d): launches {n}")
+        paths["k1_16"]["data_mesh_seed_mesh"] = n["gyroplane_distances"]
+        print(f"data_mesh (d): experiment 6 --seeds {' '.join(MESH_SEEDS)} --seed-mesh 1 = the "
+              f"sweep without it, bit for bit ({wall_m:.3f} / {wall_p:.3f} s; "
+              f"{n['gyroplane_distances']} K1)", flush=True)
+    dist.destroy_process_group()  # the world (b) started: NCCL's watchdog stops with it
+    print(f"data_mesh: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return paths
+
+
 def _rows_kernel_fit() -> None:
     """The rows kernels' shared memory at the flagship's 784 pixels against
     the wrapper's bound (which must not be below it), and how many of their
@@ -3892,6 +4227,11 @@ def main() -> int:
         k["launches_by_path"].update(deploy_paths[key])
     for k, p in ((kernels[0], P), (k1_pvae, UNI_HIDDEN), (k1_rna, RNA_HIDDEN), (k1_conv, CONV_P)):
         k["via_op"] = via_op[p]
+    # the CSV path and data and seed parallelism at world size 1 over NCCL
+    mesh_paths = timed("data_mesh", data_mesh_phase)
+    for k, key in ((kernels[0], "k1_16"), (k1_rna, "k1_256"), (k1_pvae, "k1_100"),
+                   (kernels[1], "flagship_fused"), (kernels[2], "flagship_train")):
+        k["launches_by_path"].update(mesh_paths[key])
     for k in kernels:
         k["launches"] = sum(k["launches_by_path"].values())
     print(f"phase seconds (build: from the start of the build): {json.dumps(seconds)}", flush=True)

@@ -21,7 +21,9 @@ the experiments' command lines in ``experiments``; seed and lane sweeps,
 streamed training and evaluation of host-resident splits
 (``Trainer.fit_streamed``), and serving bundles that need no model code
 (``serve.ExportedInferencer``, K1 being the registered op
-``torch.ops.hvae_torch.gyroplane_distances``).
+``torch.ops.hvae_torch.gyroplane_distances``); the Jerby-Arnon CSVs read
+without pandas (``data.native``'s C++ parser, ``csrc/csv_etl.cpp``), and
+data and seed parallelism over ``torch.distributed`` (``parallel``).
 """
 
 from hyperbolic_vae_tpu_torch.device import resolve_device

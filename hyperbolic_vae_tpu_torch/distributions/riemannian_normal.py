@@ -31,6 +31,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from hyperbolic_vae_tpu_torch.distributions import draws
 from hyperbolic_vae_tpu_torch.manifolds import PoincareBall, log_sinh_ratio
 
 __all__ = [
@@ -141,9 +142,11 @@ def log_sphere_area(dim: int) -> float:
     return math.log(2.0) + (dim / 2.0) * math.log(math.pi) - math.lgamma(dim / 2.0)
 
 
-def radius_uniform(generator: Optional[torch.Generator], shape, device=None) -> torch.Tensor:
-    """The radius sampler's uniforms: U(1e-6, 1 - 1e-6) of ``shape``."""
-    u = torch.rand(tuple(shape), generator=generator, device=device, dtype=torch.float32)
+def radius_uniform(generator: Optional[torch.Generator], shape, device=None,
+                   batch_axis: int = 0) -> torch.Tensor:
+    """The radius sampler's uniforms: U(1e-6, 1 - 1e-6) of ``shape`` (the
+    batch along ``batch_axis``)."""
+    u = draws.rand(shape, generator, device, batch_axis)
     return torch.clamp_min(u * (1.0 - 2.0 * _U_MIN) + _U_MIN, _U_MIN)
 
 
@@ -200,8 +203,9 @@ class RiemannianNormal:
         (sample_shape + loc.shape[:-1]), from one generator in that order."""
         shape = tuple(sample_shape) + tuple(self.loc.shape)
         dev = self.loc.device
-        g = torch.randn(shape, generator=generator, device=dev, dtype=torch.float32)
-        return g, radius_uniform(generator, shape[:-1], dev)
+        axis = len(tuple(sample_shape))
+        g = draws.randn(shape, generator, dev, batch_axis=axis)
+        return g, radius_uniform(generator, shape[:-1], dev, batch_axis=axis)
 
     def rsample_from_noise(self, g: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
         """The sample for given draws: ``g`` normals of the sample's shape

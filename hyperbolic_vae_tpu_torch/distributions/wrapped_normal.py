@@ -18,6 +18,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from hyperbolic_vae_tpu_torch.distributions import draws
 from hyperbolic_vae_tpu_torch.manifolds import BOUNDARY_EPS, PoincareBall
 
 
@@ -69,7 +70,7 @@ def wrapped_normal_rsample(
     The generator must live on loc's device."""
     loc, scale = torch.broadcast_tensors(loc, scale)
     shape = tuple(sample_shape) + tuple(loc.shape)
-    eps = torch.randn(shape, generator=generator, device=loc.device, dtype=torch.float32)
+    eps = draws.randn(shape, generator, loc.device, batch_axis=len(sample_shape))
     return wrapped_normal_rsample_from_eps(ball, loc, scale, eps)
 
 
@@ -100,8 +101,7 @@ class WrappedNormal:
         broadcast shape of loc and scale."""
         shape = tuple(sample_shape) + tuple(torch.broadcast_shapes(self.loc.shape,
                                                                    self.scale.shape))
-        return (torch.randn(shape, generator=generator, device=self.loc.device,
-                            dtype=torch.float32),)
+        return (draws.randn(shape, generator, self.loc.device, batch_axis=len(sample_shape)),)
 
     def rsample_from_eps(self, eps: torch.Tensor) -> torch.Tensor:
         return wrapped_normal_rsample_from_eps(self.manifold, self.loc, self.scale, eps)

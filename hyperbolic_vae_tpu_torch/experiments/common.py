@@ -8,6 +8,12 @@ and writes under ``runs_torch/<name>`` unless ``--run-dir`` says
 otherwise. A training CLI's results (test metrics, epochs, best val) go
 to ``RUN_DIR/results.json`` (``write_results``), which
 ``experiments/summarize_runs.py`` tabulates.
+
+``--use-mesh`` trains data parallel over the ``torch.distributed`` world
+(``Trainer(use_mesh=True)``): under ``torchrun --nproc_per_node=N`` one
+process a card, without it a world of size 1. ``setup`` joins the world
+first, so the model is built on this rank's card; rank 0 alone writes
+the results, logs and checkpoints.
 """
 
 from __future__ import annotations
@@ -15,6 +21,8 @@ from __future__ import annotations
 import argparse
 import json
 from pathlib import Path
+
+import torch.distributed as dist
 
 from hyperbolic_vae_tpu_torch.data import make_data_module
 from hyperbolic_vae_tpu_torch.utils.logging import configure_handler_for_script
@@ -49,14 +57,22 @@ def base_parser(description: str) -> argparse.ArgumentParser:
                    help="clip the gradients to this global L2 norm")
     p.add_argument("--ema-decay", type=float, default=None,
                    help="track an EMA of the parameters (the 'ema' checkpoint)")
+    p.add_argument("--use-mesh", action="store_true",
+                   help="data parallel over the torch.distributed world (torchrun; world size 1 "
+                        "without it)")
     p.add_argument("--device", type=str, default=None, help="cuda (default) or cpu")
     p.add_argument("--log-level", type=str, default="INFO")
     return p
 
 
 def setup(args, name: str) -> Path:
-    """Logging, and the run directory (created)."""
+    """Logging, the process group when a mesh is asked for (``--use-mesh``,
+    ``--seed-mesh``), and the run directory (created)."""
     configure_handler_for_script(args.log_level)
+    if getattr(args, "use_mesh", False) or getattr(args, "seed_mesh", 0):
+        from hyperbolic_vae_tpu_torch.parallel import init_distributed
+
+        init_distributed(args.device)
     run_dir = Path(args.run_dir) if args.run_dir else Path("runs_torch") / name
     run_dir.mkdir(parents=True, exist_ok=True)
     return run_dir
@@ -78,7 +94,7 @@ def trainer_extra(args, model=None) -> dict:
 
     extra = dict(epochs_per_dispatch=args.epochs_per_dispatch, moment_dtype=args.moment_dtype,
                  ema_decay=args.ema_decay, grad_accum_steps=args.grad_accum,
-                 grad_clip_norm=args.grad_clip_norm, device=args.device)
+                 grad_clip_norm=args.grad_clip_norm, use_mesh=args.use_mesh, device=args.device)
     if args.beta_warmup_epochs:
         if model is None or not hasattr(model, "beta"):
             raise SystemExit("--beta-warmup-epochs needs a model with a beta attribute")
@@ -97,9 +113,28 @@ def write_results(run_dir: Path, results: dict) -> dict:
     """``results`` ({tag: {metric: number} or None}) as
     ``RUN_DIR/results.json`` and on stdout; returns it."""
     out = {k: ({m: float(v) for m, v in r.items()} if r else None) for k, r in results.items()}
-    (Path(run_dir) / "results.json").write_text(json.dumps(out, indent=2))
-    print(json.dumps(out, indent=2), flush=True)
+    if is_writer():
+        (Path(run_dir) / "results.json").write_text(json.dumps(out, indent=2))
+        print(json.dumps(out, indent=2), flush=True)
     return out
+
+
+def is_writer() -> bool:
+    """True on the process that writes a run's files: rank 0 of the
+    world, or the only process."""
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
+def seed_mesh_of(args):
+    """``--seed-mesh N``: the seed mesh over N ranks (None without it)."""
+    if not getattr(args, "seed_mesh", 0):
+        return None
+    from hyperbolic_vae_tpu_torch.parallel import make_seed_mesh
+
+    try:
+        return make_seed_mesh(args.seed_mesh, device=args.device)
+    except ValueError as e:
+        raise SystemExit(f"--seed-mesh {args.seed_mesh}: {e}") from e
 
 
 def fit_and_test(args, run_dir: Path, model, dm, callbacks=(), block_rows: int = 0,

@@ -19,8 +19,10 @@ group are the lanes of one sweep (``Trainer(hp_model_fn=...)
 .fit_lane_sweep``), each lane its cell's sequential fit bit for bit, and
 each lane's best parameters get ``evaluate_iwae`` as the sequential path
 gives them (the weights come from ``--seed`` either way). Runs on the
-CUDA card (``--device cpu`` for a small run on the CPU). ``--seed-mesh``
-(lanes over several cards) is not ported yet.
+CUDA card (``--device cpu`` for a small run on the CPU). ``--seed-mesh N``
+spreads each sweep's lanes over N ranks (``torchrun --nproc_per_node=N``);
+``--use-mesh`` trains each cell data parallel over the world and does not
+compose with ``--lane-sweep``, as in JAX.
 """
 
 from __future__ import annotations
@@ -33,6 +35,7 @@ from typing import Optional
 import torch
 
 from hyperbolic_vae_tpu_torch.data import make_data_module
+from hyperbolic_vae_tpu_torch.experiments.common import is_writer, seed_mesh_of
 from hyperbolic_vae_tpu_torch.models import PvaeMLPVAE
 from hyperbolic_vae_tpu_torch.train import Trainer
 
@@ -108,11 +111,14 @@ def parse_args(argv: Optional[list] = None) -> argparse.Namespace:
     p.add_argument("--device", type=str, default=None, help="cuda (default) or cpu")
     p.add_argument("--lane-sweep", action="store_true",
                    help="each (posterior, latent dim) group's curvatures as lanes of one sweep")
-    p.add_argument("--seed-mesh", type=int, default=0, help="not ported yet (Queue 1 item 8)")
+    p.add_argument("--seed-mesh", type=int, default=0,
+                   help="with --lane-sweep: spread the lanes over this many ranks (torchrun)")
+    p.add_argument("--use-mesh", action="store_true",
+                   help="data parallel over the torch.distributed world (torchrun; world size 1 "
+                        "without it)")
     args = p.parse_args(argv)
-    if args.seed_mesh:
-        raise SystemExit("--seed-mesh (lanes over several cards) is not ported yet: ROADMAP.md "
-                         "Queue 1 item 8")
+    if args.lane_sweep and args.use_mesh:
+        raise SystemExit("--use-mesh does not compose with --lane-sweep")
     if args.real_mnist:
         args.synthetic = False
     return args
@@ -128,7 +134,7 @@ def _trainer(args, model, log_dir, **kw) -> Trainer:
     return Trainer(model, lr=args.lr, max_epochs=args.epochs, seed=args.seed,
                    early_stopping_patience=None if args.no_early_stopping else 10,
                    log_dir=log_dir, epochs_per_dispatch=args.epochs_per_dispatch,
-                   device=args.device, **kw)
+                   use_mesh=args.use_mesh, device=args.device, **kw)
 
 
 def _scores(args, trainer, dm, result) -> dict:
@@ -159,6 +165,7 @@ def lane_sweep(args, run_dir, dm) -> dict:
     """The curvatures of each (posterior, latent dim) group as the lanes of
     one sweep; ``evaluate_iwae`` of each lane's best parameters by a
     Trainer of its own model (the sequential path's draws)."""
+    seed_mesh = seed_mesh_of(args)
     results = {}
     for posterior in args.posteriors:
         for d in args.latent_dims:
@@ -168,7 +175,7 @@ def lane_sweep(args, run_dir, dm) -> dict:
             lanes = [{"manifold_curvature": c, "seed": args.seed} for c in args.curvatures]
             trainer = _trainer(args, model_fn(lanes[0]), str(run_dir / f"{posterior}_d{d}"),
                                hp_model_fn=model_fn)
-            sweep = trainer.fit_lane_sweep(dm, lanes)
+            sweep = trainer.fit_lane_sweep(dm, lanes, seed_mesh=seed_mesh)
             for lane, r in zip(lanes, sweep):
                 tag = f"{posterior}_c{lane['manifold_curvature']}_d{d}"
                 results[tag] = _scores(args, _trainer(args, model_fn(lane), None), dm, r)
@@ -178,11 +185,17 @@ def lane_sweep(args, run_dir, dm) -> dict:
 
 def main(argv: Optional[list] = None) -> dict:
     args = parse_args(argv)
+    if args.use_mesh or args.seed_mesh:
+        from hyperbolic_vae_tpu_torch.parallel import init_distributed
+
+        init_distributed(args.device)  # before the models: this rank's card
     run_dir = Path(args.run_dir)
     run_dir.mkdir(parents=True, exist_ok=True)
     dm = make_data_module(batch_size=args.batch_size, data_dir=args.real_mnist or "data",
                           synthetic=args.synthetic, n_train=args.n_train, n_test=args.n_test)
     results = (lane_sweep if args.lane_sweep else sequential)(args, run_dir, dm)
+    if not is_writer():
+        return results
     (run_dir / "replicate_results.json").write_text(json.dumps(results, indent=2))
     print(json.dumps(results, indent=2))
     cmp = published_comparison(results, args.iwae_k)

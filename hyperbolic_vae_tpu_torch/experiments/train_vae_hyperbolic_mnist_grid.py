@@ -8,8 +8,11 @@ every cell is its own ``Trainer.fit`` (a cell that raises is recorded as
 cells of each shape group (latent dim, encoder head, decoder first
 layer) are the lanes of one sweep (``Trainer(hp_model_fn=...)
 .fit_lane_sweep``), evaluated by ``evaluate_lanes``; a group that raises
-is recorded as ``null``. Each lane is its cell's fit, bit for bit. Test
-metrics of every cell go to ``RUN_DIR/grid_results.json``.
+is recorded as ``null``. Each lane is its cell's fit, bit for bit.
+``--seed-mesh N`` spreads each sweep's lanes over N ranks (``torchrun
+--nproc_per_node=N``); ``--use-mesh`` trains each cell data parallel and
+does not compose with ``--lane-sweep``, as in JAX. Test metrics of every
+cell go to ``RUN_DIR/grid_results.json``.
 
     python -m hyperbolic_vae_tpu_torch.experiments.train_vae_hyperbolic_mnist_grid \\
         --synthetic --lane-sweep --encoder-lasts mobius --decoder-firsts geoopt_gyroplane
@@ -26,7 +29,14 @@ from typing import Optional
 import torch
 
 from hyperbolic_vae_tpu_torch.data import pad_to_32
-from hyperbolic_vae_tpu_torch.experiments.common import base_parser, mnist_data, setup, trainer_extra
+from hyperbolic_vae_tpu_torch.experiments.common import (
+    base_parser,
+    is_writer,
+    mnist_data,
+    seed_mesh_of,
+    setup,
+    trainer_extra,
+)
 from hyperbolic_vae_tpu_torch.models import HyperbolicImageVAE
 from hyperbolic_vae_tpu_torch.train import Trainer
 from hyperbolic_vae_tpu_torch.train.ensemble import evaluate_lanes
@@ -48,6 +58,10 @@ def _trainer(args, model, log_dir, **kw):
 
 def lane_sweep_grid(args, run_dir, dm) -> dict:
     """One ``fit_lane_sweep`` a shape group, each group isolated."""
+    if args.use_mesh:
+        raise SystemExit("--use-mesh (data parallelism) does not compose with --lane-sweep; "
+                         "shard the lanes themselves with --seed-mesh N")
+    seed_mesh = seed_mesh_of(args)
     results = {}
     for latent_dim, enc, dec in itertools.product(args.latent_dims, args.encoder_lasts,
                                                   args.decoder_firsts):
@@ -61,7 +75,7 @@ def lane_sweep_grid(args, run_dir, dm) -> dict:
             trainer = _trainer(args, model_fn(lanes[0]), str(run_dir / group),
                                hp_model_fn=model_fn)
             t0 = time.perf_counter()
-            sweep = trainer.fit_lane_sweep(dm, lanes)
+            sweep = trainer.fit_lane_sweep(dm, lanes, seed_mesh=seed_mesh)
             tests = evaluate_lanes(trainer, dm, sweep, lanes, "test")
             wall = time.perf_counter() - t0
             for lane, r, test in zip(lanes, sweep, tests):
@@ -107,12 +121,9 @@ def parse_args(argv: Optional[list] = None):
                    default=["geoopt_gyroplane", "geodesic"])
     p.add_argument("--lane-sweep", action="store_true",
                    help="each shape group's (curvature x beta) cells as lanes of one sweep")
-    p.add_argument("--seed-mesh", type=int, default=0, help="not ported yet (Queue 1 item 8)")
-    args = p.parse_args(argv)
-    if args.seed_mesh:
-        raise SystemExit("--seed-mesh (lanes over several cards) is not ported yet: ROADMAP.md "
-                         "Queue 1 item 8")
-    return args
+    p.add_argument("--seed-mesh", type=int, default=0,
+                   help="with --lane-sweep: spread the lanes over this many ranks (torchrun)")
+    return p.parse_args(argv)
 
 
 def main(argv: Optional[list] = None) -> dict:
@@ -121,8 +132,9 @@ def main(argv: Optional[list] = None) -> dict:
     dm = pad_to_32(mnist_data(args))
     results = (lane_sweep_grid if args.lane_sweep else sequential_grid)(args, run_dir, dm)
     out = {k: ({m: float(v) for m, v in r.items()} if r else None) for k, r in results.items()}
-    (run_dir / "grid_results.json").write_text(json.dumps(out, indent=2))
-    print(json.dumps(out, indent=2), flush=True)
+    if is_writer():
+        (run_dir / "grid_results.json").write_text(json.dumps(out, indent=2))
+        print(json.dumps(out, indent=2), flush=True)
     return out
 
 

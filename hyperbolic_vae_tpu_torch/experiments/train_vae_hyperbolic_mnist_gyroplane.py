@@ -19,7 +19,13 @@ from typing import Optional
 
 import torch
 
-from hyperbolic_vae_tpu_torch.experiments.common import base_parser, mnist_data, setup, trainer_extra
+from hyperbolic_vae_tpu_torch.experiments.common import (
+    base_parser,
+    mnist_data,
+    seed_mesh_of,
+    setup,
+    trainer_extra,
+)
 from hyperbolic_vae_tpu_torch.models import GyroplaneVAE
 from hyperbolic_vae_tpu_torch.train import (
     GenerateCallback,
@@ -37,15 +43,16 @@ def _model(args, dm, seed: int):
 
 
 def train_seed_sweep(args, run_dir, dm) -> list:
-    """``--seeds``: one lane a seed (``fit_ensemble``)."""
-    if args.seed_mesh:
-        raise SystemExit("--seed-mesh (lanes over several cards) is not ported yet: ROADMAP.md "
-                         "Queue 1 item 8")
+    """``--seeds``: one lane a seed (``fit_ensemble``), spread over
+    ``--seed-mesh`` ranks."""
+    if args.use_mesh:
+        raise SystemExit("--use-mesh (data parallelism) does not compose with --seeds; shard "
+                         "the sweep itself with --seed-mesh N instead")
     model = _model(args, dm, args.seeds[0])
     trainer = Trainer(model, lr=args.lr, max_epochs=args.epochs,
                       early_stopping_patience=None if args.no_early_stopping else 10,
                       log_dir=str(run_dir), **trainer_extra(args, model))
-    results = trainer.fit_ensemble(dm, args.seeds)
+    results = trainer.fit_ensemble(dm, args.seeds, seed_mesh=seed_mesh_of(args))
     for seed, r in zip(args.seeds, results):
         print(f"seed={seed} epochs={r.epochs_run} best {trainer.monitor}={r.best_metric:.4f}",
               flush=True)
@@ -79,7 +86,8 @@ def parse_args(argv: Optional[list] = None):
     p.add_argument("--prior-scale", type=float, default=1.0)
     p.add_argument("--seeds", type=int, nargs="+", default=None,
                    help="a seed sweep: every seed a lane of one sweep (fit_ensemble)")
-    p.add_argument("--seed-mesh", type=int, default=0, help="not ported yet (Queue 1 item 8)")
+    p.add_argument("--seed-mesh", type=int, default=0,
+                   help="with --seeds: spread the lanes over this many ranks (torchrun)")
     return p.parse_args(argv)
 
 

@@ -1,19 +1,24 @@
 """Experiment 8: the unified configurable VAE on Jerby-Arnon scRNA-seq
-(the fake Poisson data; or MNIST with ``--dataset mnist``).
+(GEO's CSVs, or the fake Poisson data; or MNIST with ``--dataset mnist``).
 
 Port of ``experiments/train_vaes_rnaseq.py``: z-score normalisation,
 latent 2, c = 1.0 (K1 at ``--hidden-dim`` gyroplanes on the card),
 prior scale 2.0, beta 0.5, ``kl_loss_method="logmap0_analytic"``, hidden
 100, batch 64; ``--structured-fake`` draws per-cell-type marker-gene
 modules, and ``--n-genes`` sets the fake data's width (2,000 genes by
-default, over 1,000 cells; the realistic width is 20,480 genes). Only the fake
-data: the CSV readers are ROADMAP Queue 1 item 6. ``--stream-block-rows
-M`` trains with ``Trainer.fit_streamed``: the train split stays on the
-host and streams through the device in blocks of M rows.
-``--tp``/``--fsdp``/``--use-mesh`` (Queue 1 item 8) exit naming the item
-that brings them. The results go to ``RUN_DIR/results.json``.
+default, over 1,000 cells; the realistic width is 20,480 genes).
+``--rnaseq-dir DIR`` trains on ``DIR/annotations.csv`` and ``DIR/tpm.csv``
+as GEO writes them (``make_rnaseq_data_module(data_dir=...)``: the C++
+parser, no pandas needed). ``--stream-block-rows M`` trains with
+``Trainer.fit_streamed``: the train split stays on the host and streams
+through the device in blocks of M rows. ``--use-mesh`` trains data
+parallel over the ``torch.distributed`` world; ``--tp``/``--fsdp``
+(parameter sharding, ROADMAP Queue 1 item 8b) exit naming the item. The
+results go to ``RUN_DIR/results.json``.
 
     python -m hyperbolic_vae_tpu_torch.experiments.train_vaes_rnaseq --fake --structured-fake
+    torchrun --nproc_per_node=N -m hyperbolic_vae_tpu_torch.experiments.train_vaes_rnaseq \
+        --rnaseq-dir DIR --use-mesh
 """
 
 from __future__ import annotations
@@ -40,7 +45,7 @@ def parse_args(argv: Optional[list] = None):
     p.add_argument("--structured-fake", action="store_true",
                    help="fake data with per-type marker-gene modules (latent figures)")
     p.add_argument("--rnaseq-dir", type=str, default=None,
-                   help="the Jerby-Arnon CSVs: not ported yet (ROADMAP Queue 1 item 6)")
+                   help="a directory holding GEO's annotations.csv and tpm.csv (GSE115978)")
     p.add_argument("--n-genes", type=int, default=2000, help="fake data: genes a cell")
     p.add_argument("--normalize", type=str, default="z_score")
     p.add_argument("--latent-dim", type=int, default=2)
@@ -51,17 +56,17 @@ def parse_args(argv: Optional[list] = None):
     p.add_argument("--kl-method", type=str, default="logmap0_analytic")
     p.add_argument("--recon", type=str, default="MSE")
     p.add_argument("--last-activation", type=str, default="sigmoid")
-    p.add_argument("--tp", type=int, default=1, help="not ported yet (Queue 1 item 8)")
-    p.add_argument("--fsdp", action="store_true", help="not ported yet (Queue 1 item 8)")
-    p.add_argument("--use-mesh", action="store_true", help="not ported yet (Queue 1 item 8)")
+    p.add_argument("--tp", type=int, default=1, help="not ported yet (Queue 1 item 8b)")
+    p.add_argument("--fsdp", action="store_true", help="not ported yet (Queue 1 item 8b)")
     p.add_argument("--stream-block-rows", type=int, default=0,
                    help="keep the train split on the host and stream it in blocks of this "
                         "many rows (Trainer.fit_streamed)")
     p.set_defaults(batch_size=64)
     args = p.parse_args(argv)
-    if args.tp > 1 or args.fsdp or args.use_mesh:
-        raise SystemExit("--tp, --fsdp and --use-mesh (sharding over several cards) are not "
-                         "ported yet: ROADMAP.md Queue 1 item 8")
+    if args.tp > 1 or args.fsdp:
+        raise SystemExit("--tp and --fsdp (parameter sharding over several cards) are not "
+                         "ported yet: ROADMAP.md Queue 1 item 8b; --use-mesh trains data "
+                         "parallel")
     return args
 
 

@@ -29,6 +29,7 @@ from hyperbolic_vae_tpu_torch.distributions import (
     wrapped_normal_rsample_from_eps,
 )
 from hyperbolic_vae_tpu_torch.manifolds import PoincareBall
+from hyperbolic_vae_tpu_torch.distributions import draws
 
 __all__ = [
     "combine_chunked_bounds",
@@ -85,8 +86,7 @@ def latent_log_weights(
 ) -> torch.Tensor:
     """``latent_log_weights_from_eps`` for eps (k, B, latent) ~ N(0, I)
     drawn from ``generator`` (on mu's device)."""
-    eps = torch.randn((k,) + tuple(mu.shape), generator=generator, device=mu.device,
-                      dtype=torch.float32)
+    eps = draws.randn((k,) + tuple(mu.shape), generator, mu.device, batch_axis=1)
     return latent_log_weights_from_eps(ball, mu, scale, eps, prior_scale, loglik_of_z)
 
 

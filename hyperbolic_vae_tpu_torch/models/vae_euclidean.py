@@ -45,6 +45,7 @@ from hyperbolic_vae_tpu_torch.models.iwae import (
 from hyperbolic_vae_tpu_torch.models.sampling import prior_sample_from_eps
 from hyperbolic_vae_tpu_torch.models.vae_gyroplane import _dense, _gelu, _lecun_
 from hyperbolic_vae_tpu_torch.models.vae_rnaseq import _dtype
+from hyperbolic_vae_tpu_torch.distributions import draws
 
 def conv(n_in: int, n_out: int, stride: int, generator) -> nn.Conv2d:
     """3x3 conv, padding 1 (flax ``Conv((3, 3), strides, padding=1)``)."""
@@ -202,7 +203,7 @@ class EuclideanVAE(nn.Module):
 
     def forward(self, x, generator: Optional[torch.Generator] = None):
         mu, log_var = self.encode(x)
-        eps = torch.randn(mu.shape, generator=generator, device=mu.device, dtype=torch.float32)
+        eps = draws.randn(mu.shape, generator, mu.device)
         z = mu + eps * torch.exp(0.5 * log_var)
         return {"mu": mu, "log_var": log_var, "z": z, "x_hat": self.decode(z)}
 
@@ -227,8 +228,7 @@ class EuclideanVAE(nn.Module):
     def iwae(self, x, k: int = 256, generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """Per-sample K-importance-weighted log p(x) bound (B,) for eps
         (k, B, latent) ~ N(0, I) from ``generator`` (on the model's device)."""
-        eps = torch.randn((k, x.shape[0], self.latent_dim), generator=generator,
-                          device=self.device, dtype=torch.float32)
+        eps = draws.randn((k, x.shape[0], self.latent_dim), generator, self.device, batch_axis=1)
         return self.iwae_from_eps(x, eps)
 
     def iwae_from_eps(self, x, eps) -> torch.Tensor:

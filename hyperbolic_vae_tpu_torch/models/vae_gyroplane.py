@@ -41,6 +41,7 @@ from hyperbolic_vae_tpu_torch.manifolds import PoincareBall
 from hyperbolic_vae_tpu_torch.models.iwae import iwae_bound, latent_log_weights_from_eps
 from hyperbolic_vae_tpu_torch.models.sampling import prior_sample_from_eps
 from hyperbolic_vae_tpu_torch.nn import PoincareHyperplanes
+from hyperbolic_vae_tpu_torch.distributions import draws
 
 # flax lecun_normal: variance_scaling(1, fan_in, truncated_normal), whose
 # std is corrected for the truncation at two standard deviations
@@ -187,8 +188,7 @@ class GyroplaneVAE(nn.Module):
         """Per-sample K-importance-weighted log p(x) bound (B,) for eps
         (k, B, latent) ~ N(0, I) drawn from ``generator`` (on the model's
         device)."""
-        eps = torch.randn((k, x.shape[0], self.latent_dim), generator=generator,
-                          device=self.device, dtype=torch.float32)
+        eps = draws.randn((k, x.shape[0], self.latent_dim), generator, self.device, batch_axis=1)
         return self.iwae_from_eps(x, eps)
 
     def iwae_from_eps(self, x, eps) -> torch.Tensor:

@@ -58,6 +58,7 @@ from hyperbolic_vae_tpu_torch.models.vae_euclidean import (
 from hyperbolic_vae_tpu_torch.models.vae_gyroplane import _dense, _gelu
 from hyperbolic_vae_tpu_torch.models.vae_rnaseq import _dtype
 from hyperbolic_vae_tpu_torch.nn import GeodesicLayer, MobiusLayer, PoincareHyperplanes
+from hyperbolic_vae_tpu_torch.distributions import draws
 
 ENCODER_LAST = ("linear", "mobius")
 DECODER_FIRST = ("linear", "geodesic", "mobius", "geoopt_gyroplane")
@@ -133,6 +134,12 @@ class HyperbolicImageVAE(nn.Module):
         gradient accumulation would rescale (the Trainer refuses it);
         ``bernoulli_elbo`` is per-sample means throughout."""
         return "per_sample_mean" if self.loss_recon == "bernoulli_elbo" else "batch_sum"
+
+    @property
+    def mixed_loss_reduction(self) -> bool:
+        """``bernoulli``'s reconstruction is a mean over rows and pixels and
+        its KL a sum over rows: no one weight splits it over a data mesh."""
+        return self.loss_recon == "bernoulli"
 
     @property
     def encoder_out_channels(self) -> int:
@@ -220,8 +227,7 @@ class HyperbolicImageVAE(nn.Module):
     def iwae(self, x, k: int = 256, generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """Per-sample K-importance-weighted log p(x) bound (B,) for eps
         (k, B, latent) ~ N(0, I) from ``generator`` (on the model's device)."""
-        eps = torch.randn((k, x.shape[0], self.latent_dim), generator=generator,
-                          device=self.device, dtype=torch.float32)
+        eps = draws.randn((k, x.shape[0], self.latent_dim), generator, self.device, batch_axis=1)
         return self.iwae_from_eps(x, eps)
 
     def iwae_from_eps(self, x, eps) -> torch.Tensor:

@@ -55,6 +55,7 @@ from hyperbolic_vae_tpu_torch.models.iwae import (
 from hyperbolic_vae_tpu_torch.models.sampling import prior_sample_from_eps
 from hyperbolic_vae_tpu_torch.models.vae_gyroplane import _dense, _gelu
 from hyperbolic_vae_tpu_torch.nn import PoincareHyperplanes
+from hyperbolic_vae_tpu_torch.distributions import draws
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -208,8 +209,7 @@ class RNASeqVAE(nn.Module):
         """Per-sample K-importance-weighted log p(x) bound (B,) for eps
         (k, B, latent) ~ N(0, I) drawn from ``generator`` (on the model's
         device)."""
-        eps = torch.randn((k, x.shape[0], self.latent_dim), generator=generator,
-                          device=self.device, dtype=torch.float32)
+        eps = draws.randn((k, x.shape[0], self.latent_dim), generator, self.device, batch_axis=1)
         return self.iwae_from_eps(x, eps)
 
     def iwae_from_eps(self, x, eps) -> torch.Tensor:

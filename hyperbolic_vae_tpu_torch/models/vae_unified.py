@@ -57,6 +57,7 @@ from hyperbolic_vae_tpu_torch.models.iwae import (
 from hyperbolic_vae_tpu_torch.models.sampling import prior_sample_from_eps
 from hyperbolic_vae_tpu_torch.models.vae_gyroplane import _dense, _gelu
 from hyperbolic_vae_tpu_torch.nn import PoincareHyperplanes
+from hyperbolic_vae_tpu_torch.distributions import draws
 
 __all__ = ["UnifiedVAE", "VAE"]
 
@@ -193,8 +194,8 @@ class UnifiedVAE(nn.Module):
         return mu + scale * eps
 
     def _eps(self, shape, generator):
-        return torch.randn(tuple(shape), generator=generator, device=self.device,
-                           dtype=torch.float32)
+        # (B, latent) or (K, B, latent): the batch is the second-to-last axis
+        return draws.randn(shape, generator, self.device, batch_axis=len(shape) - 2)
 
     def forward(self, x, generator: Optional[torch.Generator] = None):
         mu, scale = self.encode(x)

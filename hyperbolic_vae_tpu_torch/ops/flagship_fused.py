@@ -370,6 +370,9 @@ def make_fused_loss_fn(model):
         lt, rm, km = fused_flagship_loss(params_tuple(m), batch, eps, **cfg)
         return {"loss_total": lt, "recon_loss": rm, "kl_loss": km}
 
+    # K2 has no row split: under a data mesh every rank runs it on the
+    # whole global batch (parallel/data_parallel.py)
+    loss_fn.whole_batch = True
     return loss_fn
 
 

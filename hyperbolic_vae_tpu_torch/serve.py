@@ -27,8 +27,14 @@ configuration), or is passed in. Image families take and return
 channels-last (n, H, W, C) arrays on every endpoint; the Autoencoder's
 ``encode`` answers its code alone, and neither it nor PvaeMLPVAE has a
 ``generate``.
-Everything runs under ``torch.inference_mode()``. Sharded serving
-(``mesh``) is not ported yet.
+Everything runs under ``torch.inference_mode()``.
+
+``mesh`` (``parallel.make_mesh``) makes every call a collective: each
+rank of the mesh calls it with the same rows, computes its share of
+every batch (the batch size is rounded up to a multiple of the data axis,
+as JAX rounds it, and sub-batch row buckets are off) and the outputs are
+all-gathered, so every rank returns the whole answer. ``generate`` draws
+each batch's eps whole and decodes the rank's rows of it.
 
 Exported bundles (JAX ``export_programs`` / ``ExportedInferencer``):
 ``Inferencer.export_programs(out_dir)`` writes each (method, dispatch
@@ -93,16 +99,22 @@ class Inferencer:
     # endpoints whose input / output arrays are data-shaped
     _DATA_IN = ("encode", "reconstruct")
     _DATA_OUT = ("decode", "reconstruct", "generate")
+    mesh = None  # a bundle's engine serves unsharded
 
     def __init__(self, model, batch_size: int = 256,
                  max_batches_per_dispatch: int = 16, io_dtype=None,
-                 sub_batch_buckets: bool = True, device: DeviceLike = None):
-        self.device = resolve_device(device)
+                 sub_batch_buckets: bool = True, device: DeviceLike = None, mesh=None):
+        self.mesh = mesh
+        self.device = resolve_device(device if mesh is None or device is not None
+                                     else mesh.device)
         self.model = model.to(self.device).eval()
         # the feature shapes of warmup's and export's inputs
         self.latent_dim = int(model.latent_dim)
         self.data_shape = model_data_shape(model) if getattr(model, "data_shape", None) else None
         self.batch_size = int(batch_size)
+        if mesh is not None:
+            n_data = mesh.shape["data"]
+            self.batch_size = -(-self.batch_size // n_data) * n_data
         if io_dtype is not None:
             name = str(io_dtype).removeprefix("torch.")
             if name not in _IO_DTYPES:
@@ -122,7 +134,8 @@ class Inferencer:
             self._buckets.append(b)
             b *= 2
         self._buckets.append(self.max_batches_per_dispatch)
-        self.sub_batch_buckets = bool(sub_batch_buckets)
+        # sub-batch rows cannot split evenly over a mesh's data axis
+        self.sub_batch_buckets = bool(sub_batch_buckets) and mesh is None
         self._row_buckets = []
         if self.sub_batch_buckets:
             r = 1
@@ -305,9 +318,23 @@ class Inferencer:
         with torch.inference_mode():
             xd = xt.to(self.device)
             if k > 1:
-                out = self._fn_k(method, k)(xd.reshape((k, b) + tuple(xd.shape[1:])))
+                xk = xd.reshape((k, b) + tuple(xd.shape[1:]))
+                out = self._on_shares(self._fn_k(method, k), xk, axis=1)
                 return self._fetch(out, n_keep, k)
-            return self._fetch(self._fn(method)(xd), n_keep)
+            return self._fetch(self._on_shares(self._fn(method), xd, axis=0), n_keep)
+
+    def _on_shares(self, fn, x: torch.Tensor, axis: int):
+        """``fn(x)``; under a mesh ``fn`` of this rank's rows of each batch
+        (the batch along ``axis``), the outputs all-gathered in row order."""
+        if self.mesh is None:
+            return fn(x)
+        from hyperbolic_vae_tpu_torch.parallel.data_parallel import gather_even
+        from hyperbolic_vae_tpu_torch.parallel.mesh import share
+
+        n, i = self.mesh.shape["data"], self.mesh.coord("data")
+        lo, hi = share(x.shape[axis], n, i)
+        out = fn(x.narrow(axis, lo, hi - lo))
+        return tuple(gather_even(a, self.mesh.group("data"), n, axis) for a in out)
 
     def _run_padded(self, method: str, x: np.ndarray):
         """Serve a request of any size within the bounded program set:
@@ -366,9 +393,10 @@ class Inferencer:
                     for i in range(start, start + bucket)
                 ]
                 if bucket == 1:
-                    out = self._fn("generate")(eps[0])[0]
+                    out = self._on_shares(self._fn("generate"), eps[0], axis=0)[0]
                 else:
-                    out = self._fn_k("generate", bucket)(torch.stack(eps))[0]
+                    out = self._on_shares(self._fn_k("generate", bucket), torch.stack(eps),
+                                          axis=1)[0]
                     out = out.reshape((bucket * b,) + tuple(out.shape[2:]))
                 pieces.append(self._host_restore(out.cpu()))
         return np.concatenate(pieces, axis=0)[: int(n)]

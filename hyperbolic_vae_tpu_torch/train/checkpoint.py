@@ -59,13 +59,20 @@ def restore_model(ckpt_dir: str, name: str = "best", device: DeviceLike = None):
 
 
 class CheckpointManager:
-    def __init__(self, directory: str):
+    """Checkpoints in ``directory``. ``read_only``: saves are skipped (the
+    ranks of a mesh other than the one that writes read the same files)."""
+
+    def __init__(self, directory: str, read_only: bool = False):
         self.directory = Path(directory).absolute()
-        self.directory.mkdir(parents=True, exist_ok=True)
+        self.read_only = read_only
+        if not read_only:
+            self.directory.mkdir(parents=True, exist_ok=True)
         # set by the Trainer: embedded in every best/last/named metadata file
         self.model_config: Optional[dict] = None
 
     def _write(self, name: str, payload: Any, meta: dict) -> None:
+        if self.read_only:
+            return
         tmp = self.directory / f"{name}.pt.tmp"
         torch.save(payload, tmp)
         tmp.replace(self.directory / f"{name}.pt")  # a reader never sees half a file

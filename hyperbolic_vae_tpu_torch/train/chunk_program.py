@@ -37,6 +37,7 @@ import numpy as np
 import torch
 
 from hyperbolic_vae_tpu_torch.optim.schedules import _f32
+from hyperbolic_vae_tpu_torch.parallel.data_parallel import row_shard
 from hyperbolic_vae_tpu_torch.train.cuda_graph import GraphedProgram, Segment
 from hyperbolic_vae_tpu_torch.train.epoch_program import EpochProgram
 
@@ -135,7 +136,7 @@ class ChunkProgram:
             model, optimizer, x_train, x_val, batch_size, generator, shuffle=trainer.shuffle,
             loss_fn=loss_fn, train_step_fn=trainer.train_step_fn,
             finite_guard=trainer.finite_guard, grad_accum_steps=trainer.grad_accum_steps,
-            grad_clip_norm=trainer.grad_clip_norm)
+            grad_clip_norm=trainer.grad_clip_norm, shard=row_shard(trainer, batch_size))
         self.ctrl = init_ctrl(trainer, start_epoch, dev)
         self.params = dict(model.state_dict())
         self.best = {k: v.detach().clone() for k, v in self.params.items()}
@@ -160,8 +161,11 @@ class ChunkProgram:
             Segment(end + (ep.end_val, self.end_epoch), 1, "val tail and epoch end")]
         state = (self.masked + [g["lr"] for g in optimizer.param_groups] + list(self.ctrl.values())
                  + list(self.best.values()) + [self.krow] + list(self.hp.values()))
-        self.program = GraphedProgram(segments, device=dev, generator=generator, state=state,
-                                      capture_stream=stream)
+        # under a mesh the step's all-reduce is captured too; NCCL's watchdog
+        # thread queries events meanwhile, which a global capture forbids
+        self.program = GraphedProgram(
+            segments, device=dev, generator=generator, state=state, capture_stream=stream,
+            capture_error_mode="thread_local" if trainer.mesh is not None else "global")
 
     def _train_segments(self) -> list:
         ep = self.ep

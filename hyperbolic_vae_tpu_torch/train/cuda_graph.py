@@ -21,7 +21,9 @@ device each segment becomes one ``torch.cuda.CUDAGraph`` at the first
      ``capture_stream`` (a sweep's lane stream) captures on that stream,
      so that the graphs of two lanes, replayed at once on their own
      streams, never share cuBLAS's per-stream workspace; each graph has
-     its own memory pool. Python's cyclic garbage collector is held off
+     its own memory pool. ``capture_error_mode`` is
+     ``torch.cuda.graph``'s ("thread_local" where another thread, NCCL's
+     watchdog, may query the card meanwhile). Python's cyclic garbage collector is held off
      during the capture: a collection there can destroy a dead program's
      graphs, which invalidates the capture in progress
      (``torch.cuda.graph`` no longer collects before it captures).
@@ -96,13 +98,15 @@ class GraphedProgram:
 
     def __init__(self, segments: Sequence[Segment], *, device: torch.device,
                  generator: torch.Generator, state: Sequence[torch.Tensor],
-                 capture_stream: Optional[torch.cuda.Stream] = None):
+                 capture_stream: Optional[torch.cuda.Stream] = None,
+                 capture_error_mode: str = "global"):
         self.segments = [s for s in segments if s.repeat > 0 and s.pieces]
         self.device = torch.device(device)
         self.generator = generator
         self.state = list(state)
         self.graphed = self.device.type == "cuda" and not _EAGER
         self.capture_stream = capture_stream
+        self.capture_error_mode = capture_error_mode
         self._graphs: Optional[List[tuple]] = None
 
     @property
@@ -176,7 +180,8 @@ class GraphedProgram:
                 graph.register_generator_state(self.generator)
                 before = _counts()
                 try:
-                    with torch.cuda.graph(graph, stream=self.capture_stream):
+                    with torch.cuda.graph(graph, stream=self.capture_stream,
+                                          capture_error_mode=self.capture_error_mode):
                         for piece in seg.pieces:
                             piece()
                 except Exception as e:

@@ -19,21 +19,33 @@ dispatch and masks its result: the same values). The sweep saves every
 lane's resume state at each chunk boundary under ``"ensemble_state"``
 (with a ``checkpoint_dir``), stops gracefully at a chunk boundary
 (``preempt_signals``, ``max_wall_seconds``) and continues bit for bit
-with ``resume=True``. Callbacks and ``seed_mesh`` are not supported.
+with ``resume=True``. Callbacks are not supported.
+
+``seed_mesh`` (``parallel.make_seed_mesh``) spreads the lanes over its
+ranks, S / N on each, each rank's lanes on its own streams as above, with
+no collective until one gather of the results at the end, so every rank
+returns every lane's ``TrainResult``. S must divide by N, and a Trainer
+with a data mesh refuses a sweep, as in JAX. Each rank saves and resumes
+its own lanes (``ensemble_state_rank<r>of<N>``; at N = 1 the unit is
+``ensemble_state``, the unmeshed sweep's) and stops gracefully on its
+own; each writes its own lanes' metric files.
 """
 
 from __future__ import annotations
 
 import copy
+import dataclasses
 import logging
 import math
 import time
 from typing import Optional, Sequence
 
 import torch
+import torch.distributed as dist
 
 from hyperbolic_vae_tpu_torch.data.core import ArrayDataModule
 from hyperbolic_vae_tpu_torch.optim import EarlyStopping, ReduceLROnPlateau
+from hyperbolic_vae_tpu_torch.parallel.mesh import SEED_AXIS
 from hyperbolic_vae_tpu_torch.train.evaluation import evaluate
 from hyperbolic_vae_tpu_torch.train.metrics import MetricLogger
 from hyperbolic_vae_tpu_torch.train.trainer import _Run, init_params_of
@@ -78,19 +90,34 @@ def fit_ensemble(trainer, dm: ArrayDataModule, seeds: Sequence[int],
     ``samples_per_sec`` on every result is the sweep's aggregate: train
     samples over all lanes a second after the first chunk (which
     captures the graphs); when the sweep is one chunk, the chunk is
-    replayed once from its first state to time it, and put back.
-    ``seed_mesh`` (lanes over several cards) is not ported."""
+    replayed once from its first state to time it, and put back; under a
+    ``seed_mesh`` the ranks' aggregates summed. ``seed_mesh``: the lanes
+    spread over its ranks (module docstring)."""
+    if trainer.mesh is not None:
+        raise ValueError("fit_ensemble is single-device; it does not compose with a mesh "
+                         "(spread the lanes with seed_mesh instead)")
     if trainer.callbacks:
         raise ValueError("fit_ensemble does not support callbacks")
     if trainer.monitor.partition("/")[0] not in ("val", "train"):
         raise ValueError(f"fit_ensemble requires a val/ or train/ monitor, got {trainer.monitor}")
-    if seed_mesh is not None:
-        raise ValueError("seed_mesh (lanes sharded over several cards) is not ported yet: "
-                         "ROADMAP.md Queue 1 item 8 (parallel/)")
     seeds = [int(s) for s in seeds]
     if not seeds:
         raise ValueError("fit_ensemble needs at least one seed")
     n = len(seeds)
+    n_ranks, rank, unit_name = 1, 0, STATE_UNIT
+    if seed_mesh is not None:
+        if SEED_AXIS not in seed_mesh.shape:
+            raise ValueError(f"seed_mesh needs a {SEED_AXIS!r} axis (make_seed_mesh), got "
+                             f"{seed_mesh.shape}")
+        n_ranks, rank = seed_mesh.shape[SEED_AXIS], seed_mesh.coord(SEED_AXIS)
+        if n % n_ranks:
+            raise ValueError(f"{n} seeds do not shard evenly over {n_ranks} devices")
+        if seed_mesh.device != trainer.device:
+            raise ValueError(f"the seed mesh's rank runs on {seed_mesh.device}, the Trainer on "
+                             f"{trainer.device}")
+        if n_ranks > 1:
+            unit_name = f"{STATE_UNIT}_rank{rank}of{n_ranks}"
+    mine = range(rank * (n // n_ranks), (rank + 1) * (n // n_ranks))
     fingerprint = None
     if lane_hparams is not None:
         if trainer.hp_model_fn is None:
@@ -116,19 +143,19 @@ def fit_ensemble(trainer, dm: ArrayDataModule, seeds: Sequence[int],
     if trainer._early_patience:
         trainer.early_stopping = EarlyStopping(patience=trainer._early_patience)
     lrs = [float(lr) for lr in lane_lrs] if lane_lrs is not None else [trainer.lr] * n
-    models = []
-    for i in range(n):
+    models = {}
+    for i in mine:
         model = (trainer.hp_model_fn(lane_hparams[i]) if lane_hparams is not None
                  else copy.deepcopy(trainer.model))
         if model.device != trainer.device:
             raise ValueError(f"lane {i}'s model is on {model.device}, the Trainer on "
                              f"{trainer.device}")
-        models.append(model)
+        models[i] = model
 
     mgr = trainer._ckpt_mgr
     saved, start_chunk = None, 0
-    if resume and mgr is not None and mgr.has_state(STATE_UNIT):
-        saved, meta = mgr.restore_state(device=trainer.device, name=STATE_UNIT)
+    if resume and mgr is not None and mgr.has_state(unit_name):
+        saved, meta = mgr.restore_state(device=trainer.device, name=unit_name)
         if meta["seeds"] != seeds:
             raise ValueError(f"ensemble resume: saved seeds {meta['seeds']} != requested {seeds}")
         if meta["lanes"] != fingerprint:
@@ -138,15 +165,15 @@ def fit_ensemble(trainer, dm: ArrayDataModule, seeds: Sequence[int],
                 f"train the old grid's state under the new hyperparameters")
         start_chunk = int(meta["chunk_next"])
 
-    trainer._preflight(dm, models)
+    trainer._preflight(dm, list(models.values()))
     x_train, x_val = trainer._stage(dm.x_train), trainer._stage(dm.x_val)
-    on_streams = trainer.device.type == "cuda" and trainer._lane_streams and n > 1
+    on_streams = trainer.device.type == "cuda" and trainer._lane_streams and len(mine) > 1
     runs = []
     try:
-        for i in range(n):
+        for j, i in enumerate(mine):
             lane = _lane_trainer(trainer, models[i], seeds[i], lrs[i])
             lane.epochs_per_dispatch = k
-            unit = saved["lanes"][i] if saved is not None else None
+            unit = saved["lanes"][j] if saved is not None else None
             runs.append(_Run(
                 lane, dm.batch_size, x_train, x_val,
                 params=None if unit else init_params_of(models[i], seeds[i], trainer.device),
@@ -154,28 +181,49 @@ def fit_ensemble(trainer, dm: ArrayDataModule, seeds: Sequence[int],
                 stream=torch.cuda.Stream(trainer.device) if on_streams else None))
         trainer.lane_programs = [r.prog for r in runs]
         sps = _sweep(trainer, runs, k, start_chunk,
-                     {"seeds": seeds, "lanes": fingerprint})
+                     {"seeds": seeds, "lanes": fingerprint}, unit_name)
         if trainer.metric_logger.log_dir:
             # per-lane metric files (lanes of a grid may share a seed)
-            for i, (seed, r) in enumerate(zip(seeds, runs)):
-                sub = f"lane_{i}" if lane_hparams is not None else f"seed_{seed}"
+            for i, r in zip(mine, runs):
+                sub = f"lane_{i}" if lane_hparams is not None else f"seed_{seeds[i]}"
                 ml = MetricLogger(str(trainer.metric_logger.log_dir / sub))
                 for row in r.history:
                     ml.log_scalars(int(row["epoch"]), row)
                 ml.close()
         trainer.metric_logger.close()
         results = []
-        for i, r in enumerate(runs):
+        for i, r in zip(mine, runs):
             # the in-graph best tracking must agree with the host's reading
             if (math.isfinite(r.best_metric) or math.isfinite(r.ig_best)) and (
                     r.ig_best != r.best_metric):
                 raise RuntimeError(f"lane {i}: best {r.ig_best} on the device, "
                                    f"{r.best_metric} in the history")
             results.append(r.result(sps, trainer._stop_reason))
-        return results
+        return _gather_lanes(seed_mesh, results, trainer.device) if seed_mesh else results
     finally:
         for r in runs:
             r.close()
+
+
+def _gather_lanes(seed_mesh, results: list, device) -> list:
+    """Every rank's lanes, in lane order, on every rank (the sweep's one
+    collective): tensors through the host, ``samples_per_sec`` the sum of
+    the ranks' aggregates."""
+    def host(tree):
+        return {k: v.cpu() for k, v in tree.items()} if tree is not None else None
+
+    mine = [dataclasses.replace(r, params=host(r.params), best_params=host(r.best_params),
+                                ema_params=host(r.ema_params)) for r in results]
+    parts = [None] * seed_mesh.shape[SEED_AXIS]
+    dist.all_gather_object(parts, mine, group=seed_mesh.group(SEED_AXIS))
+    total = sum(part[0].samples_per_sec for part in parts)
+
+    def dev(tree):
+        return {k: v.to(device) for k, v in tree.items()} if tree is not None else None
+
+    return [dataclasses.replace(r, params=dev(r.params), best_params=dev(r.best_params),
+                                ema_params=dev(r.ema_params), samples_per_sec=total)
+            for part in parts for r in part]
 
 
 def issue_lanes(programs: Sequence, k: int) -> None:
@@ -194,7 +242,8 @@ def issue_lanes(programs: Sequence, k: int) -> None:
         pending = left
 
 
-def _sweep(trainer, runs: list, k: int, start_chunk: int, meta: dict) -> float:
+def _sweep(trainer, runs: list, k: int, start_chunk: int, meta: dict,
+           unit_name: str = STATE_UNIT) -> float:
     """The sweep's chunk loop; returns the aggregate train samples/s."""
     mgr = trainer._ckpt_mgr
     per_epoch = runs[0].samples_per_epoch
@@ -227,7 +276,7 @@ def _sweep(trainer, runs: list, k: int, start_chunk: int, meta: dict) -> float:
                 state, lane_meta = r.resume_state()
                 lanes.append({"state": state, "meta": lane_meta})
             mgr.save_state({"lanes": lanes}, dict(meta, chunk_next=chunk_start + k_eff),
-                           name=STATE_UNIT)
+                           name=unit_name)
         if all(r.stopped for r in runs):
             break
         # a completed sweep is never interrupted

@@ -9,7 +9,10 @@ finite guard is a device-side flag handed to the optimizer, and the
 caller fetches the means once per chunk. On the card the pieces are
 replayed from CUDA graphs (``train/cuda_graph.py``). The default step
 also takes JAX's gradient accumulation (A microbatches, one eps draw
-each) and global-norm gradient clipping.
+each) and global-norm gradient clipping. Under a data mesh
+(``parallel/data_parallel.py``) a step trains on this rank's rows of the
+global batch, its draws cut from the global batch's, and sums the
+gradients and metrics over the ranks before the guard and the update.
 
 Randomness: one ``torch.Generator`` on the device, drawn in a fixed
 order: the epoch's batch order, then one eps (B, latent) per step from
@@ -21,6 +24,8 @@ the same draws.
 from __future__ import annotations
 
 from typing import Callable, Dict, Optional
+
+import contextlib
 
 import torch
 
@@ -60,15 +65,23 @@ def _grads_and_metrics(model, optimizer, batch, generator, loss_fn, grad_accum_s
 
 def train_step(model, optimizer, batch, generator, loss_fn: Callable = default_loss_fn,
                finite_guard: bool = True, grad_accum_steps: int = 1,
-               grad_clip_norm: Optional[float] = None) -> Dict[str, torch.Tensor]:
+               grad_clip_norm: Optional[float] = None, shard=None) -> Dict[str, torch.Tensor]:
     """Loss, backward, optimizer step. With ``finite_guard`` a step whose
     loss or global gradient norm is not finite changes nothing (params,
     moments, step count) and counts 1 in ``skipped_steps``; the decision
     stays on the device. ``grad_accum_steps``: see ``_grads_and_metrics``.
     ``grad_clip_norm`` c scales the (Euclidean) gradients by one shared
     min(1, c / ||g||) before the optimizer (torch ``clip_grad_norm_``
-    semantics, as JAX's Trainer)."""
-    metrics = _grads_and_metrics(model, optimizer, batch, generator, loss_fn, grad_accum_steps)
+    semantics, as JAX's Trainer). ``shard`` (a ``data_parallel.RowShard``):
+    ``batch`` is this rank's rows of the global batch; the draws are cut
+    from the global batch's, and the gradients and metrics are summed over
+    the data ranks before the guard."""
+    with shard.window() if shard is not None else contextlib.nullcontext():
+        metrics = _grads_and_metrics(model, optimizer, batch, generator, loss_fn,
+                                     grad_accum_steps)
+    if shard is not None:
+        metrics = shard.reduce([p.grad for g in optimizer.param_groups for p in g["params"]
+                                if p.grad is not None], metrics)
     loss = metrics["loss_total"]
     if finite_guard or grad_clip_norm is not None:
         grads = [p.grad for g in optimizer.param_groups for p in g["params"] if p.grad is not None]
@@ -126,12 +139,13 @@ class EpochProgram:
                  batch_size: int, generator, *, shuffle: str = "row",
                  loss_fn: Callable = default_loss_fn, train_step_fn: Optional[Callable] = None,
                  finite_guard: bool = True, grad_accum_steps: int = 1,
-                 grad_clip_norm: Optional[float] = None):
+                 grad_clip_norm: Optional[float] = None, shard=None):
         self.model, self.optimizer, self.generator = model, optimizer, generator
         self.x_train, self.x_val = x_train, x_val
         self.shuffle, self.loss_fn, self.train_step_fn = shuffle, loss_fn, train_step_fn
         self.finite_guard, self.grad_accum_steps = finite_guard, grad_accum_steps
         self.grad_clip_norm = grad_clip_norm
+        self.shard = shard  # this rank's rows of every train batch (None: all of them)
         dev = x_train.device
         self.batch_size = batch_size
         self.steps = x_train.shape[0] // batch_size
@@ -142,7 +156,8 @@ class EpochProgram:
         self.idx = torch.zeros((self.steps, batch_size), dtype=torch.long, device=dev)
         self.val_idx = torch.arange(self.eval_steps * self.eval_batch, device=dev).view(
             self.eval_steps, self.eval_batch)
-        self.batch = torch.empty((batch_size, *x_train.shape[1:]), dtype=x_train.dtype, device=dev)
+        rows = shard.rows if shard is not None else batch_size
+        self.batch = torch.empty((rows, *x_train.shape[1:]), dtype=x_train.dtype, device=dev)
         self.val_batch = torch.empty((self.eval_batch, *x_val.shape[1:]), dtype=x_val.dtype,
                                      device=dev)
         self.step_ctr = torch.zeros((), dtype=torch.long, device=dev)
@@ -171,12 +186,15 @@ class EpochProgram:
 
     def step(self) -> None:
         rows = self.idx.index_select(0, self.step_ctr.view(1)).view(-1)
+        if self.shard is not None:
+            rows = self.shard.take(rows)
         torch.index_select(self.x_train, 0, rows, out=self.batch)
         if self.train_step_fn is not None:
             m = self.train_step_fn(self.model, self.optimizer, self.batch, self.generator)
         else:
             m = train_step(self.model, self.optimizer, self.batch, self.generator, self.loss_fn,
-                           self.finite_guard, self.grad_accum_steps, self.grad_clip_norm)
+                           self.finite_guard, self.grad_accum_steps, self.grad_clip_norm,
+                           self.shard)
         self._record("t", self.step_ctr, m)
 
     def end_train(self) -> None:
@@ -207,22 +225,33 @@ class EpochProgram:
 
 @torch.no_grad()
 def eval_full(model, x_all: torch.Tensor, batch_size: int, generator,
-              loss_fn: Callable = default_loss_fn):
+              loss_fn: Callable = default_loss_fn, shard=None):
     """Mean metrics over the whole split, in order: n // b batches of
     b = min(batch_size, n) rows, then the n % b tail as one batch folded in
-    by sample count. Returns (names, means) as ``train_epoch`` does."""
+    by sample count. Returns (names, means) as ``train_epoch`` does.
+    ``shard`` (a ``data_parallel.EvalShare``): each rank computes its rows
+    of every batch and the batches' metric rows are summed over the data
+    ranks in one all-reduce."""
     n = x_all.shape[0]
     eval_batch = min(batch_size, n)
     eval_steps = max(n // eval_batch, 1)
     rem = n - eval_steps * eval_batch
-    rows, names = [], None
-    for s in range(eval_steps):
-        m = loss_fn(model, x_all[s * eval_batch:(s + 1) * eval_batch], generator)
-        names = names or list(m)
-        rows.append(_stack(m))
-    means = torch.stack(rows).mean(dim=0)
+    spans = [(s * eval_batch, eval_batch) for s in range(eval_steps)]
     if rem:
-        start = eval_steps * eval_batch
-        tail = _stack(loss_fn(model, x_all[start:start + rem], generator))
-        means = means * ((eval_steps * eval_batch) / n) + tail * (rem / n)
+        spans.append((eval_steps * eval_batch, rem))
+    rows, names = [], None
+    for start, r in spans:
+        xb = x_all[start:start + r]
+        if shard is None:
+            m = loss_fn(model, xb, generator)
+            names, row = names or list(m), _stack(m)
+        else:
+            names, row = shard.metrics(loss_fn, model, xb, generator)
+        rows.append(row)
+    rows = torch.stack(rows)
+    if shard is not None:
+        shard.reduce(rows)
+    means = rows[:eval_steps].mean(dim=0)
+    if rem:
+        means = means * ((eval_steps * eval_batch) / n) + rows[eval_steps] * (rem / n)
     return names, means

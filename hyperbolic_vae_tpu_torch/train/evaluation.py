@@ -9,6 +9,13 @@ draws from seed + 1, ``evaluate_iwae`` from seed + 2 (for each batch
 chunk in order, for each k chunk in order, eps (kc, rows, latent) from
 one generator), ``evaluate_probe``'s subsample from numpy's
 ``default_rng(seed)``, so both packages pick the same rows.
+
+Under the Trainer's mesh each is a collective call, made by every rank
+with the same split: each rank computes its rows of every batch, with the
+draws of the whole batch cut to them (``parallel/data_parallel.py``);
+``evaluate``'s metric rows are summed over the ranks and
+``evaluate_iwae``'s bounds gathered in row order, and ``encode_split``
+serves through ``Inferencer(mesh=...)``. Every rank returns the result.
 """
 
 from __future__ import annotations
@@ -21,7 +28,9 @@ import numpy as np
 import torch
 
 from hyperbolic_vae_tpu_torch.data.core import ArrayDataModule
+from hyperbolic_vae_tpu_torch.distributions.draws import row_window
 from hyperbolic_vae_tpu_torch.models.iwae import combine_chunked_bounds
+from hyperbolic_vae_tpu_torch.parallel.data_parallel import eval_share
 from hyperbolic_vae_tpu_torch.probe import knn_accuracy, nearest_mean_accuracy
 from hyperbolic_vae_tpu_torch.train.epoch_program import default_loss_fn, eval_full
 
@@ -74,6 +83,7 @@ def evaluate(trainer, dm: ArrayDataModule, params=None, split: str = "test",
     model = model_with_params(trainer, params)
     gen = torch.Generator(device=trainer.device).manual_seed(trainer.seed + 1)
     loss_fn = trainer.loss_fn or default_loss_fn
+    shard = eval_share(trainer, loss_fn)
     x_host = getattr(dm, f"x_{split}")
     n = int(x_host.shape[0])
     with _scheduled(trainer, model):
@@ -81,13 +91,14 @@ def evaluate(trainer, dm: ArrayDataModule, params=None, split: str = "test",
             m = int(stream_block_rows)
             acc, names = None, None
             for start in range(0, n, m):
-                blk = trainer._stage(x_host[start:start + m])
-                names, means = eval_full(model, blk, dm.batch_size, gen, loss_fn)
+                blk = trainer._resident(x_host[start:start + m])
+                names, means = eval_full(model, blk, dm.batch_size, gen, loss_fn, shard)
                 r = blk.shape[0]
                 vals = [v * r for v in means.tolist()]
                 acc = vals if acc is None else [a + v for a, v in zip(acc, vals)]
             return {f"{split}/{k}": v / n for k, v in zip(names, acc)}
-        names, means = eval_full(model, trainer._stage(x_host), dm.batch_size, gen, loss_fn)
+        names, means = eval_full(model, trainer._resident(x_host), dm.batch_size, gen, loss_fn,
+                                 shard)
     return {f"{split}/{k}": v for k, v in zip(names, means.tolist())}
 
 
@@ -100,15 +111,23 @@ def evaluate_iwae(trainer, dm: ArrayDataModule, params=None, k: int = 5000,
     (K, B, data) tensor exists: a chunk's (k_chunk * rows, data) decode and
     its log density are the largest. The bound has no beta in it."""
     model = model_with_params(trainer, params)
-    x = trainer._stage(np.asarray(getattr(dm, f"x_{split}"), np.float32))
+    x = trainer._resident(np.asarray(getattr(dm, f"x_{split}"), np.float32))
     ks = [k_chunk] * (k // k_chunk) + ([k % k_chunk] if k % k_chunk else [])
     gen = torch.Generator(device=trainer.device).manual_seed(trainer.seed + 2)
+    shard = eval_share(trainer)
     n = x.shape[0]
     sums = []
     for start in range(0, n, batch_chunk):
         xb = x[start:start + batch_chunk]
-        bounds = [model.iwae(xb, kc, gen) for kc in ks]
-        sums.append(combine_chunked_bounds(bounds, ks).sum())
+        if shard is None:
+            bounds = [model.iwae(xb, kc, gen) for kc in ks]
+            sums.append(combine_chunked_bounds(bounds, ks).sum())
+            continue
+        r = xb.shape[0]
+        lo, hi = shard.span(r)
+        with row_window(lo, hi, r):
+            bounds = [model.iwae(xb[lo:hi], kc, gen) for kc in ks]
+        sums.append(shard.gather(combine_chunked_bounds(bounds, ks), r).sum())
     # one fetch; each chunk's f32 sum added in order in float64, as JAX's
     # total += float(jnp.sum(chunk))
     return sum(torch.stack(sums).tolist()) / n
@@ -126,9 +145,14 @@ def encode_split(trainer, dm: ArrayDataModule, params=None, split: str = "val",
 
     x = np.asarray(getattr(dm, f"x_{split}"), np.float32)
     bs = int(batch_size or dm.batch_size)
+    if trainer.mesh is not None:
+        # the Inferencer's rounding: its batch splits evenly over the data axis
+        n_data = trainer.mesh.shape["data"]
+        bs = -(-bs // n_data) * n_data
     inf = getattr(trainer, "_encode_inferencer", None)
     if inf is None or inf.batch_size != bs:
-        inf = Inferencer(copy.deepcopy(trainer.model), batch_size=bs, device=trainer.device)
+        inf = Inferencer(copy.deepcopy(trainer.model), batch_size=bs, device=trainer.device,
+                         mesh=trainer.mesh)
         trainer._encode_inferencer = inf
     src = trainer.model.state_dict() if params is None else params
     weights = dict(inf.model.named_parameters())

@@ -48,8 +48,19 @@ the host, streamed through the card in double-buffered blocks
 evaluates one in blocks; the memory preflight then counts two blocks, and
 when it refuses a resident fit its remedy names ``fit_streamed``.
 ``log_dir`` gets JSONL metrics, and TensorBoard event files where
-``torch.utils.tensorboard`` imports (``train/metrics.py``). Still to port:
-meshes (and the sweeps' ``seed_mesh``).
+``torch.utils.tensorboard`` imports (``train/metrics.py``).
+
+``mesh`` (``parallel.make_mesh``; ``use_mesh=True`` builds one over the
+world) trains data parallel over ``torch.distributed``, one process a
+card (``parallel/data_parallel.py``): every rank stages the split (padded
+to a multiple of the data axis with its own first rows, as JAX's
+``_stage``), takes its rows of each global batch with the global batch's
+draws, and sums its gradients and metrics with the other ranks' before
+the guard and the update; the val batches run whole on every rank. K3's
+``train_step_fn`` and K2's fused ``loss_fn`` run the whole batch on every
+rank with no collective. Rank 0 alone writes logs and checkpoints; every
+rank resumes from them and returns the same ``TrainResult``. Parameter
+sharding (``param_sharding_fn``) is not ported.
 """
 
 from __future__ import annotations
@@ -71,6 +82,7 @@ from hyperbolic_vae_tpu_torch.data.core import ArrayDataModule
 from hyperbolic_vae_tpu_torch.device import DeviceLike, resolve_device
 from hyperbolic_vae_tpu_torch.manifolds import PoincareBall
 from hyperbolic_vae_tpu_torch.optim import EarlyStopping, ReduceLROnPlateau, RiemannianAdam
+from hyperbolic_vae_tpu_torch.parallel.mesh import DATA_AXIS
 from hyperbolic_vae_tpu_torch.train.chunk_program import ChunkProgram
 from hyperbolic_vae_tpu_torch.train.epoch_program import default_loss_fn
 from hyperbolic_vae_tpu_torch.train.metrics import MetricLogger
@@ -270,8 +282,15 @@ class Trainer:
         preempt_signals: Sequence[int] = (),  # e.g. (signal.SIGTERM,): graceful stops (train/preemption.py)
         hbm_limit_bytes: Optional[int] = None,  # the memory preflight's limit (None: the card's memory)
         finite_guard: bool = True,  # skip a step whose loss or gradient is not finite (default step)
+        mesh=None,  # parallel.make_mesh(): data parallel over its ranks
+        use_mesh: bool = False,  # build make_mesh() over the torch.distributed world
+        param_sharding_fn: Optional[Callable] = None,  # parameter sharding: not ported
         device: DeviceLike = None,
     ):
+        if param_sharding_fn is not None:
+            raise NotImplementedError(
+                "param_sharding_fn (tensor parallelism, FSDP) is not ported yet: ROADMAP.md "
+                "Queue 1 item 8b; a mesh without it trains data parallel")
         if shuffle not in ("row", "block"):
             raise ValueError(f"shuffle must be 'row' or 'block', got {shuffle!r}")
         if epochs_per_dispatch < 1:
@@ -327,9 +346,20 @@ class Trainer:
         mon_src, _, mon_key = monitor.partition("/")
         if mon_src not in ("val", "train") or not mon_key:
             raise ValueError(f"monitor must be 'val/<metric>' or 'train/<metric>', got {monitor!r}")
-        self.device = resolve_device(device)
+        if mesh is None and use_mesh:
+            from hyperbolic_vae_tpu_torch.parallel import make_mesh
+
+            mesh = make_mesh(device=device)
+        if mesh is not None and DATA_AXIS not in mesh.shape:
+            raise ValueError(f"a Trainer's mesh needs a {DATA_AXIS!r} axis (make_mesh), got "
+                             f"{mesh.shape}; a seed mesh goes to fit_ensemble(seed_mesh=...)")
+        self.mesh = mesh
+        self.device = resolve_device(device if mesh is None or device is not None
+                                     else mesh.device)
         if self.device.type == "cuda" and self.device.index is None:
             self.device = torch.device("cuda", torch.cuda.current_device())
+        if mesh is not None and self.device != mesh.device:
+            raise ValueError(f"the mesh's rank runs on {mesh.device}, the Trainer on {self.device}")
         if model.device != self.device:
             raise ValueError(f"the model is on {model.device}, the Trainer on {self.device}")
         self.model = model
@@ -369,7 +399,9 @@ class Trainer:
         self.plateau = ReduceLROnPlateau(**self._plateau_cfg)
         self.early_stopping = (EarlyStopping(patience=early_stopping_patience)
                                if early_stopping_patience else None)
-        self.metric_logger = MetricLogger(log_dir)
+        # under a mesh rank 0 alone writes logs and checkpoints
+        self._writer = mesh is None or mesh.is_writer
+        self.metric_logger = MetricLogger(log_dir if self._writer else None)
         self.optimizer: Optional[RiemannianAdam] = None
         self.program: Optional[ChunkProgram] = None  # the last fit's chunk program
         self.lane_programs: list = []  # the last sweep's chunk programs, one a lane
@@ -377,7 +409,7 @@ class Trainer:
         if checkpoint_dir:
             from hyperbolic_vae_tpu_torch.train.checkpoint import CheckpointManager, model_hparams
 
-            self._ckpt_mgr = CheckpointManager(checkpoint_dir)
+            self._ckpt_mgr = CheckpointManager(checkpoint_dir, read_only=not self._writer)
             self._ckpt_mgr.model_config = model_hparams(model)
 
     def _make_optimizer(self) -> RiemannianAdam:
@@ -386,12 +418,28 @@ class Trainer:
                               moment_dtype=self.moment_dtype, ema_decay=self.ema_decay)
 
     def _stage(self, x: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(self.device)
+        """``x`` on the device as f32; under a mesh padded to a multiple of
+        the data axis with its own first rows, as JAX stages it."""
+        x = np.ascontiguousarray(x, np.float32)
+        if self.mesh is not None:
+            rem = x.shape[0] % self.mesh.shape[DATA_AXIS]
+            if rem:
+                x = np.concatenate([x, x[:self.mesh.shape[DATA_AXIS] - rem]], axis=0)
+        return torch.from_numpy(x).to(self.device)
+
+    def _resident(self, x: np.ndarray) -> torch.Tensor:
+        """``x`` staged (``_stage``), its rows without the padding."""
+        return self._stage(x)[:x.shape[0]]
 
     def init_params(self, seed: Optional[int] = None) -> Dict[str, torch.Tensor]:
         """Fresh weights for the model's configuration, drawn from ``seed``
         (default: the Trainer's), on the Trainer's device."""
         return init_params_of(self.model, self.seed if seed is None else seed, self.device)
+
+    def _whole_batch(self) -> bool:
+        from hyperbolic_vae_tpu_torch.parallel.data_parallel import runs_whole_batch
+
+        return runs_whole_batch(self)
 
     def _ema_params(self) -> Dict[str, torch.Tensor]:
         ema = self.optimizer.ema_params()
@@ -448,9 +496,12 @@ class Trainer:
         optimizer's moments (and EMA) and one microbatch of input,
         reconstruction and gradient."""
         row_bytes = int(np.prod(dm.x_train.shape[1:])) * 4  # staged f32
-        # streaming: the two device block buffers at the peak
-        train_rows = 2 * int(stream_rows) if stream_rows else int(dm.x_train.shape[0])
-        split = train_rows * row_bytes + int(np.prod(dm.x_val.shape)) * 4
+        # streaming: the two device block buffers at the peak; under a mesh
+        # every rank holds the whole split, padded to the data axis
+        n_data = self.mesh.shape[DATA_AXIS] if self.mesh is not None else 1
+        padded = lambda n: -(-int(n) // n_data) * n_data  # noqa: E731
+        train_rows = 2 * int(stream_rows) if stream_rows else padded(dm.x_train.shape[0])
+        split = (train_rows + padded(dm.x_val.shape[0])) * row_bytes
         moment = getattr(torch, self.moment_dtype) if isinstance(self.moment_dtype, str) else self.moment_dtype
         p = o = 0
         for model in models:
@@ -459,6 +510,8 @@ class Trainer:
                 size = torch.empty((), dtype=moment).element_size() if moment else t.element_size()
                 o += t.numel() * (2 * size + (4 if self.ema_decay is not None else 0))
         micro = dm.batch_size // self.grad_accum_steps
+        if n_data > 1 and not self._whole_batch():  # this rank's rows of a microbatch
+            micro = -(-micro // n_data)
         act = 3 * micro * row_bytes * len(models)  # input + recon + grad floor
         # 2 * p: live + best
         return {"splits": split, "params+best": 2 * p, "opt": o, "activations": act,
@@ -491,7 +544,7 @@ class Trainer:
         """With ``profile_dir`` and ``on`` (the second chunk: the first
         captures the graphs), torch.profiler over the block, its trace in
         ``profile_dir/trace.json``."""
-        if not (on and self.profile_dir):
+        if not (on and self.profile_dir and self._writer):
             yield
             return
         from torch.profiler import ProfilerActivity, profile
@@ -525,7 +578,9 @@ class Trainer:
         resume, callbacks and graceful stops are ``fit``'s; with
         ``block_rows == n_train`` the history is ``fit``'s bit for bit. Not
         with ``epochs_per_dispatch > 1`` (an epoch is already J dispatches)
-        or ``hp_model_fn`` lanes. ``x_val`` stays on the device."""
+        or ``hp_model_fn`` lanes. ``x_val`` stays on the device. Under a
+        mesh every rank streams the same blocks and trains on its rows of
+        each batch; ``block_rows`` must divide by the data axis, as in JAX."""
         from hyperbolic_vae_tpu_torch.train.streaming import check_blocks
 
         if self.epochs_per_dispatch > 1:
@@ -533,6 +588,8 @@ class Trainer:
         if self.hp_model_fn is not None:
             raise ValueError("fit_streamed does not compose with hp_model_fn lanes")
         self._check_batch(dm)
+        if self.mesh is not None and int(block_rows) % self.mesh.shape[DATA_AXIS]:
+            raise ValueError("block_rows must shard evenly over the mesh 'data' axis")
         check_blocks(int(dm.x_train.shape[0]), dm.batch_size, int(block_rows), reshuffle)
         with self._graceful_scope():
             return self._fit(dm, params, resume, blocks=(int(block_rows), reshuffle))
@@ -548,8 +605,8 @@ class Trainer:
         if resume and self._ckpt_mgr is not None:
             state, meta = self._ckpt_mgr.restore_state(device=self.device)
         self._preflight(dm, [self.model], stream_rows=blocks[0] if blocks else None)
-        x_train = self._stage(dm.x_train) if blocks is None else dm.x_train
-        run = _Run(self, dm.batch_size, x_train, self._stage(dm.x_val), params, state, meta,
+        x_train = self._resident(dm.x_train) if blocks is None else dm.x_train
+        run = _Run(self, dm.batch_size, x_train, self._resident(dm.x_val), params, state, meta,
                    blocks=blocks)
         try:
             if state is not None:
@@ -561,7 +618,10 @@ class Trainer:
             for cb in self.callbacks:
                 if hasattr(cb, "on_fit_start"):
                     cb.on_fit_start(self, dm)
-            return self._fit_chunked(run)
+            result = self._fit_chunked(run)
+            if self.mesh is not None:  # rank 0's files are written for every rank
+                self.mesh.barrier()
+            return result
         finally:
             run.close()
 
@@ -598,6 +658,11 @@ class Trainer:
             # a completed run is never interrupted
             done = run.epochs_run >= self.max_epochs
             reason = None if done else self._external_stop()
+            if self.mesh is not None and not done and (self.preempt_signals
+                                                       or self.max_wall_seconds is not None):
+                # every rank stops at the same chunk
+                if self.mesh.any(reason is not None) and reason is None:
+                    reason = "another rank of the mesh stopped"
             n_state = self.state_every_n_epochs
             cadence = run.epochs_run // n_state > chunk_start // n_state
             if self._ckpt_mgr is not None and (cadence or stop or reason or done):

@@ -196,8 +196,24 @@ def test_exp8_fake_rnaseq_and_mnist(tmp_path):
 @pytest.mark.parametrize("flag,item", [(["--tp", "2"], "item 8"), (["--fsdp"], "item 8"),
                                        (["--use-mesh"], "item 8")])
 def test_exp8_later_items_exit_naming_them(tmp_path, flag, item):
-    with pytest.raises(SystemExit, match=item):
-        train_vaes_rnaseq.main(_common(tmp_path) + flag)
+    """``--tp``/``--fsdp`` (parameter sharding) exit naming Queue 1 item
+    8b; ``--use-mesh`` (item 8a, data parallel) trains, here at world
+    size 1, as the run without it does."""
+    if flag != ["--use-mesh"]:
+        with pytest.raises(SystemExit, match=item + "b"):
+            train_vaes_rnaseq.main(_common(tmp_path) + flag)
+        return
+    import torch.distributed as dist
+
+    args = ["--n-genes", "40", "--hidden-dim", "8"]
+    want = train_vaes_rnaseq.main(_common(tmp_path / "plain") + args)
+    try:
+        got = train_vaes_rnaseq.main(_common(tmp_path / "mesh") + args + flag)
+        assert dist.is_initialized() and dist.get_world_size() == 1
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    assert got == want
 
 
 def test_exp8_streamed_fit(tmp_path, caplog):

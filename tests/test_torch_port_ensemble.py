@@ -220,8 +220,16 @@ def test_ensemble_rejects_unsupported_modes():
     with pytest.raises(ValueError, match="callbacks"):
         t.fit_ensemble(_dm(), [0, 1])
     t = Trainer(GyroplaneVAE(device="cpu"), max_epochs=2, device="cpu")
-    with pytest.raises(ValueError, match="item 8"):
-        t.fit_ensemble(_dm(), [0, 1], seed_mesh=object())
+
+    class _DataMesh:  # a mesh with a data axis where a seed axis belongs
+        shape = {"data": 1, "model": 1}
+
+    with pytest.raises(ValueError, match="seed_mesh needs a 'seed' axis"):
+        t.fit_ensemble(_dm(), [0, 1], seed_mesh=_DataMesh())
+    t.mesh = _DataMesh()
+    with pytest.raises(ValueError, match="does not compose with a mesh"):
+        t.fit_ensemble(_dm(), [0, 1])
+    t.mesh = None
     t.monitor = "test/loss_total"
     with pytest.raises(ValueError, match="val/ or train/ monitor"):
         t.fit_ensemble(_dm(), [0, 1])

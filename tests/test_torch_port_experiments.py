@@ -22,6 +22,14 @@ def _one_thread():
     torch.set_num_threads(n)
 
 
+def _leave_world():
+    """Tear down the world of size 1 that a mesh flag started here."""
+    import torch.distributed as dist
+
+    if dist.is_initialized():
+        dist.destroy_process_group()
+
+
 def _common(tmp_path, name):
     return ["--device", "cpu", "--synthetic", "--epochs", "2", "--n-train", "120",
             "--n-test", "40", "--batch-size", "32", "--run-dir", str(tmp_path / name),
@@ -36,8 +44,14 @@ def test_exp6_seeds_equal_single_fits(tmp_path):
         assert r.history == single.history
         assert (tmp_path / "sweep" / f"seed_{seed}" / "metrics.jsonl").exists()
     assert (tmp_path / "single42" / "ckpt" / "best.pt").exists()
-    with pytest.raises(SystemExit, match="item 8"):
-        exp6.main(_common(tmp_path, "mesh") + ["--seeds", "1", "2", "--seed-mesh", "2"])
+    # --seed-mesh: the lanes over the world's ranks (one here), the same fits
+    try:
+        meshed = exp6.main(_common(tmp_path, "mesh1") + ["--seeds", "42", "7", "--seed-mesh", "1"])
+        with pytest.raises(SystemExit, match="torchrun --nproc_per_node=2"):
+            exp6.main(_common(tmp_path, "mesh") + ["--seeds", "1", "2", "--seed-mesh", "2"])
+    finally:
+        _leave_world()
+    assert [r.history for r in meshed] == [r.history for r in sweep]
 
 
 def test_exp7_lane_sweep_equals_sequential_grid(tmp_path):
@@ -49,8 +63,13 @@ def test_exp7_lane_sweep_equals_sequential_grid(tmp_path):
                           "c1.4_b3.0_d2_mobius_geoopt_gyroplane"}
     assert lanes == seq
     assert json.loads((tmp_path / "lanes" / "grid_results.json").read_text()) == lanes
-    with pytest.raises(SystemExit, match="item 8"):
-        exp7.main(_common(tmp_path, "mesh") + ["--lane-sweep", "--seed-mesh", "2"])
+    try:
+        with pytest.raises(SystemExit, match="torchrun --nproc_per_node=2"):
+            exp7.main(_common(tmp_path, "mesh") + ["--lane-sweep", "--seed-mesh", "2"])
+        with pytest.raises(SystemExit, match="does not compose with --lane-sweep"):
+            exp7.main(_common(tmp_path, "mesh") + ["--lane-sweep", "--use-mesh"])
+    finally:
+        _leave_world()
 
 
 def test_exp7_lane_sweep_isolates_a_failing_group(tmp_path):

@@ -490,8 +490,17 @@ def test_pvae_serves_from_state_dict_and_checkpoint(tmp_path):
 def test_replicate_cli(tmp_path, capsys):
     from hyperbolic_vae_tpu_torch.experiments import pvae_replicate as cli
 
-    with pytest.raises(SystemExit, match="Queue 1 item 8"):
-        cli.main(["--seed-mesh", "4"])
+    import torch.distributed as dist
+
+    try:  # --seed-mesh spreads the lanes over the world's ranks: one here
+        with pytest.raises(SystemExit, match="torchrun --nproc_per_node=4"):
+            cli.main(["--device", "cpu", "--lane-sweep", "--seed-mesh", "4", "--n-train", "200",
+                      "--n-test", "20", "--run-dir", str(tmp_path / "mesh")])
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    with pytest.raises(SystemExit, match="does not compose with --lane-sweep"):
+        cli.main(["--device", "cpu", "--lane-sweep", "--use-mesh", "--run-dir", str(tmp_path)])
     assert cli.parse_args(["--lane-sweep"]).lane_sweep  # ported: tests/test_torch_port_experiments.py
     out = cli.main(["--device", "cpu", "--epochs", "2", "--n-train", "200", "--n-test", "20",
                     "--batch-size", "32", "--iwae-k", "10", "--curvatures", "1.4",

@@ -99,7 +99,8 @@ def test_data_module_and_split_equal_jax(method):
             assert g.dtype == w.dtype
             np.testing.assert_array_equal(g, w)
     assert list(got.label_names) == list(want.label_names) and got.name == want.name
-    with pytest.raises(NotImplementedError, match="item 6"):
+    # the CSV path is ported (tests/test_torch_port_data_jerby.py)
+    with pytest.raises(FileNotFoundError, match="annotations.csv, tpm.csv"):
         port_ja.make_rnaseq_data_module(data_dir="/nonexistent")
 
 
