@@ -40,8 +40,9 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
      optimizer, and one K3 step synchronised.
   Each path (serve, fused train, K3 train, default train, eval, the
   RNA-seq family's fits, serve and eval, the conv families', the pvae
-  phase's, the interop phase's, the sweeps', the deploy phase's and the
-  data-mesh phase's) zeroes the launch counters just before it and reads
+  phase's, the interop phase's, the sweeps', the deploy phase's, the
+  data-mesh phase's and the shard phase's) zeroes the launch counters
+  just before it and reads
   them just after; the graph runner adds each captured kernel's launches
   on every replay.
   5. North star: the reference protocol (at most 300 epochs, patience 10,
@@ -59,7 +60,7 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
      data (8,192 cells): K1 at 256 planes against its plain version and
      timed; five steps card vs CPU; f32, bf16 and negative-binomial fits
      graphed against eager (bit for bit), the latter's NaN-poisoned batch
-     skipped; the graphed steps' wall, busy and idle share; a 30-epoch fit
+     skipped; the graphed steps' wall, busy and idle share; a 20-epoch fit
      with checkpoints, served over HTTP from its best checkpoint; and
      ``evaluate_iwae(k=5000, k_chunk=100)`` (exactly 250 K1 launches, at
      least the ELBO).
@@ -141,11 +142,20 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
      experiment 6's ``--seed-mesh 1`` against the same sweep. The parquet
      splits (``data/jerby_arnon_parquet.py``) are a host path that needs
      pandas and pyarrow and does not run here.
-  14. Summary: a ``{"kernels": [...]}`` line (K1 four times: at the
+  14. Sharding (``shard_phase``): K1 on every plane shard a 2- or 4-way
+     model axis gives the gyroplane decoders (256, 100 and 16 planes, at
+     B = 256 and an IWAE decode's rows), each shard bit for bit the whole
+     launch's columns and held to the plain version, with its path, graph
+     time, launch floor and bound; graphed RNASeqVAE fits at 20,480 genes
+     under the TP, FSDP and FSDP x TP layouts at world size 1 over NCCL,
+     each bit for bit its unsharded twin; experiment 8's ``--tp 1 --fsdp``.
+  15. Summary: a ``{"kernels": [...]}`` line (K1 four times: at the
      flagship's 16 planes, the RNA-seq family's 256, the conv family's
      512 and UnifiedVAE's 100, each counted on its own paths, the interop,
-     deploy and data-mesh phases' among them, each with its op check
-     ``via_op``), then, as the last line, ``{"ok": true, "device": {...}}``.
+     deploy, data-mesh and shard phases' among them, each with its op
+     check ``via_op``, the 16-, 256- and 100-plane entries with their
+     ``plane_shards``), then, as the last line, ``{"ok": true, "device":
+     {...}}``.
 
 Prints no result and exits 1 when CUDA is unavailable.
 """
@@ -1426,7 +1436,7 @@ def eval_phase(trainer, dm, best, k: int = 5000) -> dict:
 # the RNA-seq family at its realistic width (benchmarks/bench_rnaseq.py's
 # "GSE115978-realistic config"): genes, hidden units (= K1's planes), cells
 RNA_GENES, RNA_HIDDEN, RNA_CELLS = 20480, 256, 8192
-RNA_FIT_EPOCHS = 30
+RNA_FIT_EPOCHS = 20  # two chunks of 10 (cut from 30 to make room for shard_phase)
 RNA_IWAE_K = 5000
 RNA_K_CHUNK = 100  # evaluate_iwae's k_chunk here: a chunk's decode is 100 x 256 rows
 # a training step's wide products: five of 2 B G H flops (the forward's
@@ -1606,7 +1616,7 @@ def rnaseq_phase():
           kernels a step (``_profile_train``), and TFLOP/s from the five
           wide products' 13.4 GFLOP a step (and from bench_rnaseq.py's
           16.1);
-      (e) a 30-epoch graphed f32 fit (``epochs_per_dispatch=10``,
+      (e) a ``RNA_FIT_EPOCHS``-epoch graphed f32 fit (``epochs_per_dispatch=10``,
           ``checkpoint_dir``): its best val loss_total below its first;
       (f) ``Inferencer.from_checkpoint(dir, "best")`` behind
           ``InferenceServer`` on 127.0.0.1: embed, decode, reconstruct (2,048
@@ -3848,12 +3858,14 @@ def _write_geo_pair(d, x, cell_types, cell_ids, genes) -> list:
     return want
 
 
-def _collective_window(prog, n: int = 20) -> dict:
+def _collective_window(prog, n: int = 20, eager: bool = True) -> dict:
     """After a fit: the step's graph (the K3 path's: its epoch graph)
     replayed ``n`` times under torch.profiler (the device's kernels a step
-    and the NCCL kernels among them), and 3 steps of the same pieces run
-    eagerly under it with the host's ops, where an issued collective shows
-    as ``nccl:all_reduce`` whether or not it launches a kernel."""
+    and the NCCL kernels among them), and (``eager``) 3 steps of the same
+    pieces run eagerly under it with the host's ops, where an issued
+    collective shows as ``nccl:all_reduce`` whether or not it launches a
+    kernel. A fit under a parameter layout has put its model's layers
+    back, so only its graphs replay (``eager=False``)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -3872,16 +3884,21 @@ def _collective_window(prog, n: int = 20) -> dict:
     rows = [(e.key, getattr(e, "self_device_time_total", 0.0), e.count)
             for e in prof.key_averages() if str(e.device_type).endswith("CUDA")]
     nccl = [r for r in rows if "nccl" in r[0].lower()]
+    steps = n * per
+    out = {"graph": name, "nccl_kernels_a_step": sum(r[2] for r in nccl) / steps,
+           "nccl_ms_a_step": sum(r[1] for r in nccl) / 1e3 / steps,
+           "kernels_a_step": sum(r[2] for r in rows) / steps,
+           "nccl_kernels": sorted({r[0][:40] for r in nccl})}
+    if not eager:
+        return out
     prog.ep.begin()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as eager:
         for _ in range(3):
             prog.ep.step()
         torch.cuda.synchronize()
-    ops = {e.key: e.count / 3 for e in eager.key_averages() if "nccl" in e.key.lower()}
-    steps = n * per
-    return {"graph": name, "nccl_kernels_a_step": sum(r[2] for r in nccl) / steps,
-            "nccl_ms_a_step": sum(r[1] for r in nccl) / 1e3 / steps,
-            "kernels_a_step": sum(r[2] for r in rows) / steps, "eager_nccl_a_step": ops}
+    out["eager_nccl_a_step"] = {e.key: e.count / 3 for e in eager.key_averages()
+                                if "nccl" in e.key.lower()}
+    return out
 
 
 def data_mesh_phase():
@@ -4120,6 +4137,199 @@ def data_mesh_phase():
     return paths
 
 
+# shard_phase: K1 on the plane shards that a 2- or 4-way model axis gives
+# the repo's gyroplane decoders (RNASeqVAE's 256 planes, UnifiedVAE's 100,
+# the flagship's 16), at the model's batch and at an IWAE decode's rows
+SHARD_PLANES = {RNA_HIDDEN: 25600, UNI_HIDDEN: 25600, P: IWAE_ROWS}
+SHARD_WAYS = (2, 4)
+SHARD_CELLS, SHARD_EPOCHS = 4096, 2  # (b)'s RNASeqVAE: 2,867 train, 614 val rows
+
+
+class _AsIfData:
+    """A mesh's shape with its data axis taken as ``n``: the specs a rule
+    gives over n data ranks, applied to the real mesh (here of one rank),
+    so that FSDP's slices, gathers and reduce-scatters are in the step."""
+
+    def __init__(self, mesh, n: int):
+        self.shape = dict(mesh.shape, data=n)
+
+
+def _at_offset(t, lo: int):
+    """``t`` as rows [lo, lo + len(t)) of a larger tensor: a plane shard's
+    view, its data pointer offset as ``points[lo:hi]``'s is."""
+    import torch
+
+    if t is None:
+        return None
+    whole = torch.full((lo + t.shape[0] + 3,) + tuple(t.shape[1:]), float("nan"),
+                       dtype=t.dtype, device=t.device)
+    whole[lo:lo + t.shape[0]] = t
+    return whole[lo:lo + t.shape[0]]
+
+
+def _k1_shards(rng) -> list:
+    """(a): for each plane count and split, at the model's batch and the
+    IWAE decode's rows: every shard's launch (``points[lo:hi]``,
+    ``bias[lo:hi]``) bit for bit the whole launch's columns; each shard's
+    shape held to the plain version (``_k1_check``'s tolerances, c = 1,
+    its points and bias at the shard's offset); its kernel path, graph
+    time, an empty launch of its grid and its bound."""
+    import torch
+
+    from hyperbolic_vae_tpu_torch.ops import gyroplane as g
+    from hyperbolic_vae_tpu_torch.parallel.mesh import share
+
+    out = []
+    for planes, rows in SHARD_PLANES.items():
+        for ways in SHARD_WAYS:
+            for b in (BATCH, rows):
+                x = torch.from_numpy(_points(rng, b, 1.0, "interior")).cuda()
+                pts = torch.from_numpy(_points(rng, planes, 1.0, "interior")).cuda()
+                bias = torch.from_numpy(rng.uniform(-1, 1, planes).astype(np.float32)).cuda()
+                whole = g.gyroplane_distances_cuda(x, pts, 1.0, True, bias)
+                paths = set()
+                for i in range(ways):
+                    lo, hi = share(planes, ways, i)
+                    part = g.gyroplane_distances_cuda(x, pts[lo:hi], 1.0, True, bias[lo:hi])
+                    paths.add(g.kernel_path(x, pts[lo:hi]))
+                    if not torch.equal(part.view(torch.int32),
+                                       whole[:, lo:hi].contiguous().view(torch.int32)):
+                        _fail(f"shard (a): K1 on planes [{lo}, {hi}) of {planes} at B={b} differs "
+                              f"from the whole launch's columns")
+                p = planes // ways
+                lo = p * (ways - 1)  # the last shard's offset
+                err_in, err_bd = _k1_check(
+                    rng, (b,), p, curvatures=(1.0,),
+                    kernel=lambda xx, pp, c, s, bb: g.gyroplane_distances_cuda(
+                        xx, _at_offset(pp, lo), c, s, _at_offset(bb, lo)))
+                xs, ps, bs = x, pts[lo:], bias[lo:]
+                graph_ms = _graph_ms(lambda: g.gyroplane_distances_cuda(xs, ps, 1.0, True, bs))
+                plain_graph_ms = _graph_ms(lambda: g.gyroplane_distances(xs, ps, 1.0, True, bs))
+                floor_ms = _graph_ms(_empty_launch(b, p))
+                n_bytes = 4 * (b * D + p * D + p + b * p)
+                n_ops = b * p * (2 * D + GYRO_EPILOGUE_OPS) + 2 * D * (b + p)
+                t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S * 1e3, n_ops / F32_FLOP_PER_S * 1e3
+                rec = {"planes": planes, "ways": ways, "P": p, "B": b, "path": sorted(paths),
+                       "graph_ms": graph_ms, "plain_graph_ms": plain_graph_ms,
+                       "launch_floor_ms": floor_ms, "bound_ms": max(t_bytes, t_ops),
+                       "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                       "max_abs_err": err_in, "max_abs_err_boundary": err_bd}
+                out.append(rec)
+                print(f"shard (a): K1 on {ways} shards of {planes} planes (P={p}) at B={b}: "
+                      f"path {'/'.join(sorted(paths))}; every shard bit for bit the whole "
+                      f"launch's columns; against the plain version at offset {lo}: interior "
+                      f"{err_in:.3e}, near the boundary {err_bd:.3e}; replayed from a CUDA graph "
+                      f"{graph_ms:.7f} ms (plain {plain_graph_ms:.7f} ms), an empty launch of its "
+                      f"grid {floor_ms:.7f} ms; {n_bytes} bytes, {n_ops} flops: bound "
+                      f"{max(t_bytes, t_ops):.7f} ms", flush=True)
+    return out
+
+
+def shard_phase():
+    """Parameter sharding (``parallel/``: the layouts, tensor parallelism,
+    FSDP) at world size 1 over NCCL:
+
+      (a) K1 on plane shards (``_k1_shards``): 256, 100 and 16 planes split
+          2 and 4 ways, at B = 256 and at an IWAE decode's rows;
+      (b) graphed 2-epoch fits of ``RNASeqVAE`` at 20,480 genes and hidden
+          256 on ``make_mesh(n_data=1, n_model=1)`` under
+          ``tp_param_shardings`` (the tensor-parallel layers, K1 on the
+          plane shard, their gathers and all-reduces in the graph),
+          ``fsdp_param_shardings`` and ``fsdp_tp_param_shardings`` (their
+          specs as over 2 data ranks, so the slices, gathers and
+          reduce-scatters are in the step), each bit for bit its unsharded
+          twin, K1's launches counted; each step's wall, busy time and
+          kernels against the twin's (``_profile_train``), and the NCCL ops
+          a step issues eagerly;
+      (c) experiment 8's CLI with ``--tp 1 --fsdp`` (UnifiedVAE, K1 at 100
+          planes), 2 epochs, against the run without the flags.
+
+    Returns ((a)'s records, launches by path for K1 at 256 and 100 planes)."""
+    import os
+    import tempfile
+    from pathlib import Path
+
+    import torch
+    import torch.distributed as dist
+
+    from hyperbolic_vae_tpu_torch.experiments import train_vaes_rnaseq
+    from hyperbolic_vae_tpu_torch.models import RNASeqVAE
+    from hyperbolic_vae_tpu_torch.parallel import (
+        fsdp_param_shardings,
+        fsdp_tp_param_shardings,
+        make_mesh,
+        tp_param_shardings,
+    )
+    from hyperbolic_vae_tpu_torch.train import Trainer
+
+    t_phase = time.perf_counter()
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    paths = {"k1_256": {}, "k1_100": {}}
+    shards = _k1_shards(np.random.default_rng(15))
+
+    def run(call, *args, **kw):
+        torch.cuda.synchronize()
+        _reset_launches()
+        t = time.perf_counter()
+        res = call(*args, **kw)
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t, _launches()
+
+    mesh = make_mesh(n_data=1, n_model=1)
+    rna = _fake_cells(SHARD_CELLS)
+    s, v = len(rna.x_train) // BATCH, -(-len(rna.x_val) // BATCH)
+    want = {"gyroplane_distances": SHARD_EPOCHS * (s + v), "flagship_fused": 0,
+            "flagship_train": 0}
+
+    def fit(m, rule):
+        model = RNASeqVAE(RNA_GENES, RNA_HIDDEN, generator=torch.Generator().manual_seed(0))
+        return Trainer(model, max_epochs=SHARD_EPOCHS, early_stopping_patience=None, mesh=m,
+                       param_sharding_fn=rule)
+
+    twin = fit(None, None)
+    r_twin, wall_t, n = run(twin.fit, rna)
+    if n != want:
+        _fail(f"shard (b): the unsharded fit's launches {n}, want {want}")
+    pt = _profile_train(twin.program, "cuda")
+    rules = {"tp": tp_param_shardings,
+             "fsdp": lambda m, mesh: fsdp_param_shardings(m, _AsIfData(mesh, 2)),
+             "fsdp_tp": lambda m, mesh: fsdp_tp_param_shardings(m, _AsIfData(mesh, 2))}
+    for name, rule in rules.items():
+        t = fit(mesh, rule)
+        r, wall, n = run(t.fit, rna)
+        _same_fit(f"shard (b) {name}", r, r_twin, name, "unsharded")
+        if n != want:
+            _fail(f"shard (b) {name}: launches {n}, want {want}")
+        paths["k1_256"][f"shard_{name}"] = n["gyroplane_distances"]
+        ps = _profile_train(t.program, "cuda")
+        cw = _collective_window(t.program, eager=False)
+        print(f"shard (b) RNASeqVAE {RNA_GENES} genes under {name} (NCCL, world size 1): bit for "
+              f"bit the unsharded fit ({SHARD_EPOCHS} epochs, fits {wall:.3f} / {wall_t:.3f} s, "
+              f"{n['gyroplane_distances']} K1); replaying the step graph: NCCL kernels a step "
+              f"{cw['nccl_kernels_a_step']:.2f} ({cw['nccl_ms_a_step']:.5f} ms; "
+              f"{', '.join(cw['nccl_kernels']) or 'none'}); step "
+              f"wall {ps['wall_ms']:.4f} ms against {pt['wall_ms']:.4f} ms ({ps['what']}), busy "
+              f"{ps['busy_ms']:.4f} / {pt['busy_ms']:.4f} ms, kernels a step {ps['kernels']:.1f} / "
+              f"{pt['kernels']:.1f}, idle {ps['idle']} / {pt['idle']}", flush=True)
+        del t, r
+
+    # (c) experiment 8 with --tp 1 --fsdp, against the run without them
+    with tempfile.TemporaryDirectory() as tmp:
+        argv = ["--fake", "--epochs", str(SHARD_EPOCHS), "--log-level", "WARNING"]
+        got, wall, n = run(train_vaes_rnaseq.main,
+                           argv + ["--tp", "1", "--fsdp", "--run-dir", str(Path(tmp) / "s")])
+        plain, wall_p, _ = run(train_vaes_rnaseq.main, argv + ["--run-dir", str(Path(tmp) / "p")])
+    if got != plain or not all(np.isfinite(v) for v in got.values()) or not n["gyroplane_distances"]:
+        _fail(f"shard (c): experiment 8 --tp 1 --fsdp gave {got} ({n}), without {plain}")
+    paths["k1_100"]["shard_exp8_fsdp"] = n["gyroplane_distances"]
+    print(f"shard (c): experiment 8 --tp 1 --fsdp (world size {dist.get_world_size()}) "
+          f"{wall:.3f} s = the run without them ({wall_p:.3f} s): {json.dumps(got)}; "
+          f"{n['gyroplane_distances']} K1 at {UNI_HIDDEN} planes", flush=True)
+    dist.destroy_process_group()
+    print(f"shard: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return shards, paths
+
+
 def _rows_kernel_fit() -> None:
     """The rows kernels' shared memory at the flagship's 784 pixels against
     the wrapper's bound (which must not be below it), and how many of their
@@ -4232,6 +4442,12 @@ def main() -> int:
     for k, key in ((kernels[0], "k1_16"), (k1_rna, "k1_256"), (k1_pvae, "k1_100"),
                    (kernels[1], "flagship_fused"), (kernels[2], "flagship_train")):
         k["launches_by_path"].update(mesh_paths[key])
+    # parameter sharding at world size 1 over NCCL: K1 on plane shards
+    shards, shard_paths = timed("shard", shard_phase)
+    for k, key in ((k1_rna, "k1_256"), (k1_pvae, "k1_100")):
+        k["launches_by_path"].update(shard_paths[key])
+    for k, planes in ((kernels[0], P), (k1_rna, RNA_HIDDEN), (k1_pvae, UNI_HIDDEN)):
+        k["plane_shards"] = [r for r in shards if r["planes"] == planes]
     for k in kernels:
         k["launches"] = sum(k["launches_by_path"].values())
     print(f"phase seconds (build: from the start of the build): {json.dumps(seconds)}", flush=True)

@@ -12,13 +12,20 @@ as GEO writes them (``make_rnaseq_data_module(data_dir=...)``: the C++
 parser, no pandas needed). ``--stream-block-rows M`` trains with
 ``Trainer.fit_streamed``: the train split stays on the host and streams
 through the device in blocks of M rows. ``--use-mesh`` trains data
-parallel over the ``torch.distributed`` world; ``--tp``/``--fsdp``
-(parameter sharding, ROADMAP Queue 1 item 8b) exit naming the item. The
-results go to ``RUN_DIR/results.json``.
+parallel over the ``torch.distributed`` world. ``--tp T`` and ``--fsdp``
+lay the parameters out over a mesh of the world's ranks (data = ranks /
+T, model = T), as JAX's experiment does: ``--tp T`` alone tensor
+parallel (``tp_param_shardings``: the encoder's output rows, the
+gyroplanes' planes, so each model rank launches the gyroplane kernel on
+its planes, and the decoder's contraction), ``--fsdp`` alone FSDP over
+the data ranks, both ``fsdp_tp_param_shardings``; ``--tp`` above the
+world's ranks is refused. The results go to ``RUN_DIR/results.json``.
 
     python -m hyperbolic_vae_tpu_torch.experiments.train_vaes_rnaseq --fake --structured-fake
     torchrun --nproc_per_node=N -m hyperbolic_vae_tpu_torch.experiments.train_vaes_rnaseq \
         --rnaseq-dir DIR --use-mesh
+    torchrun --nproc_per_node=4 -m hyperbolic_vae_tpu_torch.experiments.train_vaes_rnaseq \
+        --fake --n-genes 20480 --tp 2 --fsdp
 """
 
 from __future__ import annotations
@@ -56,23 +63,51 @@ def parse_args(argv: Optional[list] = None):
     p.add_argument("--kl-method", type=str, default="logmap0_analytic")
     p.add_argument("--recon", type=str, default="MSE")
     p.add_argument("--last-activation", type=str, default="sigmoid")
-    p.add_argument("--tp", type=int, default=1, help="not ported yet (Queue 1 item 8b)")
-    p.add_argument("--fsdp", action="store_true", help="not ported yet (Queue 1 item 8b)")
+    p.add_argument("--tp", type=int, default=1,
+                   help="tensor parallelism over T ranks of the world (the mesh's model axis)")
+    p.add_argument("--fsdp", action="store_true",
+                   help="FSDP: parameters and moments split over the mesh's data ranks")
     p.add_argument("--stream-block-rows", type=int, default=0,
                    help="keep the train split on the host and stream it in blocks of this "
                         "many rows (Trainer.fit_streamed)")
     p.set_defaults(batch_size=64)
     args = p.parse_args(argv)
-    if args.tp > 1 or args.fsdp:
-        raise SystemExit("--tp and --fsdp (parameter sharding over several cards) are not "
-                         "ported yet: ROADMAP.md Queue 1 item 8b; --use-mesh trains data "
-                         "parallel")
+    if args.tp < 1:
+        raise SystemExit(f"--tp must be at least 1, got {args.tp}")
     return args
+
+
+def layout_of(args):
+    """(mesh, param_sharding_fn) for ``--tp``/``--fsdp`` (JAX's :79-96), or
+    (None, None) without them: make_mesh(n_data=max(ranks // tp, 1),
+    n_model=tp) over the torch.distributed world."""
+    if args.tp == 1 and not args.fsdp:
+        return None, None
+    import torch.distributed as dist
+
+    from hyperbolic_vae_tpu_torch.parallel import (
+        fsdp_param_shardings,
+        fsdp_tp_param_shardings,
+        init_distributed,
+        make_mesh,
+        tp_param_shardings,
+    )
+
+    init_distributed(args.device)
+    ranks = dist.get_world_size()
+    if args.tp > ranks:
+        raise SystemExit(f"--tp {args.tp} needs {args.tp} ranks but the world has {ranks}: run "
+                         f"under torchrun --nproc_per_node={args.tp} (or more)")
+    mesh = make_mesh(n_data=max(ranks // args.tp, 1), n_model=args.tp, device=args.device)
+    if args.fsdp and args.tp > 1:
+        return mesh, fsdp_tp_param_shardings
+    return mesh, fsdp_param_shardings if args.fsdp else tp_param_shardings
 
 
 def main(argv: Optional[list] = None) -> dict:
     args = parse_args(argv)
     run_dir = setup(args, "vaes_rnaseq")
+    mesh, layout = layout_of(args)  # before the model: under torchrun, this rank's card
     if args.dataset == "mnist":
         dm = mnist_data(args)
         callbacks = [GenerateCallback(every_n_epochs=10), LatentScatterCallback(every_n_epochs=10)]
@@ -91,7 +126,9 @@ def main(argv: Optional[list] = None) -> dict:
                        learning_rate=args.lr, beta=args.beta, kl_loss_method=args.kl_method,
                        last_activation=args.last_activation, loss_recon_method=args.recon,
                        generator=torch.Generator().manual_seed(args.seed), device=args.device)
-    out = fit_and_test(args, run_dir, model, dm, callbacks, block_rows=args.stream_block_rows)
+    extra = {} if mesh is None else dict(mesh=mesh, param_sharding_fn=layout)
+    out = fit_and_test(args, run_dir, model, dm, callbacks, block_rows=args.stream_block_rows,
+                       **extra)
     return write_results(run_dir, {f"vaes_{args.dataset}": out})[f"vaes_{args.dataset}"]
 
 

@@ -74,6 +74,11 @@ class GyroplaneVAE(nn.Module):
     gives the same weights on every device), then moved to ``device``
     (default ``cuda``; raises when there is no card)."""
 
+    # the layers JAX's tensor-parallel rules name by their flax names
+    # (parallel/sharding_rules.py): module path -> role, over every layer
+    # of the role's type at or under the path
+    tp_roles = {"encoder": "enc", "decoder": "gyroplanes"}
+
     def __init__(
         self,
         data_shape: Sequence[int] = (28, 28, 1),

@@ -61,6 +61,11 @@ class PvaeMLPVAE(nn.Module):
     gives the same weights on every device), then moved to ``device``
     (default ``cuda``; raises when there is no card)."""
 
+    # the layers JAX's tensor-parallel rules name by their flax names
+    # (parallel/sharding_rules.py): module path -> role, over every layer
+    # of the role's type at or under the path
+    tp_roles = {"encoder": "enc", "decoder": "gyroplanes", "decoder.2": "dec_out"}
+
     # every loss entry is a mean over the batch and the k_train samples
     loss_reduction = "per_sample_mean"
 

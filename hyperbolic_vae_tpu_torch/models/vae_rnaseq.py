@@ -53,7 +53,7 @@ from hyperbolic_vae_tpu_torch.models.iwae import (
     latent_log_weights_from_eps,
 )
 from hyperbolic_vae_tpu_torch.models.sampling import prior_sample_from_eps
-from hyperbolic_vae_tpu_torch.models.vae_gyroplane import _dense, _gelu
+from hyperbolic_vae_tpu_torch.models.vae_gyroplane import _dense, _gelu, _lecun_
 from hyperbolic_vae_tpu_torch.nn import PoincareHyperplanes
 from hyperbolic_vae_tpu_torch.distributions import draws
 
@@ -66,10 +66,36 @@ def _dtype(name: str, what: str) -> torch.dtype:
     return _DTYPES[name]
 
 
+class WideLinear(nn.Linear):
+    """A wide layer, flax's ``Dense(dtype=compute_dtype)``: input, weight
+    and bias cast to ``compute_dtype`` for the product, the weight and
+    bias stored in their own dtype. A tensor-parallel layer that takes
+    its place reads ``compute_dtype`` too (``parallel/tensor_parallel.py``)."""
+
+    compute_dtype: torch.dtype = torch.float32
+
+    def forward(self, x):
+        dt = self.compute_dtype
+        return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
+
+
+def _wide(n_in: int, n_out: int, generator: Optional[torch.Generator], param: torch.dtype,
+          compute: torch.dtype) -> WideLinear:
+    """``_dense``'s init (the same draws) on a ``WideLinear``."""
+    layer = _lecun_(nn.utils.skip_init(WideLinear, n_in, n_out), n_in, generator).to(param)
+    layer.compute_dtype = compute
+    return layer
+
+
 class RNASeqVAE(nn.Module):
     """Parameters are drawn on the CPU from ``generator`` (so one seed
     gives the same weights on every device), then moved to ``device``
     (default ``cuda``; raises when there is no card)."""
+
+    # the layers JAX's tensor-parallel rules name by their flax names
+    # (parallel/sharding_rules.py): module path -> role, over every layer
+    # of the role's type at or under the path
+    tp_roles = {"encoder": "enc", "decoder": "gyroplanes", "decoder.2": "dec_out"}
 
     # every loss entry is a per-sample mean (gradient accumulation is exact)
     loss_reduction = "per_sample_mean"
@@ -106,13 +132,13 @@ class RNASeqVAE(nn.Module):
         self.ball = PoincareBall(c=self.manifold_curvature)
 
         g, h, d = self.in_features, self.hidden_dim, self.latent_dim
-        self.encoder = nn.Sequential(_dense(g, h, generator).to(pdt), _gelu())
+        self.encoder = nn.Sequential(_wide(g, h, generator, pdt, self._compute), _gelu())
         self.mu = nn.Sequential(_dense(h, d, generator))
         self.scale = nn.Sequential(_dense(h, d, generator))
         self.decoder = nn.Sequential(
             PoincareHyperplanes(plane_shape=d, num_planes=h, ball=self.ball, generator=generator),
             _gelu(),
-            _dense(h, g, generator).to(pdt),
+            _wide(h, g, generator, pdt, self._compute),
             nn.Sigmoid(),
         )
         if recon == "nb":
@@ -137,15 +163,9 @@ class RNASeqVAE(nn.Module):
             param_dtype=self.param_dtype,
         )
 
-    def _wide(self, layer: nn.Linear, h: torch.Tensor) -> torch.Tensor:
-        """A wide layer in ``compute_dtype``: input, weight and bias cast
-        to it, as flax's Dense(dtype=...) promotes them."""
-        dt = self._compute
-        return F.linear(h.to(dt), layer.weight.to(dt), layer.bias.to(dt))
-
     def encode(self, x):
         """Posterior mean on the ball and scale, each (B, latent)."""
-        h = self.encoder[1](self._wide(self.encoder[0], x)).float()
+        h = self.encoder(x).float()
         scale = torch.clamp(F.softplus(self.scale(h)) + 1e-3, 1e-3, 10.0)
         return self.ball.expmap0(self.mu(h)), scale
 
@@ -156,7 +176,7 @@ class RNASeqVAE(nn.Module):
     def decode(self, z):
         """Latents (B, latent) -> per-gene sigmoid outputs (B, genes) f32."""
         h = self.decoder[1](self.decoder[0](z))  # the manifold-facing layer in f32
-        return torch.sigmoid(self._wide(self.decoder[2], h).float())
+        return torch.sigmoid(self.decoder[2](h).float())
 
     def forward(self, x, generator: Optional[torch.Generator] = None):
         mu, scale = self.encode(x)

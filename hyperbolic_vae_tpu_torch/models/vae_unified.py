@@ -82,6 +82,11 @@ class UnifiedVAE(nn.Module):
     gives the same weights on every device), then moved to ``device``
     (default ``cuda``; raises when there is no card)."""
 
+    # the layers JAX's tensor-parallel rules name by their flax names
+    # (parallel/sharding_rules.py): module path -> role, over every layer
+    # of the role's type at or under the path
+    tp_roles = {"encoder": "enc", "decoder": "gyroplanes", "decoder.2": "dec_out"}
+
     # every loss entry is a per-sample mean (gradient accumulation is exact)
     loss_reduction = "per_sample_mean"
 

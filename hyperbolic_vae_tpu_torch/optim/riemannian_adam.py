@@ -35,6 +35,12 @@ keeps an f32 EMA of the parameters, from their values at construction:
 Euclidean tensors average linearly, manifold points in the tangent space
 at the origin (logmap0, lerp, expmap0, project), as JAX does;
 ``ema_params()`` returns it.
+
+Under a parameter layout (``parallel/fsdp.py``) the Trainer builds it over
+the layout's masters, so each parameter's moments and EMA live with its
+slice on its rank, and records each master's spec in ``param_specs``
+(``parallel.opt_state_shardings`` reads it); ``count`` and ``lr`` stay
+replicated 0-d tensors.
 """
 
 from __future__ import annotations
@@ -70,6 +76,7 @@ class RiemannianAdam(torch.optim.Optimizer):
         self.ball = ball or PoincareBall(c=1.0)
         self.moment_dtype = _dtype(moment_dtype)
         self.ema_decay = ema_decay
+        self.param_specs: dict = {}  # parameter -> its layout's spec, when it has one
         first = self.param_groups[0]["params"][0]
         device = first.device
         self.count = torch.zeros((), dtype=torch.int32, device=device)

@@ -11,6 +11,18 @@ from hyperbolic_vae_tpu_torch.parallel.mesh import (
     seed_sharding,
     shard_batch,
 )
+from hyperbolic_vae_tpu_torch.parallel.sharding_rules import (
+    FSDP_MIN_LEAF_ELEMS,
+    fsdp_param_shardings,
+    fsdp_tp_param_shardings,
+    opt_state_shardings,
+    tp_param_shardings,
+)
+from hyperbolic_vae_tpu_torch.parallel.tensor_parallel import (
+    ColumnParallelLinear,
+    PlaneShardedHyperplanes,
+    RowParallelLinear,
+)
 
 __all__ = [
     "DATA_AXIS",
@@ -24,4 +36,12 @@ __all__ = [
     "replicated",
     "seed_sharding",
     "shard_batch",
+    "FSDP_MIN_LEAF_ELEMS",
+    "tp_param_shardings",
+    "fsdp_param_shardings",
+    "fsdp_tp_param_shardings",
+    "opt_state_shardings",
+    "ColumnParallelLinear",
+    "RowParallelLinear",
+    "PlaneShardedHyperplanes",
 ]

@@ -9,9 +9,11 @@ semantics are JAX's, rank by rank:
 
   * ``make_mesh(n_data, n_model)``: a (data, model) grid of ranks. Under
     ``Trainer(mesh=...)`` each data rank takes its rows of every global
-    batch, its gradients are summed over the data axis, and the
-    parameters stay replicated (``parallel/data_parallel.py``); the model
-    axis only replicates until parameter sharding is ported.
+    batch and its gradients are summed over the data axis
+    (``parallel/data_parallel.py``); the parameters stay replicated unless
+    ``param_sharding_fn`` lays them out over the axes
+    (``parallel/sharding_rules.py``: tensor parallelism over 'model',
+    FSDP over 'data'); without a layout the model axis replicates.
   * ``make_seed_mesh(n)``: a 1-D grid over the seed axis; a sweep trains
     S / n lanes a rank and gathers them once at the end
     (``train/ensemble.py``).
@@ -19,10 +21,10 @@ semantics are JAX's, rank by rank:
     ``shard_batch`` name a layout, and give this rank's piece of a tensor.
 
 ``Mesh`` is a small class of the port's own rather than
-``torch.distributed.device_mesh.DeviceMesh``: the replicated-parameter
-half needs only the axes' names and sizes, this rank's coordinate and one
-process group an axis, while DeviceMesh carries DTensor's placement
-machinery, which nothing here uses, and builds its groups in ways that
+``torch.distributed.device_mesh.DeviceMesh``: the layouts need only the
+axes' names and sizes, this rank's coordinate and one process group an
+axis (the sharded layers issue their own collectives), while DeviceMesh
+carries DTensor's placement machinery, which nothing here uses, and builds its groups in ways that
 have changed across torch releases (the card's torch and a CPU host's may
 differ).
 
@@ -107,6 +109,20 @@ def _leave(store_dir: Optional[str]) -> None:
         dist.destroy_process_group()
     if store_dir is not None:
         shutil.rmtree(store_dir, ignore_errors=True)
+
+
+def all_gather_flat(out: torch.Tensor, inp: torch.Tensor, group) -> None:
+    """The ranks' ``inp`` concatenated along dimension 0 into ``out``
+    (``all_gather_single``, or its older name ``all_gather_into_tensor``)."""
+    fn = getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor
+    fn(out, inp, group=group)
+
+
+def reduce_scatter_flat(out: torch.Tensor, inp: torch.Tensor, group) -> None:
+    """The sum over the ranks of ``inp``'s rank-th piece along dimension 0,
+    into ``out`` (``reduce_scatter_single``, or ``reduce_scatter_tensor``)."""
+    fn = getattr(dist, "reduce_scatter_single", None) or dist.reduce_scatter_tensor
+    fn(out, inp, group=group)
 
 
 def share(n: int, parts: int, i: int) -> tuple:

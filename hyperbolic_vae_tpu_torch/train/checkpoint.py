@@ -8,7 +8,10 @@ class and constructor arguments, so ``restore_model`` rebuilds the model
 from a checkpoint directory alone. The resume unit (``save_state``)
 holds the parameters, the optimizer (moments, EMA, count, lr), the
 on-device controllers and best parameters, and the generator's state;
-``Trainer.fit(resume=True)`` continues from it bit for bit.
+``Trainer.fit(resume=True)`` continues from it bit for bit. Under a mesh
+rank 0 writes; under a parameter layout every tensor is saved whole in
+the reference layout (the Trainer gathers it), so a resume may take
+another layout or none.
 """
 
 from __future__ import annotations

@@ -128,17 +128,24 @@ class ChunkProgram:
 
     def __init__(self, trainer, model, optimizer, x_train, x_val, batch_size: int, generator,
                  start_epoch: int, *, loss_fn, hp: Optional[Dict[str, torch.Tensor]] = None,
-                 stream: Optional[torch.cuda.Stream] = None):
+                 stream: Optional[torch.cuda.Stream] = None, sharded=None):
         self.trainer, self.optimizer = trainer, optimizer
         dev = x_train.device
         self.device = dev
+        # under a parameter layout (parallel/fsdp.py) the program tracks the
+        # layout's masters, and a whole-batch step runs on gathered tensors
+        self.sharded = sharded
+        step_fn = trainer.train_step_fn
+        if sharded is not None and step_fn is not None:
+            step_fn = sharded.wrap_train_step(step_fn, optimizer)
         self.ep = EpochProgram(
             model, optimizer, x_train, x_val, batch_size, generator, shuffle=trainer.shuffle,
-            loss_fn=loss_fn, train_step_fn=trainer.train_step_fn,
+            loss_fn=loss_fn, train_step_fn=step_fn,
             finite_guard=trainer.finite_guard, grad_accum_steps=trainer.grad_accum_steps,
-            grad_clip_norm=trainer.grad_clip_norm, shard=row_shard(trainer, batch_size))
+            grad_clip_norm=trainer.grad_clip_norm, shard=row_shard(trainer, batch_size),
+            layout=sharded)
         self.ctrl = init_ctrl(trainer, start_epoch, dev)
-        self.params = dict(model.state_dict())
+        self.params = sharded.master_state() if sharded is not None else dict(model.state_dict())
         self.best = {k: v.detach().clone() for k, v in self.params.items()}
         self.hp = dict(hp or {})  # scheduled key -> the model's 0-d tensor
         self.stream = stream
@@ -160,7 +167,8 @@ class ChunkProgram:
             Segment((ep.val_step,), ep.eval_steps, "val batch"),
             Segment(end + (ep.end_val, self.end_epoch), 1, "val tail and epoch end")]
         state = (self.masked + [g["lr"] for g in optimizer.param_groups] + list(self.ctrl.values())
-                 + list(self.best.values()) + [self.krow] + list(self.hp.values()))
+                 + list(self.best.values()) + [self.krow] + list(self.hp.values())
+                 + (sharded.working_copies if sharded is not None else []))
         # under a mesh the step's all-reduce is captured too; NCCL's watchdog
         # thread queries events meanwhile, which a global capture forbids
         self.program = GraphedProgram(
@@ -295,13 +303,17 @@ class ChunkProgram:
     # ---- resume state ---------------------------------------------------
 
     def state_dict(self) -> dict:
-        return {"ctrl": {k: v.clone() for k, v in self.ctrl.items()},
-                "best": {k: v.clone() for k, v in self.best.items()}}
+        """The controllers and the best parameters (whole, under a layout:
+        a collective)."""
+        best = (self.sharded.full(self.best) if self.sharded is not None
+                else {k: v.clone() for k, v in self.best.items()})
+        return {"ctrl": {k: v.clone() for k, v in self.ctrl.items()}, "best": best}
 
     def load_state_dict(self, state: dict) -> None:
         for k, v in state["ctrl"].items():
             self.ctrl[k].copy_(v)
-        for k, v in state["best"].items():
+        best = self.sharded.local(state["best"]) if self.sharded is not None else state["best"]
+        for k, v in best.items():
             self.best[k].copy_(v)
 
     def close(self) -> None:

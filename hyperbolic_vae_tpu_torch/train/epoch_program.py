@@ -13,6 +13,10 @@ each) and global-norm gradient clipping. Under a data mesh
 (``parallel/data_parallel.py``) a step trains on this rank's rows of the
 global batch, its draws cut from the global batch's, and sums the
 gradients and metrics over the ranks before the guard and the update.
+Under a parameter layout (``parallel/fsdp.py``) the optimizer steps the
+layout's masters: the working gradients are reduced into theirs, the
+guard and clipping read the global norm, and the updated masters are
+gathered back into the working tensors.
 
 Randomness: one ``torch.Generator`` on the device, drawn in a fixed
 order: the epoch's batch order, then one eps (B, latent) per step from
@@ -38,13 +42,17 @@ def _stack(metrics: Dict[str, torch.Tensor]) -> torch.Tensor:
     return torch.stack([v.detach().float().reshape(()) for v in metrics.values()])
 
 
-def _grads_and_metrics(model, optimizer, batch, generator, loss_fn, grad_accum_steps: int):
+def _grads_and_metrics(model, optimizer, batch, generator, loss_fn, grad_accum_steps: int,
+                       layout=None):
     """Fill each parameter's ``.grad`` and return the detached metrics.
     With ``grad_accum_steps`` A > 1 the batch is A equal microbatches in
     order, each with its own eps draw; their gradients are summed by
     backward and they and the metrics are scaled by 1/A (exact for the
-    per-sample-mean losses of the port's models), as JAX's scan does."""
+    per-sample-mean losses of the port's models), as JAX's scan does.
+    Under a ``layout`` the gradients land on the model's working tensors."""
     optimizer.zero_grad(set_to_none=True)
+    if layout is not None:
+        model.zero_grad(set_to_none=True)
     if grad_accum_steps == 1:
         metrics = loss_fn(model, batch, generator)
         metrics["loss_total"].backward()
@@ -56,16 +64,18 @@ def _grads_and_metrics(model, optimizer, batch, generator, loss_fn, grad_accum_s
         m = {k: v.detach() for k, v in m.items()}
         sums = m if sums is None else {k: sums[k] + m[k] for k in sums}
     inv = 1.0 / grad_accum_steps
-    for g in optimizer.param_groups:
-        for p in g["params"]:
-            if p.grad is not None:
-                p.grad.mul_(inv)
+    held = (list(model.parameters()) if layout is not None
+            else [p for g in optimizer.param_groups for p in g["params"]])
+    for p in held:
+        if p.grad is not None:
+            p.grad.mul_(inv)
     return {k: v * inv for k, v in sums.items()}
 
 
 def train_step(model, optimizer, batch, generator, loss_fn: Callable = default_loss_fn,
                finite_guard: bool = True, grad_accum_steps: int = 1,
-               grad_clip_norm: Optional[float] = None, shard=None) -> Dict[str, torch.Tensor]:
+               grad_clip_norm: Optional[float] = None, shard=None,
+               layout=None) -> Dict[str, torch.Tensor]:
     """Loss, backward, optimizer step. With ``finite_guard`` a step whose
     loss or global gradient norm is not finite changes nothing (params,
     moments, step count) and counts 1 in ``skipped_steps``; the decision
@@ -75,17 +85,23 @@ def train_step(model, optimizer, batch, generator, loss_fn: Callable = default_l
     semantics, as JAX's Trainer). ``shard`` (a ``data_parallel.RowShard``):
     ``batch`` is this rank's rows of the global batch; the draws are cut
     from the global batch's, and the gradients and metrics are summed over
-    the data ranks before the guard."""
+    the data ranks before the guard. ``layout`` (a ``fsdp.ShardedState``):
+    the optimizer holds the layout's masters; their gradients come from
+    the working tensors', the norm is the global one, and the masters are
+    gathered into the working tensors after the update."""
     with shard.window() if shard is not None else contextlib.nullcontext():
         metrics = _grads_and_metrics(model, optimizer, batch, generator, loss_fn,
-                                     grad_accum_steps)
-    if shard is not None:
+                                     grad_accum_steps, layout)
+    if layout is not None:
+        metrics = layout.reduce_grads(metrics, shard)
+    elif shard is not None:
         metrics = shard.reduce([p.grad for g in optimizer.param_groups for p in g["params"]
                                 if p.grad is not None], metrics)
     loss = metrics["loss_total"]
     if finite_guard or grad_clip_norm is not None:
         grads = [p.grad for g in optimizer.param_groups for p in g["params"] if p.grad is not None]
-        g2 = torch.stack([(g * g).sum() for g in grads]).sum()
+        g2 = (torch.stack([(g * g).sum() for g in grads]).sum() if layout is None
+              else layout.global_sq_norm())
     if grad_clip_norm is not None:
         scale = (grad_clip_norm / torch.sqrt(g2).clamp_min(1e-12)).clamp_max(1.0)
         for g in grads:
@@ -97,6 +113,8 @@ def train_step(model, optimizer, batch, generator, loss_fn: Callable = default_l
     else:
         optimizer.step()
         skipped = torch.zeros((), device=loss.device)
+    if layout is not None:
+        layout.gather_working()
     metrics["skipped_steps"] = skipped
     return metrics
 
@@ -139,13 +157,14 @@ class EpochProgram:
                  batch_size: int, generator, *, shuffle: str = "row",
                  loss_fn: Callable = default_loss_fn, train_step_fn: Optional[Callable] = None,
                  finite_guard: bool = True, grad_accum_steps: int = 1,
-                 grad_clip_norm: Optional[float] = None, shard=None):
+                 grad_clip_norm: Optional[float] = None, shard=None, layout=None):
         self.model, self.optimizer, self.generator = model, optimizer, generator
         self.x_train, self.x_val = x_train, x_val
         self.shuffle, self.loss_fn, self.train_step_fn = shuffle, loss_fn, train_step_fn
         self.finite_guard, self.grad_accum_steps = finite_guard, grad_accum_steps
         self.grad_clip_norm = grad_clip_norm
         self.shard = shard  # this rank's rows of every train batch (None: all of them)
+        self.layout = layout  # the parameters' layout (None: the model's own tensors)
         dev = x_train.device
         self.batch_size = batch_size
         self.steps = x_train.shape[0] // batch_size
@@ -194,7 +213,7 @@ class EpochProgram:
         else:
             m = train_step(self.model, self.optimizer, self.batch, self.generator, self.loss_fn,
                            self.finite_guard, self.grad_accum_steps, self.grad_clip_norm,
-                           self.shard)
+                           self.shard, self.layout)
         self._record("t", self.step_ctr, m)
 
     def end_train(self) -> None:

@@ -93,7 +93,8 @@ class StreamedProgram(ChunkProgram):
     compute, to measure how much of the copies the compute hides."""
 
     def __init__(self, trainer, model, optimizer, x_host, block_rows: int, reshuffle: str,
-                 x_val, batch_size: int, generator, start_epoch: int, *, loss_fn, hp=None):
+                 x_val, batch_size: int, generator, start_epoch: int, *, loss_fn, hp=None,
+                 sharded=None):
         dev = x_val.device
         self.x_host, self.block_rows, self.reshuffle = x_host, int(block_rows), reshuffle
         self.n_train = int(x_host.shape[0])
@@ -122,7 +123,7 @@ class StreamedProgram(ChunkProgram):
             lambda epoch: block_schedule(self.seed, epoch, self.n_train, self.block_rows,
                                          self.reshuffle))
         super().__init__(trainer, model, optimizer, self.dev_bufs[0], x_val, batch_size,
-                         generator, start_epoch, loss_fn=loss_fn, hp=hp)
+                         generator, start_epoch, loss_fn=loss_fn, hp=hp, sharded=sharded)
 
     def _train_segments(self) -> list:
         tr, ep = self.trainer, self.ep
@@ -130,7 +131,7 @@ class StreamedProgram(ChunkProgram):
             EpochProgram(ep.model, ep.optimizer, buf, ep.x_val, ep.batch_size, ep.generator,
                          shuffle=ep.shuffle, loss_fn=ep.loss_fn, train_step_fn=ep.train_step_fn,
                          finite_guard=ep.finite_guard, grad_accum_steps=ep.grad_accum_steps,
-                         grad_clip_norm=ep.grad_clip_norm, shard=ep.shard)
+                         grad_clip_norm=ep.grad_clip_norm, shard=ep.shard, layout=ep.layout)
             for buf in self.dev_bufs[1:]]
         zero = (lambda: self.t_acc.zero_(),) if self.j_blocks > 1 else ()
         segs = [Segment((self.begin_controls,) + zero, 1, "begin epoch")]

@@ -59,8 +59,21 @@ draws, and sums its gradients and metrics with the other ranks' before
 the guard and the update; the val batches run whole on every rank. K3's
 ``train_step_fn`` and K2's fused ``loss_fn`` run the whole batch on every
 rank with no collective. Rank 0 alone writes logs and checkpoints; every
-rank resumes from them and returns the same ``TrainResult``. Parameter
-sharding (``param_sharding_fn``) is not ported.
+rank resumes from them and returns the same ``TrainResult``.
+
+``param_sharding_fn`` (``parallel.tp_param_shardings``,
+``fsdp_param_shardings``, ``fsdp_tp_param_shardings``; a mesh is needed)
+lays the parameters out over the mesh for the fit
+(``parallel/fsdp.py``, ``parallel/tensor_parallel.py``): tensor-parallel
+layers on the 'model' axis (K1 on each rank's plane shard), FSDP's
+slices and their moments on the 'data' axis. The model's layers are
+swapped for the fit and put back at its end, and for each callback's
+call; ``TrainResult.params``, ``best_params`` and ``ema_params``, the
+checkpoints and what callbacks receive hold whole tensors in the
+reference layout, gathered on every rank, so a resume may take another
+layout or none (elastic resume).
+K3's ``train_step_fn`` and K2's fused ``loss_fn`` run on gathered whole
+tensors and keep each rank's slices, as XLA runs a Pallas call.
 """
 
 from __future__ import annotations
@@ -139,16 +152,33 @@ class _Run:
         if tr._early_patience:
             tr.early_stopping = EarlyStopping(patience=tr._early_patience)
         model = tr.model
+        self.static = {}
         if params is not None:
             model.load_state_dict(params)
-        tr.optimizer = tr._make_optimizer()
+        # under a layout the whole starting weights are cut into the
+        # layout's pieces, the optimizer stepping the masters
+        self.sharded = None
+        if tr.param_sharding_fn is not None:
+            if state is not None:
+                model.load_state_dict(state["params"])
+            self.sharded = tr._shard(model)
+        try:
+            tr.optimizer = tr._make_optimizer(self.sharded)
+            if state is not None:
+                if self.sharded is None:
+                    model.load_state_dict(state["params"])
+                    tr.optimizer.load_state_dict(state["optimizer"])
+                else:
+                    tr.optimizer.load_state_dict(
+                        self.sharded.local_optimizer_state(state["optimizer"]))
+        except BaseException:
+            self.close()
+            raise
         self.gen = torch.Generator(device=tr.device).manual_seed(tr.seed)
         self.start_epoch = 0
         self.ig_best, self.stopped = math.inf, False
         if state is not None:
             self.start_epoch = int(meta["epoch"]) + 1
-            model.load_state_dict(state["params"])
-            tr.optimizer.load_state_dict(state["optimizer"])
             self.gen.set_state(state["generator"].cpu())
             tr.plateau.lr, tr.plateau.best = meta["plateau_lr"], meta["plateau_best"]
             tr.plateau.num_bad_epochs = meta["plateau_bad"]
@@ -167,7 +197,7 @@ class _Run:
             if blocks is None:
                 self.prog = ChunkProgram(tr, model, tr.optimizer, x_train, x_val, batch_size,
                                          self.gen, self.start_epoch, loss_fn=loss_fn, hp=hp,
-                                         stream=stream)
+                                         stream=stream, sharded=self.sharded)
             else:
                 # x_train on the host, streamed in blocks (train/streaming.py)
                 from hyperbolic_vae_tpu_torch.train.streaming import StreamedProgram
@@ -175,7 +205,8 @@ class _Run:
                 block_rows, reshuffle = blocks
                 self.prog = StreamedProgram(tr, model, tr.optimizer, x_train, block_rows,
                                             reshuffle, x_val, batch_size, self.gen,
-                                            self.start_epoch, loss_fn=loss_fn, hp=hp)
+                                            self.start_epoch, loss_fn=loss_fn, hp=hp,
+                                            sharded=self.sharded)
             if state is not None:
                 self.prog.load_state_dict(state["chunk"])
         except BaseException:
@@ -192,6 +223,9 @@ class _Run:
             setattr(self.trainer.model, k, v)
         if hasattr(self, "prog"):  # not yet when the program's constructor raised
             self.prog.close()
+        if self.sharded is not None:  # a fit that failed: the layers back, untrained
+            self.sharded.restore(None)
+            self.sharded = None
 
     def absorb(self, rows: np.ndarray, ctrl: dict):
         """A fetched chunk into the host's state: the controllers' mirrors,
@@ -223,28 +257,58 @@ class _Run:
     def resume_state(self):
         """(state, meta) of the resume unit: parameters, optimizer, the
         device's controllers and best params, the generator; the host
-        controllers' mirrors in the metadata."""
+        controllers' mirrors in the metadata. Whole tensors under a layout."""
         tr = self.trainer
         es = tr.early_stopping
-        return ({"params": _snapshot(tr.model), "optimizer": copy.deepcopy(tr.optimizer.state_dict()),
+        opt = (copy.deepcopy(tr.optimizer.state_dict()) if self.sharded is None
+               else self.sharded.full_optimizer_state(tr.optimizer))
+        return ({"params": self.full_params(), "optimizer": opt,
                  "chunk": self.prog.state_dict(), "generator": self.gen.get_state()},
                 {"epoch": self.epochs_run - 1, "plateau_lr": tr.plateau.lr,
                  "plateau_best": tr.plateau.best, "plateau_bad": tr.plateau.num_bad_epochs,
                  "early_best": es.best if es else math.inf, "early_wait": es.wait if es else 0})
 
+    def full(self, tensors: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """Tracked tensors by key, whole (gathered under a layout)."""
+        if self.sharded is None:
+            return {k: v.clone() for k, v in tensors.items()}
+        return self.sharded.full(tensors)
+
+    def whole_model(self):
+        """A context in which ``trainer.model`` is the model one process
+        holds: its own layers and this fit's weights, whole (callbacks run
+        in it); unchanged without a layout."""
+        return contextlib.nullcontext() if self.sharded is None else self.sharded.whole()
+
+    def full_params(self) -> Dict[str, torch.Tensor]:
+        """The model's weights, whole, on every rank."""
+        return _snapshot(self.trainer.model) if self.sharded is None else self.sharded.full_params()
+
+    def ema_params(self) -> Dict[str, torch.Tensor]:
+        tr = self.trainer
+        if self.sharded is None:
+            return tr._ema_params()
+        ema = tr.optimizer.ema_params()
+        return self.sharded.full({leaf.key: ema[leaf.master] for leaf in self.sharded.leaves})
+
     def result(self, samples_per_sec: float, stop_reason: Optional[str]) -> TrainResult:
         tr = self.trainer
-        return TrainResult(
-            params=_snapshot(tr.model),
-            best_params={k: v.clone() for k, v in self.prog.best.items()},
+        params = self.full_params()
+        out = TrainResult(
+            params=params,
+            best_params=self.full(self.prog.best),
             history=self.history,
             best_metric=self.best_metric,
             epochs_run=self.epochs_run,
             samples_per_sec=samples_per_sec,
-            ema_params=tr._ema_params() if tr.ema_decay is not None else None,
+            ema_params=self.ema_params() if tr.ema_decay is not None else None,
             interrupted=stop_reason is not None,
             stop_reason=stop_reason,
         )
+        if self.sharded is not None:  # the model's own layers back, trained
+            self.sharded.restore(params)
+            self.sharded = None
+        return out
 
 
 class Trainer:
@@ -284,13 +348,9 @@ class Trainer:
         finite_guard: bool = True,  # skip a step whose loss or gradient is not finite (default step)
         mesh=None,  # parallel.make_mesh(): data parallel over its ranks
         use_mesh: bool = False,  # build make_mesh() over the torch.distributed world
-        param_sharding_fn: Optional[Callable] = None,  # parameter sharding: not ported
+        param_sharding_fn: Optional[Callable] = None,  # fn(model, mesh) -> layout (parallel.sharding_rules)
         device: DeviceLike = None,
     ):
-        if param_sharding_fn is not None:
-            raise NotImplementedError(
-                "param_sharding_fn (tensor parallelism, FSDP) is not ported yet: ROADMAP.md "
-                "Queue 1 item 8b; a mesh without it trains data parallel")
         if shuffle not in ("row", "block"):
             raise ValueError(f"shuffle must be 'row' or 'block', got {shuffle!r}")
         if epochs_per_dispatch < 1:
@@ -353,6 +413,13 @@ class Trainer:
         if mesh is not None and DATA_AXIS not in mesh.shape:
             raise ValueError(f"a Trainer's mesh needs a {DATA_AXIS!r} axis (make_mesh), got "
                              f"{mesh.shape}; a seed mesh goes to fit_ensemble(seed_mesh=...)")
+        if param_sharding_fn is not None:
+            if mesh is None:
+                raise ValueError("param_sharding_fn lays the parameters out over a mesh: pass "
+                                 "mesh=make_mesh(n_data, n_model) (or use_mesh=True)")
+            if hp_model_fn is not None:
+                raise ValueError("param_sharding_fn does not compose with hp_model_fn lanes")
+        self.param_sharding_fn = param_sharding_fn
         self.mesh = mesh
         self.device = resolve_device(device if mesh is None or device is not None
                                      else mesh.device)
@@ -412,10 +479,23 @@ class Trainer:
             self._ckpt_mgr = CheckpointManager(checkpoint_dir, read_only=not self._writer)
             self._ckpt_mgr.model_config = model_hparams(model)
 
-    def _make_optimizer(self) -> RiemannianAdam:
+    def _make_optimizer(self, sharded=None) -> RiemannianAdam:
+        """Riemannian Adam over the model's parameters, or over a layout's
+        masters (their specs recorded as ``param_specs``)."""
         ball = getattr(self.model, "ball", None) or PoincareBall(c=1.0)
-        return RiemannianAdam(self.model.parameters(), lr=self.plateau.lr, ball=ball,
-                              moment_dtype=self.moment_dtype, ema_decay=self.ema_decay)
+        params = self.model.parameters() if sharded is None else sharded.masters
+        opt = RiemannianAdam(params, lr=self.plateau.lr, ball=ball,
+                             moment_dtype=self.moment_dtype, ema_decay=self.ema_decay)
+        if sharded is not None:
+            opt.param_specs = sharded.param_specs()
+        return opt
+
+    def _shard(self, model):
+        """``model`` laid out by ``param_sharding_fn`` over the mesh."""
+        from hyperbolic_vae_tpu_torch.parallel.fsdp import ShardedState
+
+        return ShardedState(model, self.param_sharding_fn(model, self.mesh), self.mesh,
+                            whole_batch=self._whole_batch())
 
     def _stage(self, x: np.ndarray) -> torch.Tensor:
         """``x`` on the device as f32; under a mesh padded to a multiple of
@@ -494,7 +574,9 @@ class Trainer:
         streaming, two blocks of ``stream_rows`` and the val split) and, for
         each model (one a lane), its parameters twice (live and best), the
         optimizer's moments (and EMA) and one microbatch of input,
-        reconstruction and gradient."""
+        reconstruction and gradient. Under ``param_sharding_fn`` what a rank
+        holds: its pieces, their moments and best copy, and ``gathered``,
+        the working copies its forward reads (with K3 their moments too)."""
         row_bytes = int(np.prod(dm.x_train.shape[1:])) * 4  # staged f32
         # streaming: the two device block buffers at the peak; under a mesh
         # every rank holds the whole split, padded to the data axis
@@ -503,19 +585,41 @@ class Trainer:
         train_rows = 2 * int(stream_rows) if stream_rows else padded(dm.x_train.shape[0])
         split = (train_rows + padded(dm.x_val.shape[0])) * row_bytes
         moment = getattr(torch, self.moment_dtype) if isinstance(self.moment_dtype, str) else self.moment_dtype
-        p = o = 0
+        p = o = gathered = 0
         for model in models:
-            p += sum(t.numel() * t.element_size() for t in model.state_dict().values())
-            for t in model.parameters():
-                size = torch.empty((), dtype=moment).element_size() if moment else t.element_size()
-                o += t.numel() * (2 * size + (4 if self.ema_decay is not None else 0))
+            held = self._held_shapes(model)
+            p += sum(int(np.prod(held[k][0])) * t.element_size()
+                     for k, t in model.state_dict().items())
+            for k, t in model.named_parameters():
+                n, size = int(np.prod(held[k][0])), t.element_size()
+                msize = torch.empty((), dtype=moment).element_size() if moment else size
+                o += n * (2 * msize + (4 if self.ema_decay is not None else 0))
+                if held[k][1] != held[k][0]:  # the working copy a layout gathers
+                    extra = 2 * msize if self.train_step_fn is not None else 0  # K3's moments
+                    gathered += int(np.prod(held[k][1])) * (size + extra)
         micro = dm.batch_size // self.grad_accum_steps
         if n_data > 1 and not self._whole_batch():  # this rank's rows of a microbatch
             micro = -(-micro // n_data)
         act = 3 * micro * row_bytes * len(models)  # input + recon + grad floor
         # 2 * p: live + best
-        return {"splits": split, "params+best": 2 * p, "opt": o, "activations": act,
-                "total": split + 2 * p + o + act}
+        return {"splits": split, "params+best": 2 * p, "opt": o, "gathered": gathered,
+                "activations": act, "total": split + 2 * p + o + gathered + act}
+
+    def _held_shapes(self, model) -> Dict[str, tuple]:
+        """key -> (the shape a rank holds: its master, the working shape its
+        forward reads): the whole shape twice without a layout; under
+        ``param_sharding_fn`` the layout's pieces (a whole-batch step reads
+        whole tensors, a tensor-parallel layer its 'model' piece)."""
+        shapes = {k: tuple(t.shape) for k, t in model.state_dict().items()}
+        if self.param_sharding_fn is None:
+            return {k: (s, s) for k, s in shapes.items()}
+        from hyperbolic_vae_tpu_torch.parallel.mesh import MODEL_AXIS
+        from hyperbolic_vae_tpu_torch.parallel.sharding_rules import local_shape
+
+        layout = self.param_sharding_fn(model, self.mesh)
+        tp = () if self._whole_batch() else (MODEL_AXIS,)
+        return {k: (local_shape(s, layout[k], self.mesh),
+                    local_shape(s, layout[k], self.mesh, axes=tp)) for k, s in shapes.items()}
 
     def _preflight(self, dm: ArrayDataModule, models: Sequence,
                    stream_rows: Optional[int] = None) -> None:
@@ -615,9 +719,10 @@ class Trainer:
                 "model": self.model, "lr": self.lr, "batch_size": dm.batch_size,
                 "max_epochs": self.max_epochs, "dataset": dm.name,
             })
-            for cb in self.callbacks:
-                if hasattr(cb, "on_fit_start"):
-                    cb.on_fit_start(self, dm)
+            with run.whole_model():
+                for cb in self.callbacks:
+                    if hasattr(cb, "on_fit_start"):
+                        cb.on_fit_start(self, dm)
             result = self._fit_chunked(run)
             if self.mesh is not None:  # rank 0's files are written for every rank
                 self.mesh.barrier()
@@ -650,11 +755,14 @@ class Trainer:
                 if ctrl["best_epoch"] != best_row[0]:
                     raise RuntimeError(f"best epoch {ctrl['best_epoch']} on the device, "
                                        f"{best_row[0]} in the history")
-                self._ckpt_mgr.save_best(best_row[0], prog.best, best_row[1])
-            for cb in self.callbacks:
-                if hasattr(cb, "on_epoch_end"):
-                    cb.on_epoch_end(self, run.epochs_run - 1, self.model.state_dict(),
-                                    run.history[-1] if run.history else {})
+                self._ckpt_mgr.save_best(best_row[0], run.full(prog.best), best_row[1])
+            if self.callbacks:
+                with run.whole_model():
+                    live = self.model.state_dict()
+                    for cb in self.callbacks:
+                        if hasattr(cb, "on_epoch_end"):
+                            cb.on_epoch_end(self, run.epochs_run - 1, live,
+                                            run.history[-1] if run.history else {})
             # a completed run is never interrupted
             done = run.epochs_run >= self.max_epochs
             reason = None if done else self._external_stop()
@@ -674,9 +782,9 @@ class Trainer:
                 logger.warning("graceful stop after epoch %d: %s", run.epochs_run - 1, reason)
                 break
         if self._ckpt_mgr is not None and run.epochs_run > run.start_epoch:
-            self._ckpt_mgr.save_last(run.epochs_run - 1, self.model.state_dict(), run.history[-1])
+            self._ckpt_mgr.save_last(run.epochs_run - 1, run.full_params(), run.history[-1])
             if self.ema_decay is not None:
-                self._ckpt_mgr.save_named("ema", self._ema_params(),
+                self._ckpt_mgr.save_named("ema", run.ema_params(),
                                           {"epoch": run.epochs_run - 1, "ema_decay": self.ema_decay})
         elapsed = time.perf_counter() - t_start if t_start is not None else 0.0
         self.metric_logger.close()
@@ -699,6 +807,7 @@ class Trainer:
         bit. Resumable and stoppable as ``fit``."""
         from hyperbolic_vae_tpu_torch.train.ensemble import fit_ensemble
 
+        self._refuse_layout("fit_ensemble")
         with self._graceful_scope():
             return fit_ensemble(self, dm, seeds, epochs_per_dispatch, seed_mesh=seed_mesh,
                                 resume=resume)
@@ -714,9 +823,15 @@ class Trainer:
             raise ValueError("lr_schedule does not compose with per-lane lr sweeps")
         from hyperbolic_vae_tpu_torch.train.ensemble import fit_lane_sweep
 
+        self._refuse_layout("fit_lane_sweep")
         with self._graceful_scope():
             return fit_lane_sweep(self, dm, lanes, epochs_per_dispatch, seed_mesh=seed_mesh,
                                   resume=resume)
+
+    def _refuse_layout(self, what: str) -> None:
+        if self.param_sharding_fn is not None:
+            raise ValueError(f"{what} trains whole lanes (a seed mesh spreads them over ranks); "
+                             f"it does not compose with param_sharding_fn")
 
     # ---- after training ----------------------------------------------------
 

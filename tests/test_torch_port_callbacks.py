@@ -30,6 +30,7 @@ from hyperbolic_vae_tpu_torch.interop import (
 from hyperbolic_vae_tpu_torch.models import GyroplaneVAE
 from hyperbolic_vae_tpu_torch.train import MetricLogger, Trainer
 from hyperbolic_vae_tpu_torch.train import callbacks as port_cb
+from torch_port_threads import one_torch_thread  # noqa: F401 (autouse: one torch thread)
 
 
 class _Images:

@@ -193,21 +193,23 @@ def test_exp8_fake_rnaseq_and_mnist(tmp_path):
     assert meta["model"]["input_size"] == [40] and meta["model"]["latent_curvature"] == 1.0
 
 
-@pytest.mark.parametrize("flag,item", [(["--tp", "2"], "item 8"), (["--fsdp"], "item 8"),
-                                       (["--use-mesh"], "item 8")])
-def test_exp8_later_items_exit_naming_them(tmp_path, flag, item):
-    """``--tp``/``--fsdp`` (parameter sharding) exit naming Queue 1 item
-    8b; ``--use-mesh`` (item 8a, data parallel) trains, here at world
-    size 1, as the run without it does."""
-    if flag != ["--use-mesh"]:
-        with pytest.raises(SystemExit, match=item + "b"):
-            train_vaes_rnaseq.main(_common(tmp_path) + flag)
-        return
+@pytest.mark.parametrize("flag,outcome", [(["--tp", "2"], "refused"),
+                                          (["--tp", "1", "--fsdp"], "trains"),
+                                          (["--use-mesh"], "trains")])
+def test_exp8_later_items_exit_naming_them(tmp_path, flag, outcome):
+    """Experiment 8's mesh flags at world size 1: ``--tp 1 --fsdp`` (FSDP,
+    ROADMAP Queue 1 item 8b) and ``--use-mesh`` (data parallel, item 8a)
+    train as the run without them does; ``--tp 2`` is refused, naming the
+    two ranks it needs and the one the world has."""
     import torch.distributed as dist
 
     args = ["--n-genes", "40", "--hidden-dim", "8"]
-    want = train_vaes_rnaseq.main(_common(tmp_path / "plain") + args)
     try:
+        if outcome == "refused":
+            with pytest.raises(SystemExit, match="--tp 2 needs 2 ranks but the world has 1"):
+                train_vaes_rnaseq.main(_common(tmp_path) + args + flag)
+            return
+        want = train_vaes_rnaseq.main(_common(tmp_path / "plain") + args)
         got = train_vaes_rnaseq.main(_common(tmp_path / "mesh") + args + flag)
         assert dist.is_initialized() and dist.get_world_size() == 1
     finally:

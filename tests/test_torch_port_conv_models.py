@@ -47,6 +47,7 @@ from hyperbolic_vae_tpu_torch.interop import state_dict_from_jax_params
 from hyperbolic_vae_tpu_torch.models import Autoencoder, EuclideanVAE, HyperbolicImageVAE
 from hyperbolic_vae_tpu_torch.nn import ManifoldParameter
 from hyperbolic_vae_tpu_torch.optim import RiemannianAdam
+from torch_port_threads import one_torch_thread  # noqa: F401 (autouse: one torch thread)
 
 S, M, B, K, L = 16, 4, 4, 6, 2
 

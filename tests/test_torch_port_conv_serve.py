@@ -51,6 +51,7 @@ from hyperbolic_vae_tpu_torch.serve_http import InferenceServer, load_engines, p
 from hyperbolic_vae_tpu_torch.train import Trainer
 from hyperbolic_vae_tpu_torch.train import callbacks as port_cb
 from hyperbolic_vae_tpu_torch.train.checkpoint import restore_model
+from torch_port_threads import one_torch_thread  # noqa: F401 (autouse: one torch thread)
 
 EXPERIMENTS = Path(__file__).resolve().parent.parent / "experiments"
 ENGINE = dict(batch_size=8, max_batches_per_dispatch=4)

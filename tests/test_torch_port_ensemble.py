@@ -34,6 +34,7 @@ from hyperbolic_vae_tpu_torch.train import Trainer
 from hyperbolic_vae_tpu_torch.train.cuda_graph import run_eagerly
 from hyperbolic_vae_tpu_torch.train.ensemble import evaluate_lanes
 from hyperbolic_vae_tpu_torch.train.factories import make_trainer_hyperbolic
+from torch_port_threads import one_torch_thread  # noqa: F401 (autouse: one torch thread)
 
 SEEDS = [42, 7, 3]
 LANES = [

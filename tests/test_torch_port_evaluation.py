@@ -35,6 +35,7 @@ from hyperbolic_vae_tpu_torch.manifolds import stats as port_stats
 from hyperbolic_vae_tpu_torch.models import GyroplaneVAE
 from hyperbolic_vae_tpu_torch.optim import beta_warmup_schedule
 from hyperbolic_vae_tpu_torch.train import Trainer
+from torch_port_threads import one_torch_thread  # noqa: F401 (autouse: one torch thread)
 
 ATOL = 1e-5
 

@@ -295,7 +295,21 @@ def _model(**kw):
     return GyroplaneVAE(generator=torch.Generator().manual_seed(0), device="cpu", **kw)
 
 
-def test_trainer_hook_runs_k3_and_matches_the_fused_loss_fit():
+@pytest.fixture()
+def one_thread():
+    """torch on one thread for the test: beside the suite's other workers,
+    these fits' small ops otherwise spend most of their time in the
+    oversubscribed thread pool (a two-epoch flagship fit here: ~22 s on 8
+    threads under load, ~2.2 s on one)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(threads)
+
+
+def test_trainer_hook_runs_k3_and_matches_the_fused_loss_fit(one_thread):
     """Trainer(train_step_fn=K3, loss_fn=K2) on the CPU: the default path's
     history keys, finite values, and (same seed, same batches and draws)
     the values of a fit with the fused loss, autograd and RiemannianAdam."""

@@ -35,6 +35,7 @@ from hyperbolic_vae_tpu_torch.interop import (
 )
 from hyperbolic_vae_tpu_torch.manifolds import PoincareBall
 from hyperbolic_vae_tpu_torch.optim import EarlyStopping, ReduceLROnPlateau, RiemannianAdam
+from torch_port_threads import one_torch_thread  # noqa: F401 (autouse: one torch thread)
 
 TOL = dict(rtol=1e-5, atol=1e-7)
 

@@ -38,6 +38,7 @@ from hyperbolic_vae_tpu_torch.parallel import make_mesh, make_seed_mesh
 from hyperbolic_vae_tpu_torch.parallel.mesh import share
 from hyperbolic_vae_tpu_torch.serve import Inferencer
 from hyperbolic_vae_tpu_torch.train import Trainer
+from torch_port_threads import one_torch_thread  # noqa: F401 (autouse: one torch thread)
 
 WORLD = 2
 SEEDS = [1, 2, 3, 4]
@@ -131,6 +132,27 @@ def _ensemble_resume(mesh, out):
     return [_fit_record(r) for r in res]
 
 
+def _uneven_tp():
+    """Tensor parallelism over 2 model ranks on a flagship whose first
+    layer has 63 rows."""
+    from hyperbolic_vae_tpu_torch.parallel import tp_param_shardings
+
+    model = GyroplaneVAE(hidden_dims=(63, 16), device="cpu")
+    return Trainer(model, mesh=make_mesh(n_data=1, n_model=2, device="cpu"),
+                   param_sharding_fn=tp_param_shardings, device="cpu")
+
+
+def _exit_message(argv):
+    """Experiment 8's mesh for ``argv``, or the message it exits with."""
+    from hyperbolic_vae_tpu_torch.experiments import train_vaes_rnaseq
+
+    try:
+        train_vaes_rnaseq.layout_of(train_vaes_rnaseq.parse_args(argv))
+    except SystemExit as e:
+        return str(e)
+    return None
+
+
 def _refusals(mesh, out):
     seed_mesh = make_seed_mesh(WORLD, device="cpu")
     return {
@@ -138,7 +160,8 @@ def _refusals(mesh, out):
                                                                  seed_mesh=seed_mesh)),
         "block_rows": _message(lambda: _trainer(mesh).fit_streamed(_dm(), block_rows=65)),
         "ensemble_on_data_mesh": _message(lambda: _trainer(mesh).fit_ensemble(_dm(), [1, 2])),
-        "param_sharding": _message(lambda: _trainer(mesh, param_sharding_fn=lambda p, m: p)),
+        "param_sharding": _message(lambda: _uneven_tp().fit(_dm())),
+        "tp_above_world": _exit_message(["--tp", "4", "--device", "cpu"]),
         "seed_mesh_as_data_mesh": _message(lambda: _trainer(seed_mesh)),
     }
 
@@ -340,12 +363,16 @@ def test_seed_lanes_resume_per_rank(world, single):
 
 
 def test_refusals_kept(world):
+    """The refusals JAX pins, and parameter sharding's: a dimension its axis
+    does not divide, and experiment 8's ``--tp`` above the world's ranks."""
     ranks, _ = world
     msgs = _ok(ranks[0]["refusals"])
     assert "3 seeds do not shard evenly over 2 devices" in msgs["uneven_lanes"]
     assert "block_rows must shard evenly over the mesh 'data' axis" in msgs["block_rows"]
     assert "does not compose with a mesh" in msgs["ensemble_on_data_mesh"]
-    assert "item 8b" in msgs["param_sharding"]
+    assert ("encoder.1.weight: dimension 0 of size 63 does not split evenly over the 2 ranks "
+            "of the 'model' axis") in msgs["param_sharding"]
+    assert "--tp 4 needs 4 ranks but the world has 2" in msgs["tp_above_world"]
     assert "'data' axis" in msgs["seed_mesh_as_data_mesh"]
 
 

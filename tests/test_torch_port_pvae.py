@@ -74,6 +74,7 @@ from hyperbolic_vae_tpu_torch.manifolds import Euclidean, PoincareBall
 from hyperbolic_vae_tpu_torch.models import PvaeMLPVAE
 from hyperbolic_vae_tpu_torch.optim import RiemannianAdam
 from test_torch_port_conv_models import _init
+from torch_port_threads import one_torch_thread  # noqa: F401 (autouse: one torch thread)
 
 SHAPE, H, L, B, K = (8, 8, 1), 16, 2, 4, 6
 SIGMAS = np.linspace(0.1, 7.0, 300).astype(np.float32)

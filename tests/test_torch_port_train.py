@@ -49,6 +49,7 @@ from hyperbolic_vae_tpu_torch.ops.flagship_fused import fused_config, fused_flag
 from hyperbolic_vae_tpu_torch.optim import EarlyStopping, ReduceLROnPlateau, RiemannianAdam
 from hyperbolic_vae_tpu_torch.train import Trainer
 from hyperbolic_vae_tpu_torch.train.epoch_program import batch_indices, train_step
+from torch_port_threads import one_torch_thread  # noqa: F401 (autouse: one torch thread)
 
 B = 32
 
