@@ -41,7 +41,7 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
   Each path (serve, fused train, K3 train, default train, eval, the
   RNA-seq family's fits, serve and eval, the conv families', the pvae
   phase's, the interop phase's, the sweeps', the deploy phase's, the
-  data-mesh phase's and the shard phase's) zeroes the launch counters
+  data-mesh phase's, the shard phase's and the api phase's) zeroes the launch counters
   just before it and reads
   them just after; the graph runner adds each captured kernel's launches
   on every replay.
@@ -86,7 +86,7 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
      bit for bit, with the graphed step's wall, busy and idle share; the
      Riemannian posterior's 80-epoch fit (best val within 1 % of JAX's
      319.970) and ``evaluate_iwae(k=5000)`` (within 1 % of JAX's
-     -320.655, at least the test ELBO); the wrapped posterior's 10-epoch
+     -320.655, at least the test ELBO); the wrapped posterior's 6-epoch
      fit served over HTTP from its best checkpoint (generate 404);
      UnifiedVAE's 6-epoch fit served from its best checkpoint and
      ``evaluate_iwae(k=5000, k_chunk=100)`` (exactly 250 K1 launches), the
@@ -106,7 +106,7 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
   11. Sweeps (``sweep_phase``): K1 at 512 planes against its plain
      version at c = 0.5 and 1.0; experiment 6's flagship as the parity
      protocol's 8 seed lanes (``Trainer.fit_ensemble``, a CUDA stream a
-     lane) on the default path (3 epochs, exactly 8 x 3 x 234 K1) and on
+     lane) on the default path (2 epochs, exactly 8 x 2 x 234 K1) and on
      the K3 path (10 epochs, exactly 8 x 10 x 210 K3 and 8 x 10 x 24 K2),
      two lanes of each equal to their own fits bit for bit; aggregate
      train samples/s at S = 1, 2, 4, 8 beside sequential fits, and the
@@ -149,13 +149,23 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
      time, launch floor and bound; graphed RNASeqVAE fits at 20,480 genes
      under the TP, FSDP and FSDP x TP layouts at world size 1 over NCCL,
      each bit for bit its unsharded twin; experiment 8's ``--tp 1 --fsdp``.
-  15. Summary: a ``{"kernels": [...]}`` line (K1 four times: at the
+  15. The public surface (``api_phase``), through ``import
+     hyperbolic_vae_tpu_torch as hvt``: ``hvt.Trainer(hvt.GyroplaneVAE())``
+     graphed with checkpoints (``best_metadata()``, exactly 234 K1 an
+     epoch); ``debug_nans=True`` (eager) bit for bit that fit, and a NaN row
+     raising ``FloatingPointError`` at its step; ``hvt.Inferencer.
+     from_checkpoint(mesh=)`` over NCCL bit for bit the unmeshed engine; a
+     K3 fit under FSDP x TP resumed bit for bit the uninterrupted fit
+     (moments included); the layer's squared and bias-less options on K1
+     against their plain versions.
+  16. Summary: a ``{"kernels": [...]}`` line (K1 four times: at the
      flagship's 16 planes, the RNA-seq family's 256, the conv family's
      512 and UnifiedVAE's 100, each counted on its own paths, the interop,
-     deploy, data-mesh and shard phases' among them, each with its op
+     deploy, data-mesh, shard and api phases' among them, each with its op
      check ``via_op``, the 16-, 256- and 100-plane entries with their
-     ``plane_shards``), then, as the last line, ``{"ok": true, "device":
-     {...}}``.
+     ``plane_shards``, the 16-plane entry with the layer's options'
+     errors, ``layer_options``), then, as the last line, ``{"ok": true,
+     "device": {...}}``.
 
 Prints no result and exits 1 when CUDA is unavailable.
 """
@@ -2218,7 +2228,8 @@ def conv_phase():
 # grid): synthetic MNIST, 784 -> 600 (ReLU) -> 2-D ball (c = 1), batch 128,
 # lr 5e-4, 80 epochs, no early stopping, IWAE-5000; JAX's converged numbers
 # of its riemannian_c1.0_d2 cell (runs/pvae_replicate_r3/replicate_results.json)
-PVAE_HIDDEN, PVAE_BATCH, PVAE_LR, PVAE_EPOCHS, PVAE_WRAPPED_EPOCHS = 600, 128, 5e-4, 80, 10
+# (e)'s wrapped fit: 6 epochs (cut from 10 to make room for api_phase)
+PVAE_HIDDEN, PVAE_BATCH, PVAE_LR, PVAE_EPOCHS, PVAE_WRAPPED_EPOCHS = 600, 128, 5e-4, 80, 6
 PVAE_JAX_BEST_VAL, PVAE_JAX_IWAE, PVAE_IWAE_K = 319.970, -320.655, 5000
 PVAE_CHECK_ROWS = 10000  # (c)'s graphed/eager pairs: 9,000 train and 1,000 val rows
 # (b)'s share limit: a tenth of RNA_SHARE_LIMIT. Five steps card vs CPU
@@ -2315,7 +2326,7 @@ def pvae_phase():
           then unless ``evaluate_iwae(k=5000)`` on the test split is within
           1 % of JAX's -320.655 and at least the split's mean ELBO
           (``evaluate(split="test")``);
-      (e) the wrapped posterior at the same protocol for 10 epochs with
+      (e) the wrapped posterior at the same protocol for 6 epochs with
           checkpoints, its best served over HTTP: embed, and reconstruct
           of 2,048 rows as octet-stream (bit for bit the restored model's
           decode of its posterior mean, batch by batch); generate 404;
@@ -2929,7 +2940,8 @@ def interop_phase():
 # (experiments/train_vae_hyperbolic_mnist_grid.py), experiment 9's curvature
 # lanes (experiments/pvae_replicate.py --lane-sweep)
 SWEEP_SEEDS = [42, 7, 123, 0, 1, 2, 3, 11]
-SWEEP_DEFAULT_EPOCHS, SWEEP_K3_EPOCHS = 3, 10
+# the default path's lanes: 2 epochs (cut from 3 to make room for api_phase)
+SWEEP_DEFAULT_EPOCHS, SWEEP_K3_EPOCHS = 2, 10
 GRID_CURVATURES, GRID_BETAS, GRID_EPOCHS = (0.5, 1.0, 1.4), (1.0, 3.0), 2
 PVAE_SWEEP_CURVATURES, PVAE_SWEEP_EPOCHS, PVAE_SWEEP_IWAE_K = (0.5, 1.0, 1.4), 2, 500
 SWEEP_ROWS = (60000, 10000)  # synthetic MNIST: 54,000 train, 6,000 val, 10,000 test rows
@@ -3058,7 +3070,7 @@ def sweep_phase():
       (b) experiment 6's flagship (784 -> 64 -> 16 -> 2-D ball -> 16
           gyroplanes) on synthetic MNIST (54,000 train, 6,000 val rows),
           batch 256, as 8 seed lanes (the parity protocol's seeds) on the
-          default path, 3 epochs in one chunk: exactly 8 x 3 x 234 K1
+          default path, 2 epochs in one chunk: exactly 8 x 2 x 234 K1
           launches; seeds 42 and 11 each equal to their own graphed
           ``fit`` bit for bit (history with lr, best, params, best params);
       (c) the same 8 seeds on the K3 path, 10 epochs in one chunk: exactly
@@ -4330,6 +4342,279 @@ def shard_phase():
     return shards, paths
 
 
+API_ROWS = (60000, 10000)  # synthetic MNIST: 54,000 train, 6,000 val, 10,000 test rows
+API_EPOCHS = 2
+API_POISON_ROWS = 2560  # (b)'s poisoned split: the first 2,560 train rows, row API_POISON NaN
+API_POISON = 1000
+API_SERVE_ROWS = 1000
+
+
+def _layer_options(rng) -> tuple:
+    """(e): ``PoincareHyperplanes`` (by its geoopt name) with the options
+    JAX's layer has, squared (signed and unsigned) and without bias, at
+    P = 16 on the card: K1's distances (no bias inside it but where nothing
+    follows it), the square and the bias after it; each held to the plain
+    version of the same forward on the same tensors at B = 256 and the
+    IWAE decode's rows, as ``_k1_check`` holds K1 (interior: 1e-5; near the
+    boundary: at most twice the plain version's error from float64, plus
+    1e-5). Returns ((interior, boundary) max abs errors, records)."""
+    import torch
+
+    from hyperbolic_vae_tpu_torch.nn import Distance2StereographicHyperplanes
+    from hyperbolic_vae_tpu_torch.nn.layers import hyperplane_distances
+    from hyperbolic_vae_tpu_torch.ops import gyroplane as g
+
+    import hyperbolic_vae_tpu_torch as hvt
+
+    ball = hvt.PoincareBall(1.0)
+    err_in = err_bd = 0.0
+    records = []
+    for squared, signed, use_bias in ((True, True, True), (True, False, True),
+                                      (True, True, False), (True, False, False),
+                                      (False, True, False), (False, False, False)):
+        layer = Distance2StereographicHyperplanes(
+            D, P, ball, signed=signed, squared=squared, use_bias=use_bias,
+            generator=torch.Generator().manual_seed(16)).cuda()
+        rec = {"squared": squared, "signed": signed, "use_bias": use_bias}
+        for b in (BATCH, IWAE_ROWS):
+            for region in ("interior", "boundary"):
+                x = torch.from_numpy(_points(rng, b, 1.0, region)).cuda()
+                with torch.no_grad():
+                    layer.points.copy_(torch.from_numpy(_points(rng, P, 1.0, region)))
+                    out = layer(x)
+                    torch.cuda.synchronize()
+                    pts, bias = layer.points, layer.bias
+                    ref = hyperplane_distances(x, pts, 1.0, signed, squared, bias,
+                                               distances=g.gyroplane_distances)
+                if out.shape != (b, P) or not torch.isfinite(out).all():
+                    _fail(f"api (e): bad output of {rec} at B={b} {region}")
+                err = float((out - ref).abs().max())
+                rec[f"max_abs_err_{region}_{b}"] = err
+                if region == "interior":
+                    err_in = max(err_in, err)
+                    continue
+                err_bd = max(err_bd, err)
+                exact = hyperplane_distances(
+                    x.double(), pts.double(), 1.0, signed, squared,
+                    None if bias is None else bias.double(), distances=g.gyroplane_distances)
+                k_err = float((out.double() - exact).abs().max())
+                p_err = float((ref.double() - exact).abs().max())
+                if k_err > 2.0 * p_err + 1e-5:
+                    _fail(f"api (e): {rec} near the boundary at B={b}: err vs float64 {k_err} > "
+                          f"2 x plain's {p_err} + 1e-5")
+        records.append(rec)
+        print(f"api (e): PoincareHyperplanes(squared={squared}, signed={signed}, "
+              f"use_bias={use_bias}) P={P} on K1 against its plain version: "
+              + ", ".join(f"{k[12:]} {v:.3e}" for k, v in rec.items() if k.startswith("max")),
+              flush=True)
+    if err_in > 1e-5:
+        _fail(f"api (e): interior max abs err {err_in} > 1e-5")
+    return (err_in, err_bd), records
+
+
+def _debug_nans_cost(dm) -> dict:
+    """(b): ms a step of the flagship's eager default-path step at B = 256,
+    plain, with ``debug_nans``' checks (``NanCheck``: the loss read before
+    its backward, the gradients after it) and under autograd's anomaly
+    mode over the whole step (the design ``debug_nans`` does not take):
+    the host clock around synchronised runs of 20 steps (3 under anomaly
+    mode), after one step of warm-up each."""
+    import torch
+
+    import hyperbolic_vae_tpu_torch as hvt
+    from hyperbolic_vae_tpu_torch.optim import RiemannianAdam
+    from hyperbolic_vae_tpu_torch.train.epoch_program import NanCheck, default_loss_fn, train_step
+
+    model = hvt.GyroplaneVAE(generator=torch.Generator().manual_seed(0))
+    opt = RiemannianAdam(model.parameters(), lr=1e-3, ball=model.ball)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.from_numpy(dm.x_train[:BATCH]).cuda()
+    check = NanCheck(torch.zeros((), dtype=torch.int32, device="cuda"))
+    anomaly = functools.partial(torch.autograd.detect_anomaly, check_nan=True)
+    out = {}
+    for name, ctx, chk, n in (("eager", contextlib.nullcontext, None, 20),
+                              ("debug_nans", contextlib.nullcontext, check, 20),
+                              ("anomaly mode", anomaly, None, 3)):
+        loss_fn = chk.loss_fn(default_loss_fn) if chk is not None else default_loss_fn
+        with ctx():
+            train_step(model, opt, x, gen, loss_fn, nan_check=chk)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            for _ in range(n):
+                train_step(model, opt, x, gen, loss_fn, nan_check=chk)
+            torch.cuda.synchronize()
+        out[name] = (time.perf_counter() - t) / n * 1e3
+    return out
+
+
+def api_phase():
+    """The JAX package's public surface on the card, reached through the
+    root's names (``import hyperbolic_vae_tpu_torch as hvt``) at the
+    flagship's full width on synthetic MNIST:
+
+      (a) ``hvt.Trainer(hvt.GyroplaneVAE(...))``: a graphed 2-epoch fit with a
+          ``checkpoint_dir``; ``CheckpointManager(dir).best_metadata()``
+          names the history's best epoch; K1 launched exactly 234 times an
+          epoch, as ``train_phase``'s default epoch;
+      (b) the same fit with ``debug_nans=True`` (eager, every loss, step
+          and gradient read on the host) equal to (a) bit for bit, so to
+          (a)'s eager twin, which ``train_phase`` holds equal to its
+          graphed run (an eager twin here cost 17.6 s); then a split
+          whose row ``API_POISON`` holds a NaN: ``FloatingPointError``
+          at epoch 0, the train step whose batch holds the row, before any
+          epoch is recorded; a step's cost (``_debug_nans_cost``);
+      (c) ``hvt.Inferencer.from_checkpoint(dir, mesh=make_mesh())`` (NCCL,
+          world size 1): embed and reconstruct bit for bit the unmeshed
+          engine's at the same full batches (a mesh serves no sub-batch
+          row buckets);
+      (d) the K3 path (``train_step_fn``, K2 for val) under FSDP x TP on a
+          (data 1, model 1) mesh, its specs as over 2 data ranks
+          (``_AsIfData``): 2 epochs, and 1 epoch resumed to 2, bit for bit
+          (history, parameters, the moments of the saved resume state),
+          with exact K3 and K2 launches;
+      (e) ``_layer_options``.
+
+    Returns (launches by path, (e)'s errors, (e)'s records)."""
+    import os
+    import tempfile
+    from pathlib import Path
+
+    import torch
+    import torch.distributed as dist
+
+    import hyperbolic_vae_tpu_torch as hvt
+    from hyperbolic_vae_tpu_torch.data import ArrayDataModule, make_data_module
+    from hyperbolic_vae_tpu_torch.ops import make_fused_loss_fn, make_fused_train_step
+    from hyperbolic_vae_tpu_torch.parallel import fsdp_tp_param_shardings, make_mesh
+    from hyperbolic_vae_tpu_torch.train import CheckpointManager
+    from hyperbolic_vae_tpu_torch.train.epoch_program import batch_indices
+
+    t_phase = time.perf_counter()
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    paths = {}
+
+    def run(call, *args, **kw):
+        torch.cuda.synchronize()
+        _reset_launches()
+        t = time.perf_counter()
+        res = call(*args, **kw)
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t, _launches()
+
+    dm = make_data_module(batch_size=BATCH, synthetic=True, n_train=API_ROWS[0], n_test=API_ROWS[1])
+    s, v = len(dm.x_train) // BATCH, -(-len(dm.x_val) // BATCH)
+    k1_fit = {"gyroplane_distances": API_EPOCHS * (s + v), "flagship_fused": 0,
+              "flagship_train": 0}
+
+    def trainer(**kw):
+        model = hvt.GyroplaneVAE(generator=torch.Generator().manual_seed(0))
+        return hvt.Trainer(model, max_epochs=API_EPOCHS, early_stopping_patience=None, **kw)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = str(Path(tmp) / "a")
+        # (a) the graphed fit with checkpoints
+        res, wall, n = run(trainer(checkpoint_dir=ckpt).fit, dm)
+        if n != k1_fit:
+            _fail(f"api (a): launches {n}, want {k1_fit}")
+        paths["api_fit"] = n
+        vals = [h["val/loss_total"] for h in res.history]
+        best = CheckpointManager(ckpt).best_metadata()
+        if best is None or best["epoch"] != int(np.argmin(vals)) or best["val/loss_total"] != min(vals):
+            _fail(f"api (a): best_metadata() {best} is not the history's best of {vals}")
+        print(f"api (a): hvt.Trainer(hvt.GyroplaneVAE()) {API_EPOCHS} epochs graphed in "
+              f"{wall:.3f} s, val/loss_total {vals}; best_metadata() epoch {best['epoch']}; "
+              f"launches {json.dumps(n)}", flush=True)
+
+        # (b) debug_nans (an eager run) against (a), then a poisoned split
+        debug, wall_d, n_d = run(trainer(debug_nans=True).fit, dm)
+        _same_fit("api (b) debug_nans", debug, res, "debug_nans", "graphed")
+        if n_d != k1_fit:
+            _fail(f"api (b): launches {n_d} (debug_nans); want {k1_fit}")
+        paths["api_debug_nans"] = n_d
+        x = dm.x_train[:API_POISON_ROWS].copy()
+        x[API_POISON, 5, 9, 0] = np.nan
+        bad = ArrayDataModule(x, dm.y_train[:API_POISON_ROWS], dm.x_val[:BATCH],
+                              dm.y_val[:BATCH], dm.x_val[:BATCH], dm.y_val[:BATCH],
+                              batch_size=BATCH)
+        t = trainer(debug_nans=True)
+        # the fit's first draw is epoch 0's row order
+        order = batch_indices(API_POISON_ROWS, BATCH, "row",
+                              torch.Generator(device=t.device).manual_seed(t.seed), t.device)
+        step = int((order == API_POISON).nonzero()[0, 0])
+        try:
+            t.fit(bad)
+            _fail("api (b): the poisoned split raised nothing under debug_nans")
+        except FloatingPointError as e:
+            msg = str(e)
+        if f"at epoch 0, train step {step}" not in msg or "loss_total" not in msg:
+            _fail(f"api (b): the poisoned split raised {msg!r}; want epoch 0, train step {step}")
+        cost = _debug_nans_cost(dm)
+        print(f"api (b): debug_nans {API_EPOCHS} epochs (eager) in {wall_d:.3f} s (graphed "
+              f"{wall:.3f} s), bit for bit the graphed fit; the poisoned split: "
+              f"FloatingPointError {msg!r}; a step: "
+              + ", ".join(f"{k} {v:.3f} ms" for k, v in cost.items()), flush=True)
+
+        # (c) serving the checkpoint under a mesh of one rank
+        mesh = make_mesh(n_data=1, n_model=1)
+        xs = dm.x_val[:API_SERVE_ROWS]
+        meshed = hvt.Inferencer.from_checkpoint(ckpt, batch_size=BATCH, mesh=mesh)
+        # a mesh serves full batches (no sub-batch row buckets): the twin too
+        plain = hvt.Inferencer.from_checkpoint(ckpt, batch_size=BATCH, sub_batch_buckets=False)
+        (emb, rec), wall_s, n = run(lambda: (meshed.embed(xs), meshed.reconstruct(xs)))
+        if not (np.array_equal(emb, plain.embed(xs))
+                and np.array_equal(rec, plain.reconstruct(xs))):
+            _fail("api (c): the meshed engine's replies differ from the unmeshed engine's")
+        if n["gyroplane_distances"] < 1:
+            _fail(f"api (c): launches {n}: reconstruct launched no K1")
+        paths["api_serve"] = n
+        print(f"api (c): Inferencer.from_checkpoint(mesh=) over NCCL (world size "
+              f"{dist.get_world_size()}): embed and reconstruct of {len(xs)} rows bit for bit the "
+              f"unmeshed engine's ({wall_s:.3f} s, launches {json.dumps(n)})", flush=True)
+
+        # (d) K3 under FSDP x TP, resumed
+        rule = lambda m, mm: fsdp_tp_param_shardings(m, _AsIfData(mm, 2))  # noqa: E731
+
+        def k3(epochs, ckpt_dir, resume=False):
+            model = hvt.GyroplaneVAE(generator=torch.Generator().manual_seed(0))
+            t = hvt.Trainer(model, max_epochs=epochs, early_stopping_patience=None, mesh=mesh,
+                            param_sharding_fn=rule, train_step_fn=make_fused_train_step(model),
+                            loss_fn=make_fused_loss_fn(model), checkpoint_dir=ckpt_dir)
+            r, w, n = run(t.fit, dm, resume=resume)
+            state, _ = CheckpointManager(ckpt_dir).restore_state()
+            return r, w, n, state["optimizer"]
+
+        whole, w_whole, n_whole, m_whole = k3(2, str(Path(tmp) / "whole"))
+        _, w_part, n_part, _ = k3(1, str(Path(tmp) / "part"))
+        resumed, w_res, n_res, m_res = k3(2, str(Path(tmp) / "part"), resume=True)
+        want = {"gyroplane_distances": 0, "flagship_fused": v, "flagship_train": s}
+        if n_whole != {k: 2 * c for k, c in want.items()} or n_part != want or n_res != want:
+            _fail(f"api (d): launches {n_whole} (2 epochs), {n_part} (1), {n_res} (resumed); "
+                  f"want {want} an epoch")
+        tail = dataclasses.replace(whole, history=whole.history[1:])
+        _same_fit("api (d) resumed", resumed, tail, "resumed", "uninterrupted")
+        moments = [(i, k) for i, st in m_whole["state"].items() for k in st]
+        for i, k in moments:
+            if not torch.equal(m_res["state"][i][k], m_whole["state"][i][k]):
+                _fail(f"api (d): the resumed fit's moment {k} of parameter {i} differs")
+        if not torch.equal(m_res["count"], m_whole["count"]):
+            _fail(f"api (d): the resumed fit's step count {m_res['count']} differs from "
+                  f"{m_whole['count']}")
+        paths["api_k3_fsdp_tp"] = n_whole
+        paths["api_k3_resume"] = {k: n_part[k] + n_res[k] for k in n_part}
+        print(f"api (d): K3 under FSDP x TP (NCCL, world size 1, specs as over 2 data ranks): "
+              f"1 epoch ({w_part:.3f} s) resumed to 2 ({w_res:.3f} s) bit for bit the "
+              f"uninterrupted 2 epochs ({w_whole:.3f} s): history, parameters and {len(moments)} "
+              f"moments; launches {json.dumps(n_whole)} (2 epochs), {json.dumps(n_part)} + "
+              f"{json.dumps(n_res)} (1 + resumed 1)", flush=True)
+        del meshed, plain
+    dist.destroy_process_group()
+
+    # (e) the layer's options on K1
+    errs, records = _layer_options(np.random.default_rng(16))
+    print(f"api: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return paths, errs, records
+
+
 def _rows_kernel_fit() -> None:
     """The rows kernels' shared memory at the flagship's 784 pixels against
     the wrapper's bound (which must not be below it), and how many of their
@@ -4448,6 +4733,13 @@ def main() -> int:
         k["launches_by_path"].update(shard_paths[key])
     for k, planes in ((kernels[0], P), (k1_rna, RNA_HIDDEN), (k1_pvae, UNI_HIDDEN)):
         k["plane_shards"] = [r for r in shards if r["planes"] == planes]
+    # the public surface through the root's names: K1 at 16 planes, K2 and K3
+    api_paths, (err_in, err_bd), options = timed("api", api_phase)
+    for k in kernels[:3]:
+        k["launches_by_path"].update({p: n[k["name"]] for p, n in api_paths.items()})
+    kernels[0]["max_abs_err"] = max(kernels[0]["max_abs_err"], err_in)
+    kernels[0]["max_abs_err_boundary"] = max(kernels[0]["max_abs_err_boundary"], err_bd)
+    kernels[0]["layer_options"] = options
     for k in kernels:
         k["launches"] = sum(k["launches_by_path"].values())
     print(f"phase seconds (build: from the start of the build): {json.dumps(seconds)}", flush=True)

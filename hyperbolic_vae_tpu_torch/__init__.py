@@ -23,9 +23,44 @@ streamed training and evaluation of host-resident splits
 (``serve.ExportedInferencer``, K1 being the registered op
 ``torch.ops.hvae_torch.gyroplane_distances``); the Jerby-Arnon CSVs read
 without pandas (``data.native``'s C++ parser, ``csrc/csv_etl.cpp``), and
-data and seed parallelism over ``torch.distributed`` (``parallel``).
+data and seed parallelism over ``torch.distributed`` (``parallel``),
+with parameter sharding; and the JAX package's public names at the root:
+
+    import hyperbolic_vae_tpu_torch as hvt
+    trainer = hvt.Trainer(hvt.GyroplaneVAE())
 """
 
-from hyperbolic_vae_tpu_torch.device import resolve_device
+__version__ = "0.1.0"
 
-__all__ = ["resolve_device"]
+from hyperbolic_vae_tpu_torch.device import resolve_device
+from hyperbolic_vae_tpu_torch.manifolds import Euclidean, PoincareBall
+
+__all__ = ["Euclidean", "PoincareBall", "__version__", "resolve_device"]
+
+# the names the JAX package's root re-exports lazily, by the module that
+# holds each: importing the package imports no model, optimizer or kernel
+_LAZY = {
+    "Trainer": "train",
+    "make_trainer_hyperbolic": "train",
+    "GyroplaneVAE": "models",
+    "EuclideanVAE": "models",
+    "HyperbolicImageVAE": "models",
+    "UnifiedVAE": "models",
+    "RNASeqVAE": "models",
+    "Autoencoder": "models",
+    "PvaeMLPVAE": "models",
+    "WrappedNormal": "distributions",
+    "RiemannianNormal": "distributions",
+    "Inferencer": "serve",
+}
+
+
+def __getattr__(name):
+    """Lazy top-level re-exports: ``Trainer``, ``make_trainer_hyperbolic``,
+    the seven model classes, ``WrappedNormal``, ``RiemannianNormal`` and
+    ``Inferencer``, each imported at its first use."""
+    if name not in _LAZY:
+        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    import importlib
+
+    return getattr(importlib.import_module(f"{__name__}.{_LAZY[name]}"), name)

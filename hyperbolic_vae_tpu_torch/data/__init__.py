@@ -1,4 +1,4 @@
-from hyperbolic_vae_tpu_torch.data import cifar10, native
+from hyperbolic_vae_tpu_torch.data import cifar10, jerby_arnon, mnist, native
 from hyperbolic_vae_tpu_torch.data.core import ArrayDataModule, split_three_way, split_train_val
 from hyperbolic_vae_tpu_torch.data.jerby_arnon import (
     CELL_TYPES,
@@ -34,12 +34,14 @@ __all__ = [
     "filter_gene_symbols",
     "filter_single_cells",
     "get_subset_dataset",
+    "jerby_arnon",
     "load_jerby_arnon_arrays",
     "load_mnist_arrays",
     "load_parquet_data_module",
     "make_data_module",
     "make_fake_arrays",
     "make_rnaseq_data_module",
+    "mnist",
     "native",
     "nice_to_weirds",
     "normalize_rnaseq",

@@ -19,6 +19,7 @@ from typing import Optional, Tuple
 import torch
 
 from hyperbolic_vae_tpu_torch.distributions import draws
+from hyperbolic_vae_tpu_torch.distributions.relaxed_bernoulli import softplus as _softplus
 from hyperbolic_vae_tpu_torch.manifolds import BOUNDARY_EPS, PoincareBall
 
 
@@ -87,13 +88,33 @@ def wrapped_normal_log_prob(
 
 class WrappedNormal:
     """The distribution object over the functions above (loc, scale,
-    manifold; ``rsample``, ``log_prob``). Its draw is eps ~ N(0, I) of the
-    sample's shape: ``noise`` draws it, ``rsample_from_eps`` (alias
+    manifold; ``rsample``, ``sample``, ``log_prob``, ``mean``,
+    ``batch_shape``, ``event_shape``). ``softplus``: ``scale`` is mapped
+    through softplus before use. Its draw is eps ~ N(0, I) of the sample's
+    shape: ``noise`` draws it, ``rsample_from_eps`` (alias
     ``rsample_from_noise``, the name the Riemannian normal shares) takes
     it."""
 
-    def __init__(self, loc: torch.Tensor, scale: torch.Tensor, manifold: PoincareBall):
+    def __init__(self, loc: torch.Tensor, scale: torch.Tensor, manifold: PoincareBall,
+                 softplus: bool = False):
         self.loc, self.scale, self.manifold = loc, scale, manifold
+        self.softplus = bool(softplus)
+
+    @property
+    def _scale(self) -> torch.Tensor:
+        return _softplus(self.scale) if self.softplus else self.scale
+
+    @property
+    def mean(self) -> torch.Tensor:
+        return self.loc
+
+    @property
+    def batch_shape(self) -> torch.Size:
+        return torch.broadcast_shapes(self.loc.shape, self.scale.shape)[:-1]
+
+    @property
+    def event_shape(self) -> torch.Size:
+        return self.loc.shape[-1:]
 
     def noise(self, generator: Optional[torch.Generator],
               sample_shape: Tuple[int, ...] = ()) -> Tuple[torch.Tensor]:
@@ -104,7 +125,7 @@ class WrappedNormal:
         return (draws.randn(shape, generator, self.loc.device, batch_axis=len(sample_shape)),)
 
     def rsample_from_eps(self, eps: torch.Tensor) -> torch.Tensor:
-        return wrapped_normal_rsample_from_eps(self.manifold, self.loc, self.scale, eps)
+        return wrapped_normal_rsample_from_eps(self.manifold, self.loc, self._scale, eps)
 
     rsample_from_noise = rsample_from_eps
 
@@ -112,5 +133,11 @@ class WrappedNormal:
                 sample_shape: Tuple[int, ...] = ()) -> torch.Tensor:
         return self.rsample_from_eps(*self.noise(generator, sample_shape))
 
+    def sample(self, generator: Optional[torch.Generator],
+               sample_shape: Tuple[int, ...] = ()) -> torch.Tensor:
+        """``rsample`` without a gradient."""
+        with torch.no_grad():
+            return self.rsample(generator, sample_shape)
+
     def log_prob(self, x: torch.Tensor) -> torch.Tensor:
-        return wrapped_normal_log_prob(self.manifold, self.loc, self.scale, x)
+        return wrapped_normal_log_prob(self.manifold, self.loc, self._scale, x)

@@ -35,7 +35,7 @@ def train_cifar(args, run_dir, dm, latent_dim: int) -> dict:
                       callbacks=[GenerateCallback(every_n_epochs=10)], **trainer_extra(args))
     mgr = CheckpointManager(str(log_dir / "ckpt"))
     epochs = 0
-    if mgr.metadata("best") is not None:
+    if mgr.best_metadata() is not None:
         print(f"latent {latent_dim}: best checkpoint found, fit skipped", flush=True)
     else:
         epochs = trainer.fit(dm).epochs_run

@@ -159,8 +159,10 @@ def _conv_t(p: Mapping, key: str, sd) -> None:
 
 
 def _gyro(p: Mapping, key: str, sd, out_perm=None) -> None:
+    """``mp_points`` and, when the layer has one (``use_bias``), ``bias``."""
     sd[f"{key}.points"] = _t(_permuted(p["mp_points"], 0, out_perm))
-    sd[f"{key}.bias"] = _t(_permuted(p["bias"], 0, out_perm))
+    if "bias" in p:
+        sd[f"{key}.bias"] = _t(_permuted(p["bias"], 0, out_perm))
 
 
 def _riemannian(p: Mapping, key: str, sd, in_perm=None, out_perm=None) -> None:
@@ -285,8 +287,7 @@ def state_dict_from_jax_params(params: Mapping, model=None) -> Dict[str, torch.T
         _linear(params["enc"], "encoder.0", sd)
         _linear(params["mu"], "mu.0", sd)
         _linear(params["scale"], "scale.0", sd)
-        sd["decoder.0.points"] = _t(params["gyroplanes"]["mp_points"])
-        sd["decoder.0.bias"] = _t(params["gyroplanes"]["bias"])
+        _gyro(params["gyroplanes"], "decoder.0", sd)
         _linear(params["dec_out"], "decoder.2", sd)
         if "nb_log_theta" in params:
             sd["nb_log_theta"] = _t(params["nb_log_theta"])
@@ -298,8 +299,7 @@ def state_dict_from_jax_params(params: Mapping, model=None) -> Dict[str, torch.T
         _linear(params[f"enc_{i}"], f"encoder.{2 * i + 1}", sd)
     _linear(params["mu"], "mu.0", sd)
     _linear(params["scale"], "scale.0", sd)
-    sd["decoder.0.points"] = _t(params["gyroplanes"]["mp_points"])
-    sd["decoder.0.bias"] = _t(params["gyroplanes"]["bias"])
+    _gyro(params["gyroplanes"], "decoder.0", sd)
     for i in range(n_dec):
         _linear(params[f"dec_{i}"], f"decoder.{2 * (i + 1)}", sd)
     _linear(params["out"], f"decoder.{2 * (n_dec + 1)}", sd)

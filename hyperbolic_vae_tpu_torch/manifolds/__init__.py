@@ -4,9 +4,11 @@ from hyperbolic_vae_tpu_torch.manifolds.poincare import (
     MIN_NORM,
     TANH_CLAMP,
     PoincareBall,
+    PoincareBallWithExtras,
     arsinh,
     artanh,
     log_sinh_ratio,
+    logdetexp,
     normdist2plane,
     tanh,
 )
@@ -18,7 +20,7 @@ from hyperbolic_vae_tpu_torch.manifolds.stats import (
 )
 
 __all__ = [
-    "BOUNDARY_EPS", "MIN_NORM", "TANH_CLAMP", "Euclidean", "PoincareBall", "arsinh", "artanh",
-    "class_means", "frechet_mean", "frechet_variance", "geodesic", "log_sinh_ratio",
-    "normdist2plane", "tanh",
+    "BOUNDARY_EPS", "MIN_NORM", "TANH_CLAMP", "Euclidean", "PoincareBall",
+    "PoincareBallWithExtras", "arsinh", "artanh", "class_means", "frechet_mean",
+    "frechet_variance", "geodesic", "log_sinh_ratio", "logdetexp", "normdist2plane", "tanh",
 ]

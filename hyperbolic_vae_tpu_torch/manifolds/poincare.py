@@ -11,7 +11,11 @@ transport, dist, the Riemannian optimizer's helpers, logdetexp with the
 stable ``log_sinh_ratio``) and the evaluation path's
 (``mobius_scalar_mul``, for geodesics), and the conv image families'
 (``mobius_matvec``, ``dist2plane``, ``normdist2plane``, with the free
-function ``normdist2plane``).
+function ``normdist2plane``); and the rest of the JAX module's surface
+(``origin``, ``check_point_on_manifold``, ``wrapped_normal``, the free
+function ``logdetexp`` and the alias ``PoincareBallWithExtras``). The
+port spells the reduction flag ``keepdim``, torch's name for JAX's
+``keepdims``.
 """
 
 from __future__ import annotations
@@ -84,6 +88,12 @@ class PoincareBall:
     @property
     def radius(self) -> float:
         return 1.0 / self.sqrt_c
+
+    def origin(self, shape, dtype=torch.float32, device=None) -> torch.Tensor:
+        """The ball's origin: zeros of ``shape`` (geoopt's ``origin``)."""
+        if isinstance(shape, int):
+            shape = (shape,)
+        return torch.zeros(shape, dtype=dtype, device=device)
 
     def project(self, x: torch.Tensor) -> torch.Tensor:
         """Clamp points into the open ball: |x| <= (1-eps)/sqrt(c)."""
@@ -268,6 +278,37 @@ class PoincareBall:
         (d - 1) log(sinh(sqrt(c) d(x, y)) / (sqrt(c) d(x, y)))."""
         d = self.dist(x, y, keepdim=keepdim)
         return (x.shape[-1] - 1) * log_sinh_ratio(self.sqrt_c * d)
+
+    def check_point_on_manifold(self, x: torch.Tensor, atol: float = 1e-5) -> torch.Tensor:
+        """c |x|^2 <= 1 + atol: a bool tensor, one per point."""
+        return self.c * _sq_norm(x, keepdim=False) <= 1.0 + atol
+
+    def wrapped_normal(self, generator: Optional[torch.Generator], shape, mean: torch.Tensor,
+                       std=1.0) -> torch.Tensor:
+        """A wrapped-normal sample of ``shape`` centred at ``mean``: eps of
+        ``shape`` from ``generator`` (on mean's device) through
+        ``distributions.wrapped_normal_rsample_from_eps``, so the draw is
+        scaled and chart-truncated as the distribution's rsample."""
+        from hyperbolic_vae_tpu_torch.distributions.wrapped_normal import (
+            wrapped_normal_rsample_from_eps,
+        )
+
+        shape = tuple(shape)
+        eps = torch.randn(shape, generator=generator, device=mean.device)
+        std = torch.broadcast_to(torch.as_tensor(std, dtype=torch.float32, device=mean.device),
+                                 shape)
+        return wrapped_normal_rsample_from_eps(self, mean, std, eps)
+
+
+# the reference's name for the ball with its sampling and density helpers
+PoincareBallWithExtras = PoincareBall
+
+
+def logdetexp(ball: PoincareBall, x: torch.Tensor, y: torch.Tensor,
+              keepdim: bool = False) -> torch.Tensor:
+    """Free-function form of :meth:`PoincareBall.logdetexp` (the
+    reference's ``manifolds.logdetexp``)."""
+    return ball.logdetexp(x, y, keepdim=keepdim)
 
 
 def normdist2plane(ball: PoincareBall, x, a, p, signed=False, norm=False, keepdim=False):

@@ -113,14 +113,15 @@ class MobiusLayer(_RiemannianLayer):
 
 class PoincareHyperplanes(nn.Module):
     """Gyroplane distance layer: ``num_planes`` learned points on the
-    ball; forward = dist2plane(x, p=points, a=points, signed) + bias,
-    with the bias added inside the gyroplane kernel.
+    ball; forward = dist2plane(x, p=points, a=points, signed), squared
+    when ``squared`` (its sign kept when ``signed``), plus ``bias`` when
+    ``use_bias``.
 
-    Parameters: ``points`` (P, D), a :class:`ManifoldParameter`, and
-    ``bias`` (P,). Init as the JAX layer: direction normal-then-
-    normalised, radius ~ N(0, 1), then expmap0; bias ~ U(-1, 1). The JAX
-    layer's ``squared``, ``use_bias=False`` and ``std`` options have no
-    caller in the port and are not carried over.
+    Parameters: ``points`` (P, D), a :class:`ManifoldParameter`, and, with
+    ``use_bias``, ``bias`` (P,). Init as the JAX layer: direction
+    normal-then-normalised, radius ``std`` x N(0, 1), then expmap0; bias ~
+    U(-1, 1). The distances are the gyroplane kernel's in every case
+    (:func:`hyperplane_distances`).
     """
 
     def __init__(
@@ -129,17 +130,44 @@ class PoincareHyperplanes(nn.Module):
         num_planes: int,
         ball: PoincareBall,
         signed: bool = True,
+        squared: bool = False,
+        use_bias: bool = True,
+        std: float = 1.0,
         generator: Optional[torch.Generator] = None,
     ):
         super().__init__()
         self.ball = ball
-        self.signed = signed
+        self.signed, self.squared = bool(signed), bool(squared)
         direction = torch.randn(num_planes, plane_shape, generator=generator)
         direction = direction / torch.linalg.vector_norm(direction, dim=-1, keepdim=True)
-        distance = torch.randn(num_planes, 1, generator=generator)
+        distance = torch.randn(num_planes, 1, generator=generator) * float(std)
         self.points = ManifoldParameter(ball.expmap0(direction * distance))
-        self.bias = nn.Parameter(torch.rand(num_planes, generator=generator) * 2.0 - 1.0)
+        if use_bias:
+            self.bias = nn.Parameter(torch.rand(num_planes, generator=generator) * 2.0 - 1.0)
+        else:
+            self.register_parameter("bias", None)
 
     def forward(self, x):
         """x (B, D) -> (B, P) f32."""
-        return gyroplane_distances_fast(x, self.points, self.ball.c, self.signed, self.bias)
+        return hyperplane_distances(x, self.points, self.ball.c, self.signed, self.squared,
+                                    self.bias)
+
+
+def hyperplane_distances(x, points, c: float, signed: bool, squared: bool,
+                         bias: Optional[torch.Tensor] = None, distances=None):
+    """The layer's forward on given tensors: the gyroplane distances (the
+    kernel's, or ``distances(x, points, c, signed, bias)``), squared when
+    ``squared`` (the sign kept when ``signed``), plus ``bias`` (None: no
+    bias). Unsquared, the kernel adds the bias itself; squared, the square
+    and the bias follow it."""
+    distances = distances or gyroplane_distances_fast
+    if not squared:
+        return distances(x, points, c, signed, bias)
+    d = distances(x, points, c, signed, None)
+    d = torch.sign(d) * d * d if signed else d * d
+    return d if bias is None else d + bias
+
+
+# the reference's and geoopt's names for the layer
+Distance2PoincareHyperplanes = PoincareHyperplanes
+Distance2StereographicHyperplanes = PoincareHyperplanes

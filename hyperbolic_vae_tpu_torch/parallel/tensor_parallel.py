@@ -45,8 +45,7 @@ import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
-from hyperbolic_vae_tpu_torch.nn.layers import PoincareHyperplanes
-from hyperbolic_vae_tpu_torch.ops.gyroplane import gyroplane_distances_fast
+from hyperbolic_vae_tpu_torch.nn.layers import PoincareHyperplanes, hyperplane_distances
 from hyperbolic_vae_tpu_torch.parallel.mesh import MODEL_AXIS, all_gather_flat, share
 
 # the parameter-free modules a split activation may pass through unchanged
@@ -173,20 +172,24 @@ class RowParallelLinear(_ModelSplit):
 
 
 class PlaneShardedHyperplanes(_ModelSplit):
-    """Planes [lo, hi) of ``full`` (a ``PoincareHyperplanes``): K1 on the
-    shard's points and bias; ``gather_output``: every plane's distance on
-    every rank."""
+    """Planes [lo, hi) of ``full`` (a ``PoincareHyperplanes``): its forward
+    (K1, the square when ``squared``, the bias) on the shard's points and
+    bias; ``gather_output``: every plane's output on every rank."""
 
     def __init__(self, full: PoincareHyperplanes, mesh, gather_output: bool = True):
         super().__init__(mesh, full.points.shape[0])
-        self.ball, self.signed = full.ball, full.signed
+        self.ball, self.signed, self.squared = full.ball, full.signed, full.squared
         self.gather_output = gather_output
         self.points = _copy(full.points[self.lo:self.hi], full.points)
-        self.bias = _copy(full.bias[self.lo:self.hi], full.bias)
+        if full.bias is not None:
+            self.bias = _copy(full.bias[self.lo:self.hi], full.bias)
+        else:
+            self.register_parameter("bias", None)
 
     def forward(self, z):
         z = _CopyToModel.apply(z, self.group)
-        y = gyroplane_distances_fast(z, self.points, self.ball.c, self.signed, self.bias)
+        y = hyperplane_distances(z, self.points, self.ball.c, self.signed, self.squared,
+                                 self.bias)
         return self._gather(y) if self.gather_output else y
 
 
@@ -198,7 +201,7 @@ def _kind(module: nn.Module, prefix: str, layout: Dict[str, tuple]) -> Optional[
     if not any(MODEL_AXIS in s for s in specs.values()):
         return None
     if isinstance(module, PoincareHyperplanes) and specs["points"] == (MODEL_AXIS, None) \
-            and specs["bias"] == (MODEL_AXIS,):
+            and specs.get("bias", (MODEL_AXIS,)) == (MODEL_AXIS,):
         return "planes"
     if isinstance(module, nn.Linear) and specs["weight"] == (MODEL_AXIS, None) \
             and specs["bias"] == (MODEL_AXIS,):

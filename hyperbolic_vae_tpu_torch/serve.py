@@ -173,19 +173,20 @@ class Inferencer:
     def from_checkpoint(cls, ckpt_dir, name: str = "best", batch_size: int = 256,
                         max_batches_per_dispatch: int = 16, io_dtype=None,
                         sub_batch_buckets: bool = True,
-                        device: DeviceLike = None) -> "Inferencer":
+                        device: DeviceLike = None, mesh=None) -> "Inferencer":
         """Serve checkpoint ``name`` (``best``, ``last``, ``ema``, ...) of a
         Trainer's ``checkpoint_dir``: the model is rebuilt from the
         configuration the checkpoint embeds (``train/checkpoint.py``'s
-        ``restore_model``), any family with ``hparams()``."""
+        ``restore_model``), any family with ``hparams()``; ``mesh`` as
+        ``Inferencer(mesh=)`` (the device then the mesh's rank's)."""
         from hyperbolic_vae_tpu_torch.train.checkpoint import restore_model
 
-        device = resolve_device(device)
+        device = resolve_device(device if mesh is None or device is not None else mesh.device)
         model, _, _ = restore_model(ckpt_dir, name, device=device)
         return cls(model, batch_size=batch_size,
                    max_batches_per_dispatch=max_batches_per_dispatch,
                    io_dtype=io_dtype, sub_batch_buckets=sub_batch_buckets,
-                   device=device)
+                   device=device, mesh=mesh)
 
     def _row_bucket(self, n: int):
         """Smallest sub-batch row bucket >= n (None: use full batches)."""

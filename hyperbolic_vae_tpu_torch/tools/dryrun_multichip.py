@@ -8,12 +8,19 @@ batch 128) through the Trainer's chunk program:
 
   * dp x tp: ``tp_param_shardings``, 6 epochs, 3 a dispatch;
   * fsdp x tp: ``fsdp_tp_param_shardings``, 2 epochs, 2 a dispatch;
-  * streamed: ``fit_streamed`` in blocks of half the cells under TP.
+  * streamed: ``fit_streamed`` in blocks of half the cells under TP;
+  * seed mesh: n flagship ``GyroplaneVAE`` lanes (seeds 0..n-1) as
+    ``fit_ensemble`` over ``make_seed_mesh(n)``, a lane a rank, on JAX's
+    seed-leg data (320 uniform 28 x 28 rows, 64 val, batch 64; 4 epochs, 2
+    a dispatch; ``__graft_entry__.py:436-460``).
 
 One process runs the same fit unsharded in f32 and, as the anchor, in
 float64 (``Float64Anchor``: the same f32 init and draws, every operation
-in float64, as JAX's anchor runs under x64), and the streamed fit
-without a mesh. JAX's envelope holds the
+in float64, as JAX's anchor runs under x64), the streamed fit and the
+ensemble without a mesh, the latter at a rank's torch thread count (the
+CPU's products round by it). Lanes never communicate, so every lane's
+val history must equal one process's bit for bit on every rank. JAX's
+envelope holds the
 sharded legs: each epoch's val loss drifts from the anchor by at most
 ``EPOCH0_TOL`` at epoch 0 and by at most ``C`` times the unsharded f32
 fit's drift at the same epoch (floored at ``FLOOR``); the streamed leg is
@@ -48,7 +55,7 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 
-from hyperbolic_vae_tpu_torch.models import RNASeqVAE
+from hyperbolic_vae_tpu_torch.models import GyroplaneVAE, RNASeqVAE
 from hyperbolic_vae_tpu_torch.ops.gyroplane import gyroplane_distances
 
 EPOCH0_TOL = 1e-2  # JAX's: ~5x the f32 rounding floor of these dynamics
@@ -75,6 +82,10 @@ def full_config() -> Config:
 def small_config() -> Config:
     """The same legs at a width the CPU tests afford."""
     return Config(genes=512, hidden=64, cells=256, val=64, batch=64, max_epochs=4, k=2)
+
+
+# JAX's seed-mesh leg: rows, val rows, batch, epochs, epochs a dispatch
+SEED_ROWS, SEED_VAL, SEED_BATCH, SEED_EPOCHS, SEED_K = 320, 64, 64, 4, 2
 
 
 def make_dm(cfg: Config):
@@ -110,6 +121,26 @@ class Float64Anchor(RNASeqVAE):
         planes = self.decoder[0]
         d = gyroplane_distances(z, planes.points, planes.ball.c, planes.signed, planes.bias)
         return torch.sigmoid(self.decoder[2](self.decoder[1](d)))
+
+
+def make_seed_dm():
+    """The seed leg's data: uniform 28 x 28 images, the val and test split
+    the first 64 of them (JAX's)."""
+    from hyperbolic_vae_tpu_torch.data.core import ArrayDataModule
+
+    x = np.random.default_rng(1).uniform(0, 1, (SEED_ROWS, 28, 28, 1)).astype(np.float32)
+    y = np.zeros(SEED_ROWS, np.int32)
+    return ArrayDataModule(x_train=x, y_train=y, x_val=x[:SEED_VAL], y_val=y[:SEED_VAL],
+                           x_test=x[:SEED_VAL], y_test=y[:SEED_VAL], batch_size=SEED_BATCH)
+
+
+def seed_lanes(n: int, seed_mesh=None) -> list:
+    """Every lane's val history of ``fit_ensemble`` over seeds 0..n-1
+    (over ``seed_mesh`` when given: every rank returns every lane's)."""
+    model = GyroplaneVAE(device="cpu", generator=torch.Generator().manual_seed(0))
+    results = _trainer(model, SEED_EPOCHS, SEED_K).fit_ensemble(make_seed_dm(), list(range(n)),
+                                                                seed_mesh=seed_mesh)
+    return [[h["val/loss_total"] for h in r.history] for r in results]
 
 
 def _model(cfg: Config, anchor: bool = False):
@@ -152,13 +183,19 @@ def rank_legs(mesh, cfg: Config) -> dict:
     t = _trainer(_model(cfg), 2, 1, mesh, tp)
     out["streamed"] = [h["train/loss_total"]
                        for h in t.fit_streamed(dm, block_rows=cfg.cells // 2).history]
+    from hyperbolic_vae_tpu_torch.parallel import make_seed_mesh
+
+    world = dist.get_world_size()
+    out["seed_mesh"] = seed_lanes(world, make_seed_mesh(world, device="cpu"))
+    out["threads"] = torch.get_num_threads()
     out["seconds"] = time.perf_counter() - t0
     return out
 
 
-def one_process_legs(cfg: Config) -> dict:
-    """The unsharded f32 fit, the float64 anchor and the unsharded
-    streamed fit, in this process."""
+def one_process_legs(cfg: Config, n_lanes: int, threads: int) -> dict:
+    """The unsharded f32 fit, the float64 anchor, the unsharded streamed
+    fit and the ensemble of ``n_lanes`` without a mesh (on ``threads``
+    torch threads), in this process."""
     dm = make_dm(cfg)
     t0 = time.perf_counter()
     t = _trainer(_model(cfg), cfg.max_epochs, cfg.k)
@@ -167,6 +204,12 @@ def one_process_legs(cfg: Config) -> dict:
                   for h in _trainer(_model(cfg, anchor=True), cfg.max_epochs, cfg.k).fit(dm).history]
     out["streamed"] = [h["train/loss_total"] for h in _trainer(_model(cfg), 2).fit_streamed(
         dm, block_rows=cfg.cells // 2).history]
+    before = torch.get_num_threads()
+    torch.set_num_threads(threads)
+    try:
+        out["seed_mesh"] = seed_lanes(n_lanes)
+    finally:
+        torch.set_num_threads(before)
     out["seconds"] = time.perf_counter() - t0
     return out
 
@@ -177,15 +220,24 @@ def _drift(leg, ref) -> list:
 
 def check(legs: list, cfg: Config, mesh_shape: tuple, single: Optional[dict] = None) -> dict:
     """JAX's envelope over the ranks' ``legs`` (one ``rank_legs`` each)
-    against ``single`` (``one_process_legs``, run here when None). Returns
-    the report; ``ok`` is False with the failures in ``failures``."""
-    single = single or one_process_legs(cfg)
-    failures = []
+    against ``single`` (``one_process_legs``, run here when None), and the
+    seed mesh's lanes to one process's bit for bit. Returns the report;
+    ``ok`` is False with the failures in ``failures``."""
     first = legs[0]
+    single = single or one_process_legs(cfg, len(legs), first["threads"])
+    failures = []
     for i, leg in enumerate(legs[1:], 1):
-        for key in ("dp_tp", "fsdp_tp", "streamed"):
+        for key in ("dp_tp", "fsdp_tp", "streamed", "seed_mesh"):
             if leg[key] != first[key]:
                 failures.append(f"rank {i}'s {key} losses differ from rank 0's")
+    lanes = first["seed_mesh"]
+    if len(lanes) != len(legs) or any(len(v) != SEED_EPOCHS or not np.all(np.isfinite(v))
+                                      for v in lanes):
+        failures.append(f"seed_mesh: {lanes}")
+    for i, (got, want) in enumerate(zip(lanes, single["seed_mesh"])):
+        if not np.array_equal(got, want):
+            failures.append(f"seed_mesh: lane {i}'s val losses {got} differ from one "
+                            f"process's {want}")
     s = _drift(single["f32"], single["f64"])
     env = np.maximum(s, FLOOR)
     report = {"mesh": {"data": mesh_shape[0], "model": mesh_shape[1]}, "drift_1dev": s,
@@ -212,7 +264,7 @@ def check(legs: list, cfg: Config, mesh_shape: tuple, single: Optional[dict] = N
             < single["bytes"]["total"]):
         failures.append("a rank's bytes (parameters, moments, best copy and gathered working "
                         "copy) do not shrink from one process to tp to fsdp x tp")
-    report.update(bytes_one_process=single["bytes"], bytes_tp=first["bytes_tp"],
+    report.update(seed_lanes=lanes, bytes_one_process=single["bytes"], bytes_tp=first["bytes_tp"],
                   bytes_fsdp_tp=first["bytes_fsdp_tp"], rank_seconds=max(l["seconds"] for l in legs),
                   one_process_seconds=single["seconds"], failures=failures,
                   ok=not failures)
@@ -279,6 +331,11 @@ def main(argv=None) -> int:
     print(f"dryrun_multichip on {args.n} gloo ranks (CPU), mesh {report['mesh']}")
     for key in ("1dev", "dp_tp", "fsdp_tp", "streamed"):
         print(f"  drift {key:9s}: {fmt(report['drift_' + key])}")
+    lanes = report["seed_lanes"]
+    same = not any(f.startswith("seed_mesh") for f in report["failures"])
+    print(f"  seed mesh: {len(lanes)} flagship lanes over {args.n} ranks, val histories "
+          f"{'bit for bit' if same else 'NOT equal to'} one process's; final val "
+          f"{fmt(v[-1] for v in lanes)}")
     for key in ("bytes_one_process", "bytes_tp", "bytes_fsdp_tp"):
         b = report[key]
         print(f"  {key:17s}: params {b['params'] / mib:.1f} MiB, moments {b['moments'] / mib:.1f} "

@@ -62,11 +62,14 @@ def restore_model(ckpt_dir: str, name: str = "best", device: DeviceLike = None):
 
 
 class CheckpointManager:
-    """Checkpoints in ``directory``. ``read_only``: saves are skipped (the
-    ranks of a mesh other than the one that writes read the same files)."""
+    """Checkpoints in ``directory``; ``best`` is the best epoch on
+    ``monitor`` (the Trainer's, which it passes). ``read_only``: saves are
+    skipped (the ranks of a mesh other than the one that writes read the
+    same files)."""
 
-    def __init__(self, directory: str, read_only: bool = False):
+    def __init__(self, directory: str, monitor: str = "val/loss_total", read_only: bool = False):
         self.directory = Path(directory).absolute()
+        self.monitor = monitor
         self.read_only = read_only
         if not read_only:
             self.directory.mkdir(parents=True, exist_ok=True)
@@ -99,12 +102,23 @@ class CheckpointManager:
         ``restore_model(dir, name)`` rebuilds like best and last."""
         self._save(name, params, meta)
 
-    def restore(self, name: str = "best", device: DeviceLike = "cpu") -> dict:
+    def wait_until_finished(self) -> None:
+        """Returns at once: every save is written before it returns (JAX's
+        Orbax saves finish in a background thread, which this waits for
+        there)."""
+
+    def restore(self, name: str = "best", device: DeviceLike = None) -> dict:
+        """Checkpoint ``name``'s tensors by key, on ``device`` (default
+        ``cuda``)."""
         return torch.load(self.directory / f"{name}.pt", map_location=resolve_device(device))
 
     def metadata(self, name: str) -> Optional[dict]:
         p = self.directory / f"{name}.json"
         return json.loads(p.read_text()) if p.exists() else None
+
+    def best_metadata(self) -> Optional[dict]:
+        """The best checkpoint's metadata: its epoch and metrics."""
+        return self.metadata("best")
 
     # ---- the resume units: params, optimizer, controllers, generator ----
     # ``name``: units live side by side in one directory: "state" is a
@@ -115,8 +129,9 @@ class CheckpointManager:
         # writes cannot pair a state with another epoch's metadata
         self._write(name, {"state": state, "meta": meta}, meta)
 
-    def restore_state(self, device: DeviceLike = "cpu", name: str = "state"):
-        """(state, meta), or (None, None) when there is none."""
+    def restore_state(self, device: DeviceLike = None, name: str = "state"):
+        """(state, meta) on ``device`` (default ``cuda``), or (None, None)
+        when there is none."""
         if not self.has_state(name):
             return None, None
         saved = torch.load(self.directory / f"{name}.pt", map_location=resolve_device(device))

@@ -39,7 +39,7 @@ import torch
 from hyperbolic_vae_tpu_torch.optim.schedules import _f32
 from hyperbolic_vae_tpu_torch.parallel.data_parallel import row_shard
 from hyperbolic_vae_tpu_torch.train.cuda_graph import GraphedProgram, Segment
-from hyperbolic_vae_tpu_torch.train.epoch_program import EpochProgram
+from hyperbolic_vae_tpu_torch.train.epoch_program import EpochProgram, NanCheck
 
 # name -> dtype of each controller tensor, in the order the host fetches them
 CTRL_FIELDS = (
@@ -138,13 +138,14 @@ class ChunkProgram:
         step_fn = trainer.train_step_fn
         if sharded is not None and step_fn is not None:
             step_fn = sharded.wrap_train_step(step_fn, optimizer)
+        self.ctrl = init_ctrl(trainer, start_epoch, dev)
         self.ep = EpochProgram(
             model, optimizer, x_train, x_val, batch_size, generator, shuffle=trainer.shuffle,
             loss_fn=loss_fn, train_step_fn=step_fn,
             finite_guard=trainer.finite_guard, grad_accum_steps=trainer.grad_accum_steps,
             grad_clip_norm=trainer.grad_clip_norm, shard=row_shard(trainer, batch_size),
-            layout=sharded)
-        self.ctrl = init_ctrl(trainer, start_epoch, dev)
+            layout=sharded,
+            nan_check=NanCheck(self.ctrl["epoch"]) if trainer.debug_nans else None)
         self.params = sharded.master_state() if sharded is not None else dict(model.state_dict())
         self.best = {k: v.detach().clone() for k, v in self.params.items()}
         self.hp = dict(hp or {})  # scheduled key -> the model's 0-d tensor

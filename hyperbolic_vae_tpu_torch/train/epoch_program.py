@@ -43,24 +43,27 @@ def _stack(metrics: Dict[str, torch.Tensor]) -> torch.Tensor:
 
 
 def _grads_and_metrics(model, optimizer, batch, generator, loss_fn, grad_accum_steps: int,
-                       layout=None):
+                       layout=None, nan_check: Optional[NanCheck] = None):
     """Fill each parameter's ``.grad`` and return the detached metrics.
     With ``grad_accum_steps`` A > 1 the batch is A equal microbatches in
     order, each with its own eps draw; their gradients are summed by
     backward and they and the metrics are scaled by 1/A (exact for the
     per-sample-mean losses of the port's models), as JAX's scan does.
-    Under a ``layout`` the gradients land on the model's working tensors."""
+    Under a ``layout`` the gradients land on the model's working tensors.
+    ``nan_check``: each backward's gradients checked (``NanCheck``)."""
+    backward = ((lambda loss: loss.backward()) if nan_check is None
+                else (lambda loss: nan_check.backward(loss, model)))
     optimizer.zero_grad(set_to_none=True)
     if layout is not None:
         model.zero_grad(set_to_none=True)
     if grad_accum_steps == 1:
         metrics = loss_fn(model, batch, generator)
-        metrics["loss_total"].backward()
+        backward(metrics["loss_total"])
         return {k: v.detach() for k, v in metrics.items()}
     sums = None
     for micro in batch.reshape(grad_accum_steps, -1, *batch.shape[1:]):
         m = loss_fn(model, micro, generator)
-        m["loss_total"].backward()
+        backward(m["loss_total"])
         m = {k: v.detach() for k, v in m.items()}
         sums = m if sums is None else {k: sums[k] + m[k] for k in sums}
     inv = 1.0 / grad_accum_steps
@@ -75,7 +78,7 @@ def _grads_and_metrics(model, optimizer, batch, generator, loss_fn, grad_accum_s
 def train_step(model, optimizer, batch, generator, loss_fn: Callable = default_loss_fn,
                finite_guard: bool = True, grad_accum_steps: int = 1,
                grad_clip_norm: Optional[float] = None, shard=None,
-               layout=None) -> Dict[str, torch.Tensor]:
+               layout=None, nan_check: Optional[NanCheck] = None) -> Dict[str, torch.Tensor]:
     """Loss, backward, optimizer step. With ``finite_guard`` a step whose
     loss or global gradient norm is not finite changes nothing (params,
     moments, step count) and counts 1 in ``skipped_steps``; the decision
@@ -88,10 +91,11 @@ def train_step(model, optimizer, batch, generator, loss_fn: Callable = default_l
     the data ranks before the guard. ``layout`` (a ``fsdp.ShardedState``):
     the optimizer holds the layout's masters; their gradients come from
     the working tensors', the norm is the global one, and the masters are
-    gathered into the working tensors after the update."""
+    gathered into the working tensors after the update. ``nan_check``
+    (``debug_nans``): the gradients of each backward checked."""
     with shard.window() if shard is not None else contextlib.nullcontext():
         metrics = _grads_and_metrics(model, optimizer, batch, generator, loss_fn,
-                                     grad_accum_steps, layout)
+                                     grad_accum_steps, layout, nan_check)
     if layout is not None:
         metrics = layout.reduce_grads(metrics, shard)
     elif shard is not None:
@@ -117,6 +121,67 @@ def train_step(model, optimizer, batch, generator, loss_fn: Callable = default_l
         layout.gather_working()
     metrics["skipped_steps"] = skipped
     return metrics
+
+
+class NanCheck:
+    """``Trainer(debug_nans=True)``'s check, the counterpart of JAX's
+    ``jax_debug_nans``: every loss the fit computes (each train step's
+    before its backward, each val batch's), every step's metrics (K3's
+    loss among them) and every backward's gradients are read on the host,
+    and a non-finite one raises ``FloatingPointError`` naming the epoch,
+    the step and the metric or parameter. A backward whose gradients are
+    not finite is run again on its retained graph under autograd's
+    anomaly mode, which names the operation that returned NaN: anomaly
+    mode over every step costs the flagship's eager step ~12x on an H100
+    (``chip_smoke.py`` api (b)), this one host read a backward. The fit's
+    epoch counter and a step counter are read only when it raises. Only
+    for eager runs: a read on the host cannot be captured in a CUDA
+    graph."""
+
+    def __init__(self, epoch: torch.Tensor):
+        self.epoch = epoch
+        self.what, self.ctr = "step", None
+
+    def at(self, what: str, ctr: Optional[torch.Tensor]) -> None:
+        """The step the next checks belong to (``ctr``: its counter)."""
+        self.what, self.ctr = what, ctr
+
+    def where(self) -> str:
+        step = "" if self.ctr is None else f" {int(self.ctr)}"
+        return f"epoch {int(self.epoch)}, {self.what}{step}"
+
+    def check(self, metrics: Dict[str, torch.Tensor]) -> None:
+        if bool(torch.isfinite(_stack(metrics)).all()):
+            return
+        bad = [k for k, v in metrics.items() if not bool(torch.isfinite(v).all())]
+        raise FloatingPointError(f"debug_nans: non-finite {', '.join(bad)} at {self.where()}")
+
+    def loss_fn(self, fn: Callable) -> Callable:
+        """``fn`` with its metrics checked."""
+        def checked(model, batch, generator=None):
+            metrics = fn(model, batch, generator)
+            self.check(metrics)
+            return metrics
+        return checked
+
+    def backward(self, loss: torch.Tensor, model) -> None:
+        """``loss.backward()``, its gradients checked; where one is not
+        finite, the backward again under anomaly mode, then raise."""
+        loss.backward(retain_graph=True)
+        named = [(n, p.grad) for n, p in model.named_parameters() if p.grad is not None]
+        if not named or bool(torch.stack([torch.isfinite(g).all() for _, g in named]).all()):
+            return
+        bad = [n for n, g in named if not bool(torch.isfinite(g).all())]
+        where = f"non-finite gradient of {', '.join(bad)} at {self.where()}"
+        model.zero_grad(set_to_none=True)
+        try:
+            with torch.autograd.detect_anomaly(check_nan=True):
+                loss.backward()
+        except RuntimeError as e:
+            if "nan values" not in str(e):
+                raise
+            raise FloatingPointError(f"debug_nans: {where}: {e}") from e
+        raise FloatingPointError(f"debug_nans: {where}")
 
 
 def batch_indices(n: int, batch_size: int, shuffle: str, generator, device) -> torch.Tensor:
@@ -151,16 +216,21 @@ class EpochProgram:
         means, the tail folded in by sample count (``eval_full``'s math).
 
     The metric names come from the first step and the first val batch
-    (``t_names``, ``v_names``); their rows are allocated then."""
+    (``t_names``, ``v_names``); their rows are allocated then.
+    ``nan_check`` (a :class:`NanCheck`): every loss and step checked on
+    the host (eager runs only)."""
 
     def __init__(self, model, optimizer, x_train: torch.Tensor, x_val: torch.Tensor,
                  batch_size: int, generator, *, shuffle: str = "row",
                  loss_fn: Callable = default_loss_fn, train_step_fn: Optional[Callable] = None,
                  finite_guard: bool = True, grad_accum_steps: int = 1,
-                 grad_clip_norm: Optional[float] = None, shard=None, layout=None):
+                 grad_clip_norm: Optional[float] = None, shard=None, layout=None,
+                 nan_check: Optional[NanCheck] = None):
         self.model, self.optimizer, self.generator = model, optimizer, generator
         self.x_train, self.x_val = x_train, x_val
         self.shuffle, self.loss_fn, self.train_step_fn = shuffle, loss_fn, train_step_fn
+        self.nan_check = nan_check
+        self._loss = nan_check.loss_fn(loss_fn) if nan_check is not None else loss_fn
         self.finite_guard, self.grad_accum_steps = finite_guard, grad_accum_steps
         self.grad_clip_norm = grad_clip_norm
         self.shard = shard  # this rank's rows of every train batch (None: all of them)
@@ -208,12 +278,17 @@ class EpochProgram:
         if self.shard is not None:
             rows = self.shard.take(rows)
         torch.index_select(self.x_train, 0, rows, out=self.batch)
+        check = self.nan_check
+        if check is not None:
+            check.at("train step", self.step_ctr)
         if self.train_step_fn is not None:
             m = self.train_step_fn(self.model, self.optimizer, self.batch, self.generator)
         else:
-            m = train_step(self.model, self.optimizer, self.batch, self.generator, self.loss_fn,
+            m = train_step(self.model, self.optimizer, self.batch, self.generator, self._loss,
                            self.finite_guard, self.grad_accum_steps, self.grad_clip_norm,
-                           self.shard, self.layout)
+                           self.shard, self.layout, check)
+        if check is not None:
+            check.check(m)
         self._record("t", self.step_ctr, m)
 
     def end_train(self) -> None:
@@ -223,12 +298,16 @@ class EpochProgram:
     def val_step(self) -> None:
         rows = self.val_idx.index_select(0, self.val_ctr.view(1)).view(-1)
         torch.index_select(self.x_val, 0, rows, out=self.val_batch)
-        self._record("v", self.val_ctr, self.loss_fn(self.model, self.val_batch, self.generator))
+        if self.nan_check is not None:
+            self.nan_check.at("val batch", self.val_ctr)
+        self._record("v", self.val_ctr, self._loss(self.model, self.val_batch, self.generator))
 
     @torch.no_grad()
     def val_tail(self) -> None:
         start = self.eval_steps * self.eval_batch
-        tail = _stack(self.loss_fn(self.model, self.x_val[start:], self.generator))
+        if self.nan_check is not None:
+            self.nan_check.at("val tail", None)
+        tail = _stack(self._loss(self.model, self.x_val[start:], self.generator))
         if self.v_tail is None:
             self.v_tail = torch.zeros_like(tail)
         self.v_tail.copy_(tail)

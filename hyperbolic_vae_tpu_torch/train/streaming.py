@@ -131,7 +131,8 @@ class StreamedProgram(ChunkProgram):
             EpochProgram(ep.model, ep.optimizer, buf, ep.x_val, ep.batch_size, ep.generator,
                          shuffle=ep.shuffle, loss_fn=ep.loss_fn, train_step_fn=ep.train_step_fn,
                          finite_guard=ep.finite_guard, grad_accum_steps=ep.grad_accum_steps,
-                         grad_clip_norm=ep.grad_clip_norm, shard=ep.shard, layout=ep.layout)
+                         grad_clip_norm=ep.grad_clip_norm, shard=ep.shard, layout=ep.layout,
+                         nan_check=ep.nan_check)
             for buf in self.dev_bufs[1:]]
         zero = (lambda: self.t_acc.zero_(),) if self.j_blocks > 1 else ()
         segs = [Segment((self.begin_controls,) + zero, 1, "begin epoch")]

@@ -349,6 +349,7 @@ class Trainer:
         mesh=None,  # parallel.make_mesh(): data parallel over its ranks
         use_mesh: bool = False,  # build make_mesh() over the torch.distributed world
         param_sharding_fn: Optional[Callable] = None,  # fn(model, mesh) -> layout (parallel.sharding_rules)
+        debug_nans: bool = False,  # fits run eagerly; a non-finite loss or gradient raises FloatingPointError
         device: DeviceLike = None,
     ):
         if shuffle not in ("row", "block"):
@@ -449,6 +450,7 @@ class Trainer:
         self.ema_decay = ema_decay
         self.lr_schedule = lr_schedule
         self.finite_guard = bool(finite_guard)
+        self.debug_nans = bool(debug_nans)
         self.grad_accum_steps = int(grad_accum_steps)
         self.grad_clip_norm = float(grad_clip_norm) if grad_clip_norm is not None else None
         self.max_wall_seconds = max_wall_seconds
@@ -476,7 +478,8 @@ class Trainer:
         if checkpoint_dir:
             from hyperbolic_vae_tpu_torch.train.checkpoint import CheckpointManager, model_hparams
 
-            self._ckpt_mgr = CheckpointManager(checkpoint_dir, read_only=not self._writer)
+            self._ckpt_mgr = CheckpointManager(checkpoint_dir, monitor=monitor,
+                                               read_only=not self._writer)
             self._ckpt_mgr.model_config = model_hparams(model)
 
     def _make_optimizer(self, sharded=None) -> RiemannianAdam:
@@ -547,21 +550,25 @@ class Trainer:
     def _graceful_scope(self):
         """Around every fit-like entry point: arms the wall clock and
         installs the preemption handlers while training runs; warns when a
-        stop could not save resume state."""
+        stop could not save resume state. With ``debug_nans`` the fit runs
+        eagerly (``cuda_graph.run_eagerly``), each step checked on the host
+        (``epoch_program.NanCheck``)."""
         self._fit_t0 = time.monotonic()
         self._stop_reason = None
         if (self.preempt_signals or self.max_wall_seconds is not None) and not self._ckpt_mgr:
             logger.warning("graceful-stop options (preempt_signals/max_wall_seconds) are set "
                            "but the Trainer has no checkpoint_dir: a stop will NOT save resume "
                            "state")
-        if not self.preempt_signals:
-            self._shutdown = None
-            yield
-            return
-        from hyperbolic_vae_tpu_torch.train.preemption import GracefulShutdown
+        with contextlib.ExitStack() as stack:
+            if self.debug_nans:
+                from hyperbolic_vae_tpu_torch.train.cuda_graph import run_eagerly
 
-        with GracefulShutdown(self.preempt_signals) as shutdown:
-            self._shutdown = shutdown
+                stack.enter_context(run_eagerly())
+            self._shutdown = None
+            if self.preempt_signals:
+                from hyperbolic_vae_tpu_torch.train.preemption import GracefulShutdown
+
+                self._shutdown = stack.enter_context(GracefulShutdown(self.preempt_signals))
             try:
                 yield
             finally:

@@ -25,10 +25,13 @@ holds the ranks' results to the one-process run of the same thing:
     FSDP checkpoint resumed by one process;
   * K3's ``train_step_fn`` and K2's fused ``loss_fn`` under a layout run on
     gathered whole tensors: the one-process fit bit for bit;
+  * a K3 fit under FSDP x TP stopped after one epoch and resumed: the
+    uninterrupted fit bit for bit, its moments included;
   * the sharded layers' forward and backward against the unsharded
     modules; the memory preflight's per-rank bytes; a callback under a
     layout handed the model's own layers and whole weights;
-  * the multichip dry run's legs at a small width.
+  * the multichip dry run's legs at a small width, its seed-mesh leg among
+    them.
 
 A spawned world waits at most 60 s in a collective and 150 s in all
 before its processes are killed.
@@ -258,6 +261,28 @@ def _callbacks(mesh, out):
     return {"seen": cb.seen, "params": r.params, "mu": t.encode_split(dm)[0]}
 
 
+def _k3_resume(mesh, out):
+    """K3 under FSDP x TP: the uninterrupted 2-epoch fit, and a 1-epoch fit
+    resumed to 2 (``ShardedState.wrap_train_step`` hands K3 the masters'
+    moments after the resume's load); with each the moments of its final
+    resume state (saved whole)."""
+    from hyperbolic_vae_tpu_torch.ops import make_fused_train_step
+    from hyperbolic_vae_tpu_torch.train import CheckpointManager
+
+    def fit(name, epochs, resume=False):
+        m = _flagship()
+        ckpt = str(out / name)
+        t = _trainer(m, mesh, "fsdp_tp", train_step_fn=make_fused_train_step(m),
+                     max_epochs=epochs, checkpoint_dir=ckpt)
+        rec = _record(t.fit(_mnist(), resume=resume))
+        state, _ = CheckpointManager(ckpt, read_only=True).restore_state(device="cpu")
+        return dict(rec, optimizer=state["optimizer"])
+
+    whole = fit("k3_whole", 2)
+    fit("k3_part", 1)
+    return {"whole": whole, "resumed": fit("k3_part", 2, resume=True)}
+
+
 def _dryrun(mesh, out):
     from hyperbolic_vae_tpu_torch.tools import dryrun_multichip
 
@@ -287,7 +312,7 @@ def _conv():
 
 
 WORLD_ONLY = {"layers": _layers, "memory": _memory, "dryrun": _dryrun, "refusals": _refusals,
-              "callbacks": _callbacks}
+              "callbacks": _callbacks, "k3_resume": _k3_resume}
 
 
 def _rank_main(rank: int, store_path: str, out: str) -> None:
@@ -369,6 +394,22 @@ def _assert_same(a, b):
         assert a[which].keys() == b[which].keys()
         for k in a[which]:
             assert torch.equal(a[which][k], b[which][k]), (which, k)
+
+
+def _assert_tree_equal(a, b, path=()):
+    """Nested dicts and lists of tensors and numbers, equal bit for bit."""
+    if isinstance(a, dict):
+        assert a.keys() == b.keys(), path
+        for k in a:
+            _assert_tree_equal(a[k], b[k], path + (k,))
+    elif isinstance(a, (list, tuple)):
+        assert len(a) == len(b), path
+        for i, (x, y) in enumerate(zip(a, b)):
+            _assert_tree_equal(x, y, path + (i,))
+    elif isinstance(a, torch.Tensor):
+        assert torch.equal(a, b), path
+    else:
+        assert a == b, path
 
 
 def _assert_fit_close(got, want, rtol=1e-3, lr=1e-3):
@@ -588,6 +629,23 @@ def test_whole_batch_steps_under_a_layout_equal_one_process(world, single, name)
         _assert_same(_ok(r[name]), single(name))
 
 
+def test_k3_fit_resumed_under_fsdp_tp_equals_the_uninterrupted_fit(world):
+    """K3 under FSDP x TP (moments and masters a rank's slices), stopped
+    after one epoch and resumed to two: the resumed epoch's history, the
+    final and best parameters and the moments equal the uninterrupted
+    fit's bit for bit on every rank (ROADMAP Queue 3: the working
+    optimizer K3 steps aliases the masters' state after a resume)."""
+    ranks, _ = world
+    for r in ranks:
+        res = _ok(r["k3_resume"])
+        whole, resumed = res["whole"], res["resumed"]
+        assert [h["epoch"] for h in resumed["history"]] == [1]
+        assert all(h["train/skipped_steps"] == 0 for h in whole["history"])
+        _assert_same(resumed, _tail(whole))
+        _assert_tree_equal(resumed["optimizer"], whole["optimizer"])
+        assert whole["optimizer"]["state"]  # moments were saved and compared
+
+
 def test_sharded_layers_against_the_unsharded_modules(world):
     ranks, _ = world
     for r in ranks:
@@ -662,6 +720,10 @@ def test_dryrun_legs_at_a_small_width(world):
     legs = [_ok(r["dryrun"]) for r in ranks]
     report = dryrun_multichip.check(legs, dryrun_multichip.small_config(), mesh_shape=(2, 2))
     assert report["ok"], report
+    # the seed-mesh leg: a flagship lane a rank, every rank holding every
+    # lane's val history, each one process's bit for bit
+    assert len(report["seed_lanes"]) == len(ranks)
+    assert all(len(v) == dryrun_multichip.SEED_EPOCHS for v in report["seed_lanes"])
 
 
 @pytest.mark.slow
