@@ -1,0 +1,8 @@
+"""idle_pct (%), layer "device": the share of the traced chunk's span in
+which no operation ran on the device."""
+
+
+def read(ctx):
+    if ctx.trace is None or not ctx.trace.device or ctx.trace.window_us <= 0:
+        return None
+    return 100.0 * (1.0 - ctx.trace.busy_us() / ctx.trace.window_us)
