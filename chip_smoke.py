@@ -2990,23 +2990,12 @@ def _lanes_window(progs) -> dict:
                 with p.on_stream():
                     p.program.replay(name)
 
-    def queue():
-        """The window's replays, no host sync; returns an event that
-        completes with every lane's part."""
+    def window():
         if whole:
             replay("train epoch")
         else:
             replay("begin epoch")
             replay("train step", n)
-        current, done = torch.cuda.current_stream(), torch.cuda.Event()
-        for p in progs:
-            if p.stream is not None:
-                current.wait_stream(p.stream)
-        done.record(current)
-        return done
-
-    def window():
-        queue()
         torch.cuda.synchronize()
 
     window()
@@ -3016,46 +3005,7 @@ def _lanes_window(progs) -> dict:
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         window()
     return {"what": f"{n} train steps a lane", "wall_ms": wall_ms,
-            "samples_per_sec": len(progs) * n * BATCH / wall_ms * 1e3, **_kernel_busy(prof),
-            **_smi_busy(queue)}
-
-
-def _smi_busy(queue, seconds: float = 4.0, settle: float = 1.0) -> dict:
-    """The card's own busy reading of a window, with no tracer to stretch
-    it: ``queue`` (the window's replays, no host sync; returns an event of
-    their end) is queued again and again for ``seconds``, two windows in
-    flight, and from ``settle`` s in, ``nvidia-smi`` samples
-    utilization.gpu (the share of its sample period, 1/6 to 1 s, in which
-    at least one kernel ran) every 100 ms. Idle share 1 - the median
-    sample / 100, integer percent."""
-    import torch
-
-    uuid = str(torch.cuda.get_device_properties(torch.cuda.current_device()).uuid)
-    uuid = uuid if uuid.startswith("GPU-") else f"GPU-{uuid}"
-    smi, inflight = None, []
-    t0 = time.perf_counter()
-    try:
-        while time.perf_counter() - t0 < seconds:
-            inflight.append(queue())
-            if len(inflight) > 2:
-                inflight.pop(0).synchronize()
-            if smi is None and time.perf_counter() - t0 > settle:
-                smi = subprocess.Popen(
-                    ["nvidia-smi", "-i", uuid, "--query-gpu=utilization.gpu",
-                     "--format=csv,noheader,nounits", "-lms", "100"],
-                    stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
-    finally:
-        out = ""
-        if smi is not None:
-            smi.terminate()
-            out = smi.communicate(timeout=10)[0]
-        torch.cuda.synchronize()
-    samples = [int(v) for v in out.split() if v.isdigit()]
-    if not samples:
-        return {"smi_samples": 0, "smi_idle": "not measured (nvidia-smi gave no sample)"}
-    median = float(statistics.median(samples))
-    return {"smi_samples": len(samples), "smi_util_median": median,
-            "smi_util_range": [min(samples), max(samples)], "smi_idle": f"{1 - median / 100:.2f}"}
+            "samples_per_sec": len(progs) * n * BATCH / wall_ms * 1e3, **_kernel_busy(prof)}
 
 
 def sweep_phase():
@@ -3082,9 +3032,7 @@ def sweep_phase():
           of (b)'s and (c)'s sequential fits, timed); for S = 8,
           ``_lanes_window``: the steps' wall, then under torch.profiler
           the kernel time (summed, and their union: streams overlap) and
-          the idle share, and the card's own busy reading of the window
-          queued for 3 s (``_smi_busy``: ``nvidia-smi`` utilization.gpu,
-          no tracer);
+          the idle share;
       (e) experiment 7's (mobius, geoopt_gyroplane) shape group as 6
           lanes (c in 0.5, 1.0, 1.4 x beta in 1, 3) of
           ``HyperbolicImageVAE`` on MNIST padded to 32 x 32, batch 256,
@@ -3215,10 +3163,7 @@ def sweep_phase():
               + f"; S=8, {w['what']}: wall {w['wall_ms']:.3f} ms ({w['samples_per_sec']:.1f} train "
               f"samples/s); under torch.profiler {w['kernels']} kernels, kernel time summed "
               f"{w['sum_ms']:.3f} ms, union {w['union_ms']:.3f} ms of a {w['span_ms']:.3f} ms span, "
-              f"idle share {w['idle']}; nvidia-smi utilization.gpu over {w['smi_samples']} "
-              f"samples over the last 3 s of the window queued for 4 s: median {w.get('smi_util_median')} % "
-              f"(range {w.get('smi_util_range')}), idle share {w['smi_idle']} "
-              f"({time.perf_counter() - t_phase:.1f} s into the phase)",
+              f"idle share {w['idle']} ({time.perf_counter() - t_phase:.1f} s into the phase)",
               flush=True)
 
     # (e) experiment 7's shape group as lanes, K1 at 512 planes
@@ -3442,15 +3387,15 @@ def _fake_cells(n_cells: int, seed: int = 42):
     return ArrayDataModule(x_tr, y_tr, x_va, y_va, x_te, y_te, batch_size=BATCH)
 
 
-def _overlap(prog) -> dict:
-    """From a streamed fit's program (``StreamedProgram.copy_spans`` and
-    ``compute_spans``, the latest 64 of each): each copy's and compute
-    span's interval (ms from the first copy's start), the share of the
-    copies' time inside some compute span (blocks and val passes), and the
+def _overlap(fit) -> dict:
+    """From a streamed fit's spans on the card (``train/tracing.py``'s
+    ``block.copy`` and ``block.compute``): each copy's and compute span's
+    interval (ms from the first copy's start), the share of the copies'
+    time inside some compute span (blocks and val passes), and the
     means."""
-    ref = prog.copy_spans[0][0]
-    copies = [(ref.elapsed_time(a), ref.elapsed_time(b)) for a, b in prog.copy_spans]
-    computes = [(ref.elapsed_time(a), ref.elapsed_time(b)) for a, b in prog.compute_spans]
+    ref = fit.named("block.copy")[0].start
+    copies = [((s.start - ref) / 1e6, (s.end - ref) / 1e6) for s in fit.named("block.copy")]
+    computes = [((s.start - ref) / 1e6, (s.end - ref) / 1e6) for s in fit.named("block.compute")]
     total = sum(b - a for a, b in copies)
     inside = sum(max(0.0, min(b, e) - max(a, s)) for a, b in copies for s, e in computes)
     return {"copies": len(copies), "compute_spans": len(computes),
@@ -3518,7 +3463,7 @@ def deploy_phase():
     from hyperbolic_vae_tpu_torch.ops import gyroplane as g
     from hyperbolic_vae_tpu_torch.ops import make_fused_loss_fn, make_fused_train_step
     from hyperbolic_vae_tpu_torch.serve import ExportedInferencer, Inferencer
-    from hyperbolic_vae_tpu_torch.train import Trainer
+    from hyperbolic_vae_tpu_torch.train import Trainer, tracing
     from hyperbolic_vae_tpu_torch.train.cuda_graph import run_eagerly
 
     t_phase = time.perf_counter()
@@ -3614,14 +3559,15 @@ def deploy_phase():
     except RuntimeError as e:
         if "fit_streamed" not in str(e):
             _fail(f"deploy (b): the preflight's remedy does not name fit_streamed: {e}")
-    blocks, wall_4, n = run(limited.fit_streamed, rna, block_rows=DEPLOY_BLOCK)
+    with tracing.recording(limited.device):  # the copies' and blocks' spans on the card
+        blocks, wall_4, n = run(limited.fit_streamed, rna, block_rows=DEPLOY_BLOCK)
     if n != k1_only(want_k1):
         _fail(f"deploy (b): the 4-block streamed fit launched {n}, want {want_k1} K1")
     paths["k1_256"]["deploy_rnaseq_stream_blocks"] = n["gyroplane_distances"]
     losses = [h["train/loss_total"] for h in blocks.history]
     if not np.all(np.isfinite(losses)):
         _fail(f"deploy (b): the 4-block fit's losses {losses}")
-    ov = _overlap(limited.program)
+    ov = _overlap(tracing.last_fit())
     ratio = blocks.samples_per_sec / resident.samples_per_sec
     with run_eagerly():
         eager = Trainer(rna_model(), max_epochs=DEPLOY_EPOCHS).fit_streamed(

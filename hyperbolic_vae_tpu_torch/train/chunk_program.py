@@ -38,6 +38,7 @@ import torch
 
 from hyperbolic_vae_tpu_torch.optim.schedules import _f32
 from hyperbolic_vae_tpu_torch.parallel.data_parallel import row_shard
+from hyperbolic_vae_tpu_torch.train import tracing
 from hyperbolic_vae_tpu_torch.train.cuda_graph import GraphedProgram, Segment
 from hyperbolic_vae_tpu_torch.train.epoch_program import EpochProgram, NanCheck
 
@@ -286,12 +287,23 @@ class ChunkProgram:
         return rows, host
 
     def run(self, k: int):
-        """k epochs queued (``issue_steps``), then ``fetch(k)``."""
-        steps = self.issue_steps(k)
-        with self.on_stream():
-            for _ in steps:
-                pass
-        return self.fetch(k)
+        """k epochs queued (``issue_steps``), then ``fetch(k)``. While a fit
+        records (``train/tracing.py``), the spans ``chunk.issue`` and
+        ``chunk.fetch``; the previous chunk's spans on the card are read
+        between them, while the card runs this one."""
+        with tracing.span("chunk.issue"):
+            steps = self.issue_steps(k)
+            with self.on_stream():
+                for _ in steps:
+                    pass
+        rec = tracing.current
+        if rec is not None:
+            rec.read_queued()
+        with tracing.span("chunk.fetch"):
+            out = self.fetch(k)
+        if rec is not None:
+            rec.anchor()
+        return out
 
     def row_metrics(self, row: np.ndarray) -> dict:
         ep = self.ep

@@ -17,7 +17,8 @@ device each segment becomes one ``torch.cuda.CUDAGraph`` at the first
      program's ``torch.Generator`` registered, so the permutation and the
      eps draws advance on every replay as the eager calls would; a kernel
      wrapper's launch counter goes up once per captured launch while the
-     capture runs, which is taken back and added on every replay instead.
+     capture runs, which is taken back and added on every replay instead
+     (to the counter objects resolved at the capture).
      ``capture_stream`` (a sweep's lane stream) captures on that stream,
      so that the graphs of two lanes, replayed at once on their own
      streams, never share cuBLAS's per-stream workspace; each graph has
@@ -28,7 +29,9 @@ device each segment becomes one ``torch.cuda.CUDAGraph`` at the first
      graphs, which invalidates the capture in progress
      (``torch.cuda.graph`` no longer collects before it captures).
 
-A capture that fails raises: the program never falls back to running the
+While a fit records its spans (``train/tracing.py``), the captures are
+its ``chunk.capture`` span and each replay a ``replay`` span timed on the
+card. A capture that fails raises: the program never falls back to running the
 pieces eagerly. On the CPU, or inside :func:`run_eagerly` (the eager run
 of the same program, for comparison), ``run()`` calls the pieces in the
 same order without graphs.
@@ -43,6 +46,7 @@ from typing import Dict, List, NamedTuple, Optional, Sequence
 import torch
 
 from hyperbolic_vae_tpu_torch.ops import launch_counters
+from hyperbolic_vae_tpu_torch.train import tracing
 
 _EAGER = False
 WARMUP_PASSES = 3
@@ -145,10 +149,13 @@ class GraphedProgram:
             return
         self.capture()
         graph, added = self._graphs[i]
-        graph.replay()
-        counters = launch_counters()
-        for name, n in added.items():
-            counters[name].add(n)
+        rec = tracing.current
+        if rec is None:
+            graph.replay()
+        else:
+            rec.replay(graph, self.segments[i].name)
+        for counter, n in added:
+            counter.add(n)
 
     def _snapshot(self):
         return ([t.detach().clone() for t in self.state], self.generator.get_state(), _counts())
@@ -162,6 +169,10 @@ class GraphedProgram:
         _set_counts(counts)
 
     def _capture(self) -> List[tuple]:
+        with tracing.span("chunk.capture", {"segments": len(self.segments)}):
+            return self._capture_segments()
+
+    def _capture_segments(self) -> List[tuple]:
         snap = self._snapshot()
         current = torch.cuda.current_stream(self.device)
         side = torch.cuda.Stream(self.device)
@@ -174,6 +185,7 @@ class GraphedProgram:
                 self._restore(snap)
         current.wait_stream(side)
         graphs = []
+        counters = launch_counters()  # added to on every replay
         with no_collection():
             for seg in self.segments:
                 graph = torch.cuda.CUDAGraph()
@@ -188,8 +200,8 @@ class GraphedProgram:
                     raise RuntimeError(f"CUDA graph capture of {seg.name!r} failed: {e}") from e
                 after = _counts()
                 _set_counts(before)
-                graphs.append((graph, {k: after[k] - before[k] for k in after
-                                       if after[k] != before[k]}))
+                graphs.append((graph, tuple((counters[k], after[k] - before[k]) for k in after
+                                            if after[k] != before[k])))
         self._restore(snap)
         return graphs
 

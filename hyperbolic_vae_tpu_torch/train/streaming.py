@@ -30,16 +30,15 @@ n % block_rows tail sits out every epoch (a warning says so).
 
 from __future__ import annotations
 
-import contextlib
 import functools
 import logging
-from collections import deque
 from concurrent.futures import ThreadPoolExecutor
 from typing import List
 
 import numpy as np
 import torch
 
+from hyperbolic_vae_tpu_torch.train import tracing
 from hyperbolic_vae_tpu_torch.train.chunk_program import ChunkProgram
 from hyperbolic_vae_tpu_torch.train.cuda_graph import Segment
 from hyperbolic_vae_tpu_torch.train.epoch_program import EpochProgram
@@ -88,9 +87,10 @@ class StreamedProgram(ChunkProgram):
     replays in the epoch's block order, gathering two blocks ahead and
     queueing the next epoch's first copies before this epoch's val batches.
 
-    On the card, ``copy_spans`` and ``compute_spans`` keep CUDA timing
-    events around the latest copies and the latest blocks' and val passes'
-    compute, to measure how much of the copies the compute hides."""
+    While a fit records (``train/tracing.py``), each copy is a
+    ``block.copy`` span on the card and each block's and val pass's
+    compute a ``block.compute`` span: how much of the copies the compute
+    hides."""
 
     def __init__(self, trainer, model, optimizer, x_host, block_rows: int, reshuffle: str,
                  x_val, batch_size: int, generator, start_epoch: int, *, loss_fn, hp=None,
@@ -109,8 +109,6 @@ class StreamedProgram(ChunkProgram):
                           for _ in range(nbuf)]
         self.loaded: list = [None] * nbuf  # the block spec each device buffer holds
         self.t_acc = torch.zeros((), dtype=torch.float32, device=dev)  # resized at the first block
-        self.copy_spans: deque = deque(maxlen=64)
-        self.compute_spans: deque = deque(maxlen=64)
         if self.cuda:
             self.copy_stream = torch.cuda.Stream(dev)
             self.copied = [torch.cuda.Event() for _ in range(nbuf)]
@@ -200,7 +198,7 @@ class StreamedProgram(ChunkProgram):
             if self.cuda:
                 with torch.cuda.stream(self.copy_stream):
                     self.copy_stream.wait_event(self.free[s])
-                    with self._span(self.copy_spans):
+                    with tracing.on_device("block.copy", g):
                         self.dev_bufs[s].copy_(self.host_bufs[s], non_blocking=True)
                     self.copied[s].record()
             else:
@@ -218,24 +216,11 @@ class StreamedProgram(ChunkProgram):
         names = ([f"block {s}"] if self.trainer.train_step_fn is not None
                  else [f"block {s} begin"] + [f"block {s} step"] * self.eps[s].steps
                  + [f"block {s} means"])
-        with self._span(self.compute_spans):
+        with tracing.on_device("block.compute", g):
             for name in names:
                 self.program.replay(name)
         if self.cuda:
             self.free[s].record()
-
-    @contextlib.contextmanager
-    def _span(self, spans: deque):
-        """On the card, timing events recorded on the current stream around
-        the block, kept in ``spans``."""
-        if not self.cuda:
-            yield
-            return
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        yield
-        end.record()
-        spans.append((start, end))
 
     def issue_steps(self, k: int):
         self._after_caller()
@@ -258,7 +243,7 @@ class StreamedProgram(ChunkProgram):
                 for g in range(g0 + self.j_blocks, g0 + self.j_blocks + len(self.dev_bufs)):
                     if g // self.j_blocks < self.trainer.max_epochs:
                         self._issue_copy(g)
-                with self._span(self.compute_spans):
+                with tracing.on_device("block.compute", "val"):
                     if self.j_blocks > 1:
                         self.program.replay("train means")
                     for _ in range(self.ep.eval_steps):

@@ -23,7 +23,9 @@ checkpoints (``checkpoint_dir``: best, last, ``ema``, and, every
 that ``fit(resume=True)`` continues from), calls ``callbacks``
 (``train/callbacks.py``) and checks for a graceful stop
 (``preempt_signals``, ``max_wall_seconds``: ``train/preemption.py``);
-``profile_dir`` gets a torch.profiler trace of the second chunk. Before
+``profile_dir`` gets a torch.profiler trace of the second chunk and, for
+``fit`` and ``fit_streamed``, the fit's spans (``train/tracing.py``:
+``spans.json``, and the profiled chunk's host spans in the trace). Before
 staging, a memory preflight (``hbm_limit_bytes``) fails early. Seed
 ensembles and hyperparameter lanes (``hp_model_fn``) run through
 ``fit_ensemble`` and ``fit_lane_sweep`` (``train/ensemble.py``). After
@@ -96,6 +98,7 @@ from hyperbolic_vae_tpu_torch.device import DeviceLike, resolve_device
 from hyperbolic_vae_tpu_torch.manifolds import PoincareBall
 from hyperbolic_vae_tpu_torch.optim import EarlyStopping, ReduceLROnPlateau, RiemannianAdam
 from hyperbolic_vae_tpu_torch.parallel.mesh import DATA_AXIS
+from hyperbolic_vae_tpu_torch.train import tracing
 from hyperbolic_vae_tpu_torch.train.chunk_program import ChunkProgram
 from hyperbolic_vae_tpu_torch.train.epoch_program import default_loss_fn
 from hyperbolic_vae_tpu_torch.train.metrics import MetricLogger
@@ -650,22 +653,40 @@ class Trainer:
                 f"fit_streamed(dm, block_rows=...) to keep x_train on the host, "
                 f"grad_accum_steps to shrink activations, or sweep fewer lanes at once.")
 
+    def _recording(self):
+        """Around ``fit`` and ``fit_streamed``: with ``profile_dir``, the
+        fit's spans recorded (``train/tracing.py``), into
+        ``profile_dir/spans.json`` at its end."""
+        if not (self.profile_dir and self._writer):
+            return tracing.OFF
+        return tracing.recording(self.device, self.profile_dir)
+
     @contextlib.contextmanager
     def _profiled(self, on: bool):
         """With ``profile_dir`` and ``on`` (the second chunk: the first
         captures the graphs), torch.profiler over the block, its trace in
-        ``profile_dir/trace.json``."""
+        ``profile_dir/trace.json``, with the fit's host spans that lie
+        wholly inside the block when it records them (host spans only
+        inside: the trace times the card)."""
         if not (on and self.profile_dir and self._writer):
             yield
             return
         from torch.profiler import ProfilerActivity, profile
 
         acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if self.device.type == "cuda" else [])
-        with profile(activities=acts) as prof:
+        rec = tracing.current
+        if rec is not None:  # the earlier chunks' events read outside the trace
+            rec.read_queued()
+            rec.sample_clock()
+        t0 = time.perf_counter_ns()
+        with tracing.OFF if rec is None else rec.host_only(), profile(activities=acts) as prof:
             yield
+        t1 = time.perf_counter_ns()
         out = Path(self.profile_dir)
         out.mkdir(parents=True, exist_ok=True)
         prof.export_chrome_trace(str(out / "trace.json"))
+        if rec is not None:
+            rec.merge_trace(out / "trace.json", t0, t1)
 
     # ---- fit ---------------------------------------------------------------
 
@@ -675,7 +696,7 @@ class Trainer:
         most ``max_epochs`` epochs; with ``resume`` and a saved resume
         state in ``checkpoint_dir``, continue that fit from its next epoch.
         A graceful stop returns at a chunk boundary with ``interrupted``."""
-        with self._graceful_scope():
+        with self._graceful_scope(), self._recording(), tracing.span("fit"):
             return self._fit(dm, params, resume)
 
     def fit_streamed(self, dm: ArrayDataModule, block_rows: int,
@@ -702,7 +723,7 @@ class Trainer:
         if self.mesh is not None and int(block_rows) % self.mesh.shape[DATA_AXIS]:
             raise ValueError("block_rows must shard evenly over the mesh 'data' axis")
         check_blocks(int(dm.x_train.shape[0]), dm.batch_size, int(block_rows), reshuffle)
-        with self._graceful_scope():
+        with self._graceful_scope(), self._recording(), tracing.span("fit"):
             return self._fit(dm, params, resume, blocks=(int(block_rows), reshuffle))
 
     def _fit(self, dm: ArrayDataModule, params, resume: bool, blocks=None) -> TrainResult:
@@ -715,10 +736,13 @@ class Trainer:
         state = meta = None
         if resume and self._ckpt_mgr is not None:
             state, meta = self._ckpt_mgr.restore_state(device=self.device)
-        self._preflight(dm, [self.model], stream_rows=blocks[0] if blocks else None)
-        x_train = self._resident(dm.x_train) if blocks is None else dm.x_train
-        run = _Run(self, dm.batch_size, x_train, self._resident(dm.x_val), params, state, meta,
-                   blocks=blocks)
+        with tracing.span("fit.preflight"):
+            self._preflight(dm, [self.model], stream_rows=blocks[0] if blocks else None)
+        with tracing.span("fit.stage"):
+            x_train = self._resident(dm.x_train) if blocks is None else dm.x_train
+            x_val = self._resident(dm.x_val)
+        with tracing.span("fit.build"):
+            run = _Run(self, dm.batch_size, x_train, x_val, params, state, meta, blocks=blocks)
         try:
             if state is not None:
                 logger.info("resumed from epoch %d", run.start_epoch)
@@ -743,59 +767,76 @@ class Trainer:
         ``state_every_n_epochs`` cadence and at every stop and the end; the
         tail chunk is cut so training never runs past ``max_epochs``; the
         first chunk (capture and warm-up on the card) is left out of
-        ``samples_per_sec``."""
+        ``samples_per_sec``. Each part of a chunk is a span while the fit
+        records (``train/tracing.py``)."""
         k, prog = self.epochs_per_dispatch, run.prog
+        steps_per_epoch = run.samples_per_epoch // prog.ep.batch_size
         total_samples, t_start = 0, None
         for n, chunk_start in enumerate(range(run.start_epoch, self.max_epochs, k)):
-            with self._profiled(n == 1):
-                rows, ctrl = prog.run(min(k, self.max_epochs - chunk_start))
-            if t_start is None:
-                t_start = time.perf_counter()
-            else:
-                total_samples += run.samples_per_epoch * (ctrl["epoch"] - chunk_start)
-            best_row = run.absorb(rows, ctrl)
-            stop = run.stopped
-            if stop:
-                logger.info("early stopping at epoch %d", run.epochs_run - 1)
-            if self._ckpt_mgr is not None and best_row is not None:
-                # the device's best epoch must be the host's reading of the history
-                if ctrl["best_epoch"] != best_row[0]:
-                    raise RuntimeError(f"best epoch {ctrl['best_epoch']} on the device, "
-                                       f"{best_row[0]} in the history")
-                self._ckpt_mgr.save_best(best_row[0], run.full(prog.best), best_row[1])
-            if self.callbacks:
-                with run.whole_model():
-                    live = self.model.state_dict()
-                    for cb in self.callbacks:
-                        if hasattr(cb, "on_epoch_end"):
-                            cb.on_epoch_end(self, run.epochs_run - 1, live,
-                                            run.history[-1] if run.history else {})
-            # a completed run is never interrupted
-            done = run.epochs_run >= self.max_epochs
-            reason = None if done else self._external_stop()
-            if self.mesh is not None and not done and (self.preempt_signals
-                                                       or self.max_wall_seconds is not None):
-                # every rank stops at the same chunk
-                if self.mesh.any(reason is not None) and reason is None:
-                    reason = "another rank of the mesh stopped"
-            n_state = self.state_every_n_epochs
-            cadence = run.epochs_run // n_state > chunk_start // n_state
-            if self._ckpt_mgr is not None and (cadence or stop or reason or done):
-                self._save_resume_state(run, run.epochs_run - 1)
+            epochs = min(k, self.max_epochs - chunk_start)
+            with tracing.chunk(n, epochs, epochs * steps_per_epoch):
+                with self._profiled(n == 1):
+                    rows, ctrl = prog.run(epochs)
+                if t_start is None:
+                    t_start = time.perf_counter()
+                else:
+                    total_samples += run.samples_per_epoch * (ctrl["epoch"] - chunk_start)
+                with tracing.span("chunk.absorb"):
+                    best_row = run.absorb(rows, ctrl)
+                stop = run.stopped
+                if stop:
+                    logger.info("early stopping at epoch %d", run.epochs_run - 1)
+                with tracing.span("chunk.checkpoint"):
+                    if self._ckpt_mgr is not None and best_row is not None:
+                        # the device's best epoch must be the host's reading of the history
+                        if ctrl["best_epoch"] != best_row[0]:
+                            raise RuntimeError(f"best epoch {ctrl['best_epoch']} on the device, "
+                                               f"{best_row[0]} in the history")
+                        self._ckpt_mgr.save_best(best_row[0], run.full(prog.best), best_row[1])
+                with tracing.span("chunk.callbacks"):
+                    if self.callbacks:
+                        with run.whole_model():
+                            live = self.model.state_dict()
+                            for cb in self.callbacks:
+                                if hasattr(cb, "on_epoch_end"):
+                                    cb.on_epoch_end(self, run.epochs_run - 1, live,
+                                                    run.history[-1] if run.history else {})
+                with tracing.span("chunk.stop"):
+                    reason = self._chunk_stop(run, chunk_start, stop)
             if stop:
                 break
             if reason:
                 self._stop_reason = reason
                 logger.warning("graceful stop after epoch %d: %s", run.epochs_run - 1, reason)
                 break
-        if self._ckpt_mgr is not None and run.epochs_run > run.start_epoch:
-            self._ckpt_mgr.save_last(run.epochs_run - 1, run.full_params(), run.history[-1])
-            if self.ema_decay is not None:
-                self._ckpt_mgr.save_named("ema", run.ema_params(),
-                                          {"epoch": run.epochs_run - 1, "ema_decay": self.ema_decay})
-        elapsed = time.perf_counter() - t_start if t_start is not None else 0.0
-        self.metric_logger.close()
-        return run.result(total_samples / elapsed if total_samples else 0.0, self._stop_reason)
+        with tracing.span("fit.result"):
+            if self._ckpt_mgr is not None and run.epochs_run > run.start_epoch:
+                self._ckpt_mgr.save_last(run.epochs_run - 1, run.full_params(), run.history[-1])
+                if self.ema_decay is not None:
+                    self._ckpt_mgr.save_named("ema", run.ema_params(),
+                                              {"epoch": run.epochs_run - 1,
+                                               "ema_decay": self.ema_decay})
+            elapsed = time.perf_counter() - t_start if t_start is not None else 0.0
+            self.metric_logger.close()
+            return run.result(total_samples / elapsed if total_samples else 0.0,
+                              self._stop_reason)
+
+    def _chunk_stop(self, run: _Run, chunk_start: int, stop: bool) -> Optional[str]:
+        """After a chunk: the graceful-stop reason, or None (a completed run
+        is never interrupted; under a mesh every rank stops at the same
+        chunk), and the resume state saved on its cadence and at every stop
+        and the end."""
+        done = run.epochs_run >= self.max_epochs
+        reason = None if done else self._external_stop()
+        if self.mesh is not None and not done and (self.preempt_signals
+                                                   or self.max_wall_seconds is not None):
+            if self.mesh.any(reason is not None) and reason is None:
+                reason = "another rank of the mesh stopped"
+        n_state = self.state_every_n_epochs
+        cadence = run.epochs_run // n_state > chunk_start // n_state
+        if self._ckpt_mgr is not None and (cadence or stop or reason or done):
+            self._save_resume_state(run, run.epochs_run - 1)
+        return reason
 
     def _save_resume_state(self, run: _Run, epoch: int) -> None:
         """The resume unit of ``run`` after ``epoch`` (``fit(resume=True)``
