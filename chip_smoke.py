@@ -158,13 +158,26 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
      K3 fit under FSDP x TP resumed bit for bit the uninterrupted fit
      (moments included); the layer's squared and bias-less options on K1
      against their plain versions.
-  16. Summary: a ``{"kernels": [...]}`` line (K1 four times: at the
+  16. Riemannian Adam (``adam_phase``): the kernel pair of
+     ``csrc/riemannian_adam.cu`` against the op sequence it replaces at the
+     flagship's 14 tensors and experiment 8's 10: ten guarded steps,
+     Euclidean tensors, both moments and count bit for bit, every ball row
+     of every step (from one state) no farther from float64 than eight times
+     the op sequence's largest; a NaN gradient's step changes nothing; each
+     timed from Python and from a CUDA graph beside its bound. Every phase
+     above checks the pair's launches with K1's, K2's and K3's: once a train
+     step of the default step on f32 parameters, never on the K3 path, in
+     evaluation or in serving.
+  17. Summary: a ``{"kernels": [...]}`` line (K1 four times: at the
      flagship's 16 planes, the RNA-seq family's 256, the conv family's
      512 and UnifiedVAE's 100, each counted on its own paths, the interop,
      deploy, data-mesh, shard and api phases' among them, each with its op
      check ``via_op``, the 16-, 256- and 100-plane entries with their
      ``plane_shards``, the 16-plane entry with the layer's options'
-     errors, ``layer_options``), then, as the last line, ``{"ok": true,
+     errors, ``layer_options``; the Riemannian Adam pair twice, at each
+     model's tensors, with its launches on that model's runs of the phases
+     above), the pair's launches by model and path, then, as the last
+     line, ``{"ok": true,
      "device": {...}}``.
 
 Prints no result and exits 1 when CUDA is unavailable.
@@ -951,16 +964,34 @@ def serve_phase() -> dict:
         _fail(f"reconstruct on the card differs from the CPU by {err}")
     # one K1 launch per decoded batch: 2 + 8 (reconstruct 300, 2048 rows),
     # 1 (decode 64), 2 x 2 (generate 512 twice); embed decodes nothing
-    if launches != {"gyroplane_distances": 15, "flagship_fused": 0, "flagship_train": 0}:
+    if launches != _want(k1=15):
         _fail(f"serve launches {launches}, want 15 of the gyroplane kernel and no other")
     print(f"serve: launches {json.dumps(launches)}", flush=True)
     return launches
 
 
 def _launches() -> dict:
+    """Every kernel's launch count, as ``_want`` lays them out."""
     from hyperbolic_vae_tpu_torch.ops import launch_counters
 
     return {name: c.count for name, c in launch_counters().items()}
+
+
+def _want(k1: int = 0, k2: int = 0, k3: int = 0, adam: int = 0) -> dict:
+    """A launch dict as ``_launches()`` gives it: K1, K2, K3 and the
+    Riemannian Adam pair, which runs once a train step of the default step
+    on f32 parameters (the K3 path, evaluation and serving never)."""
+    return {"gyroplane_distances": k1, "flagship_fused": k2, "flagship_train": k3,
+            "riemannian_adam": adam}
+
+
+# the Riemannian Adam pair's launches on each checked main-path run, by model
+# and path (adam_phase's entries take the flagship's and experiment 8's)
+ADAM_PATHS: dict = {}
+
+
+def _adam_path(model: str, path: str, launches: dict) -> None:
+    ADAM_PATHS.setdefault(model, {})[path] = launches["riemannian_adam"]
 
 
 def _reset_launches() -> None:
@@ -1096,17 +1127,15 @@ def train_phase(n_train: int = 60000, n_test: int = 10000, device: str = "cuda")
             if not all(np.isfinite(v) for v in row.values()):
                 _fail(f"{path}: non-finite metrics {row}")
         print(f"{path}: history {json.dumps(hist)}", flush=True)
-        if path == "train_fused":
-            want = {"flagship_fused": epochs * per_epoch, "gyroplane_distances": 0,
-                    "flagship_train": 0}
+        if path == "train_fused":  # K2 every step and val batch, the default step's update
+            want = _want(k2=epochs * per_epoch, adam=epochs * steps)
         elif path == "train_k3":  # K3 every step, K2 every val batch
-            want = {"flagship_fused": epochs * (per_epoch - steps), "gyroplane_distances": 0,
-                    "flagship_train": epochs * steps}
+            want = _want(k2=epochs * (per_epoch - steps), k3=epochs * steps)
         else:
-            want = {"flagship_fused": 0, "gyroplane_distances": epochs * per_epoch,
-                    "flagship_train": 0}
+            want = _want(k1=epochs * per_epoch, adam=epochs * steps)
         if out[path] != want:
             _fail(f"{path}: launches {out[path]}, want {want}")
+        _adam_path("flagship", path, out[path])
         if path != "train_default" and hist[1]["val/loss_total"] >= hist[0]["val/loss_total"]:
             _fail(f"{path}: val/loss_total did not fall from epoch 0 to 1")
         # the eager run of the same program: the same history, bit for bit
@@ -1386,8 +1415,7 @@ def eval_phase(trainer, dm, best, k: int = 5000) -> dict:
     print(f"eval (b): evaluate_iwae k={k} on {n_test} test rows: {bound:.4f} nats a row (ELBO "
           f"{elbo:.4f}); wall {wall:.3f} s; launches {json.dumps(launches)}; under torch.profiler "
           f"K1 {k1_ms:.4f} ms of {busy_ms:.3f} ms of kernel time (share {share})", flush=True)
-    want = {"gyroplane_distances": -(-n_test // BATCH) * -(-k // IWAE_K), "flagship_fused": 0,
-            "flagship_train": 0}
+    want = _want(k1=-(-n_test // BATCH) * -(-k // IWAE_K))
     if launches != want:
         _fail(f"eval (b): launches {launches}, want {want}")
     if not (np.isfinite(bound) and bound >= elbo):
@@ -1717,10 +1745,12 @@ def rnaseq_phase():
             _fail(f"rnaseq (c) {arm}: non-finite metrics {res.history}")
         n_v = data.x_val.shape[0]
         per = data.x_train.shape[0] // BATCH + n_v // BATCH + (1 if n_v % BATCH else 0)
-        want = {"gyroplane_distances": 2 * per, "flagship_fused": 0, "flagship_train": 0}
+        # the pair on f32 parameters; bf16 ones take the op sequence
+        want = _want(k1=2 * per, adam=0 if arm == "bf16" else 2 * (data.x_train.shape[0] // BATCH))
         if launches != want:
             _fail(f"rnaseq (c) {arm}: launches {launches}, want {want}")
         paths[f"rnaseq_fit_{arm}"] = launches
+        _adam_path("rnaseq", f"rnaseq_fit_{arm}", launches)
         graphed[arm] = trainer
         print(f"rnaseq (c) {arm}: 2 epochs graphed {wall:.3f} s, eager {ewall:.3f} s, bit for bit; "
               f"launches {json.dumps(launches)}; val/loss_total "
@@ -1764,8 +1794,10 @@ def rnaseq_phase():
               f"launches {json.dumps(paths['rnaseq_fit'])}", flush=True)
         if not res.best_metric < vals[0]:
             _fail(f"rnaseq (e): best val/loss_total {res.best_metric} not below the first {vals[0]}")
-        if paths["rnaseq_fit"]["gyroplane_distances"] != res.epochs_run * per_epoch:
-            _fail(f"rnaseq (e): launches {paths['rnaseq_fit']}, want {res.epochs_run * per_epoch}")
+        want = _want(k1=res.epochs_run * per_epoch, adam=res.epochs_run * steps)
+        if paths["rnaseq_fit"] != want:
+            _fail(f"rnaseq (e): launches {paths['rnaseq_fit']}, want {want}")
+        _adam_path("rnaseq", "rnaseq_fit", paths["rnaseq_fit"])
 
         # (f) served from the best checkpoint
         inf = Inferencer.from_checkpoint(ckpt, "best", batch_size=BATCH)
@@ -1824,7 +1856,7 @@ def rnaseq_phase():
                   f"{float(np.abs(rec - want.cpu().numpy()).max())}")
         # one K1 launch a decoded batch: 1 (decode 64), 8 (reconstruct 2048),
         # 2 x 2 (generate 512 twice); embed decodes nothing
-        want_l = {"gyroplane_distances": 13, "flagship_fused": 0, "flagship_train": 0}
+        want_l = _want(k1=13)
         if paths["rnaseq_serve"] != want_l:
             _fail(f"rnaseq (f): launches {paths['rnaseq_serve']}, want {want_l}")
         print(f"rnaseq (f): reconstruct of 2048 rows equal to the model's, bit for bit; launches "
@@ -1843,7 +1875,7 @@ def rnaseq_phase():
     elbo = _rnaseq_ll_elbo(trainer.evaluate(dm, best), "test", "mse", RNA_GENES)
     n_test = dm.x_test.shape[0]
     chunks = -(-n_test // BATCH) * -(-RNA_IWAE_K // RNA_K_CHUNK)
-    want_l = {"gyroplane_distances": chunks, "flagship_fused": 0, "flagship_train": 0}
+    want_l = _want(k1=chunks)
     if paths["rnaseq_eval"] != want_l:
         _fail(f"rnaseq (g): launches {paths['rnaseq_eval']}, want {want_l}")
     if not (np.isfinite(bound) and bound >= elbo):
@@ -2020,10 +2052,10 @@ def conv_phase():
         return data.x_train.shape[0] // BATCH + n_v // BATCH + (1 if n_v % BATCH else 0)
 
     def no_launches():
-        return {"gyroplane_distances": 0, "flagship_fused": 0, "flagship_train": 0}
+        return _want()
 
-    def want_k1(n):
-        return {**no_launches(), "gyroplane_distances": n}
+    def want_k1(n, adam=0):
+        return _want(k1=n, adam=adam)
 
     # (c) graphed against eager, four arms
     paths = {}
@@ -2048,10 +2080,12 @@ def conv_phase():
         _same_fit(f"conv (c) {arm}", res, eres, "graphed", "eager")
         if not all(np.isfinite(v) for row in res.history for v in row.values()):
             _fail(f"conv (c) {arm}: non-finite metrics {res.history}")
-        want = want_k1(2 * per_epoch(data)) if gyro else no_launches()
+        # K1 on the gyroplane decoders; the pair every train step (f32 parameters in every arm)
+        want = want_k1(2 * per_epoch(data) if gyro else 0, adam=2 * (data.x_train.shape[0] // BATCH))
         if launches != want:
             _fail(f"conv (c) {arm}: launches {launches}, want {want}")
         paths[f"conv_fit_{arm}"] = launches
+        _adam_path("conv", f"conv_fit_{arm}", launches)
         prof = _profile_train(trainer.program, device)
         print(f"conv (c) {arm}: 2 epochs graphed {wall:.3f} s, eager {ewall:.3f} s, bit for bit; "
               f"launches {json.dumps(launches)}; val/loss_total "
@@ -2092,9 +2126,11 @@ def conv_phase():
               f"launches {json.dumps(paths['conv_fit'])}", flush=True)
         if not res.best_metric < vals[0]:
             _fail(f"conv (d): best val/loss_total {res.best_metric} not below the first {vals[0]}")
-        if paths["conv_fit"] != want_k1(res.epochs_run * per_epoch(mnist)):
-            _fail(f"conv (d): launches {paths['conv_fit']}, want "
-                  f"{res.epochs_run * per_epoch(mnist)} K1")
+        want = want_k1(res.epochs_run * per_epoch(mnist),
+                       adam=res.epochs_run * (mnist.x_train.shape[0] // BATCH))
+        if paths["conv_fit"] != want:
+            _fail(f"conv (d): launches {paths['conv_fit']}, want {want}")
+        _adam_path("conv", "conv_fit", paths["conv_fit"])
         inf = Inferencer.from_checkpoint(ckpt, "best", batch_size=BATCH, device=device)
         for key, v in res.best_params.items():
             if not torch.equal(inf.model.state_dict()[key], v):
@@ -2375,14 +2411,17 @@ def pvae_phase():
         return m
 
     def no_launches():
-        return {"gyroplane_distances": 0, "flagship_fused": 0, "flagship_train": 0}
+        return _want()
 
-    def want_k1(n):
-        return {**no_launches(), "gyroplane_distances": n}
+    def want_k1(n, adam=0):
+        return _want(k1=n, adam=adam)
 
     def per_epoch(data):
         n_v, b = data.x_val.shape[0], data.batch_size
         return data.x_train.shape[0] // b + n_v // b + (1 if n_v % b else 0)
+
+    def steps(data):  # train steps an epoch: the pair's launches
+        return data.x_train.shape[0] // data.batch_size
 
     def fit(model, data, epochs, eager=False, **kw):
         trainer = Trainer(model, max_epochs=epochs, early_stopping_patience=None,
@@ -2435,10 +2474,11 @@ def pvae_phase():
         _same_fit(f"pvae (c) {arm}", res, eres, "graphed", "eager")
         if not all(np.isfinite(v) for row in res.history for v in row.values()):
             _fail(f"pvae (c) {arm}: non-finite metrics {res.history}")
-        want = want_k1(2 * per_epoch(data)) if arm == "unified_ball" else no_launches()
+        want = want_k1(2 * per_epoch(data) if arm == "unified_ball" else 0, adam=2 * steps(data))
         if launches != want:
             _fail(f"pvae (c) {arm}: launches {launches}, want {want}")
         paths[f"pvae_fit_{arm}"] = launches
+        _adam_path("pvae" if arm.startswith("pvae") else "exp8", f"pvae_fit_{arm}", launches)
         prof = _profile_train(trainer.program, device)
         print(f"pvae (c) {arm}: 2 epochs graphed {wall:.3f} s, eager {ewall:.3f} s, bit for bit; "
               f"launches {json.dumps(launches)}; val/loss_total "
@@ -2487,8 +2527,10 @@ def pvae_phase():
         _fail(f"pvae (d): the bound {bound} is not within 1 % of JAX's {PVAE_JAX_IWAE}")
     if not bound >= elbo:
         _fail(f"pvae (d): the bound {bound} is below the test ELBO {elbo}")
-    if paths["pvae_fit_riemannian_protocol"] != no_launches():
-        _fail(f"pvae (d): launches {paths['pvae_fit_riemannian_protocol']}, want none")
+    want = _want(adam=res.epochs_run * steps(mnist))
+    if paths["pvae_fit_riemannian_protocol"] != want:
+        _fail(f"pvae (d): launches {paths['pvae_fit_riemannian_protocol']}, want {want}")
+    _adam_path("pvae", "pvae_fit_riemannian_protocol", paths["pvae_fit_riemannian_protocol"])
     del trainer, model, res, best
 
     octet = {"Content-Type": "application/octet-stream", "Accept": "application/octet-stream"}
@@ -2507,6 +2549,10 @@ def pvae_phase():
               f"first {vals[0]:.4f}, best {res.best_metric:.4f}", flush=True)
         if not res.best_metric < vals[0]:
             _fail(f"pvae (e): best val/loss_total {res.best_metric} not below the first {vals[0]}")
+        if paths["pvae_fit_wrapped"] != _want(adam=res.epochs_run * steps(mnist)):
+            _fail(f"pvae (e): launches {paths['pvae_fit_wrapped']}, want "
+                  f"{res.epochs_run * steps(mnist)} of the Riemannian Adam pair")
+        _adam_path("pvae", "pvae_fit_wrapped", paths["pvae_fit_wrapped"])
         inf = Inferencer.from_checkpoint(ckpt, "best", batch_size=BATCH, device=device)
         for key, v in res.best_params.items():
             if not torch.equal(inf.model.state_dict()[key], v):
@@ -2559,9 +2605,10 @@ def pvae_phase():
               f"{json.dumps(paths['unified_fit'])}", flush=True)
         if not res.best_metric < vals[0]:
             _fail(f"pvae (f): best val/loss_total {res.best_metric} not below the first {vals[0]}")
-        if paths["unified_fit"] != want_k1(res.epochs_run * per_epoch(rna)):
-            _fail(f"pvae (f): launches {paths['unified_fit']}, want "
-                  f"{res.epochs_run * per_epoch(rna)} K1")
+        want = want_k1(res.epochs_run * per_epoch(rna), adam=res.epochs_run * steps(rna))
+        if paths["unified_fit"] != want:
+            _fail(f"pvae (f): launches {paths['unified_fit']}, want {want}")
+        _adam_path("exp8", "unified_fit", paths["unified_fit"])
         inf = Inferencer.from_checkpoint(ckpt, "best", batch_size=BATCH, device=device)
         inf.warmup()
         xr = np.ascontiguousarray(np.concatenate([rna.x_test, rna.x_val])[:2048], "<f4")
@@ -2638,9 +2685,11 @@ def pvae_phase():
     print(f"pvae (f): the Euclidean UnifiedVAE, {res.epochs_run} epochs graphed in {wall:.3f} s; "
           f"val/loss_total first {vals[0]:.4f}, best {res.best_metric:.4f}; launches "
           f"{json.dumps(paths['unified_fit_euclidean'])}", flush=True)
-    if paths["unified_fit_euclidean"] != no_launches() or not res.best_metric < vals[0]:
-        _fail(f"pvae (f): the Euclidean fit launched {paths['unified_fit_euclidean']} or did not "
-              f"improve ({vals})")
+    want = _want(adam=res.epochs_run * steps(rna))
+    if paths["unified_fit_euclidean"] != want or not res.best_metric < vals[0]:
+        _fail(f"pvae (f): the Euclidean fit launched {paths['unified_fit_euclidean']} (want "
+              f"{want}) or did not improve ({vals})")
+    _adam_path("exp8", "unified_fit_euclidean", paths["unified_fit_euclidean"])
     print(f"pvae: phase {time.perf_counter() - t_phase:.1f} s", flush=True)
     return k1, {p_: n["gyroplane_distances"] for p_, n in paths.items()}
 
@@ -2724,8 +2773,8 @@ def interop_phase():
     from hyperbolic_vae_tpu_torch.train import Trainer
     from hyperbolic_vae_tpu_torch.train.checkpoint import restore_model
 
-    def k1_only(n):
-        return {"gyroplane_distances": n, "flagship_fused": 0, "flagship_train": 0}
+    def k1_only(n, adam=0):
+        return _want(k1=n, adam=adam)
 
     t_phase = time.perf_counter()
     quiet = ["--log-level", "WARNING"]
@@ -2822,10 +2871,10 @@ def interop_phase():
               flush=True)
         if any(not np.isfinite(v) for row in res.history for v in row.values()):
             _fail(f"interop (d): non-finite metrics {res.history}")
-        want = {"gyroplane_distances": 0, "flagship_train": INTEROP_FIT_EPOCHS * steps,
-                "flagship_fused": INTEROP_FIT_EPOCHS * val_b}
+        want = _want(k3=INTEROP_FIT_EPOCHS * steps, k2=INTEROP_FIT_EPOCHS * val_b)
         if paths["interop_finetune"] != want:
             _fail(f"interop (d): launches {paths['interop_finetune']}, want {want}")
+        _adam_path("flagship", "interop_finetune", paths["interop_finetune"])
 
         # (e) the eval CLI on the imported checkpoint, the bound's launches
         # read around Trainer.evaluate_iwae inside the CLI
@@ -2903,19 +2952,22 @@ def interop_phase():
         exp5, n = run("exp5", train_vae_hyperbolic_mnist,
                       ["--epochs", str(INTEROP_EXP_EPOCHS)] + mnist_rows)
         conv_paths["interop_exp5"] = n["gyroplane_distances"]
-        want = int(exp5["epochs"]) * (steps + val_b) + test_b
-        if n != k1_only(want):
-            _fail(f"interop (g): experiment 5 launched {n}, want {want} K1")
+        want = k1_only(int(exp5["epochs"]) * (steps + val_b) + test_b,
+                       adam=int(exp5["epochs"]) * steps)
+        if n != want:
+            _fail(f"interop (g): experiment 5 launched {n}, want {want}")
+        _adam_path("conv", "interop_exp5", n)
         exp8, n = run("exp8", train_vaes_rnaseq,
                       ["--epochs", str(INTEROP_EXP_EPOCHS), "--n-genes", str(RNA_GENES),
                        "--structured-fake"])
         uni_paths["interop_exp8"] = n["gyroplane_distances"]
         (tr, _), (va, _), (te, _) = split_three_way(np.zeros((INTEROP_EXP8_CELLS, 1)),
                                                     np.zeros(INTEROP_EXP8_CELLS), seed=42)
-        want = (int(exp8["epochs"]) * (len(tr) // UNI_BATCH + -(-len(va) // UNI_BATCH))
-                + -(-len(te) // UNI_BATCH))
-        if n != k1_only(want):
-            _fail(f"interop (g): experiment 8 launched {n}, want {want} K1")
+        want = k1_only(int(exp8["epochs"]) * (len(tr) // UNI_BATCH + -(-len(va) // UNI_BATCH))
+                       + -(-len(te) // UNI_BATCH), adam=int(exp8["epochs"]) * (len(tr) // UNI_BATCH))
+        if n != want:
+            _fail(f"interop (g): experiment 8 launched {n}, want {want}")
+        _adam_path("exp8", "interop_exp8", n)
         one = ["--epochs", str(INTEROP_SMALL_EPOCHS), "--n-train", str(INTEROP_CIFAR_ROWS[0]),
                "--n-test", str(INTEROP_CIFAR_ROWS[1])]
         run("exp2", train_vae_euclidean_cifar10, one)
@@ -2944,6 +2996,7 @@ SWEEP_SEEDS = [42, 7, 123, 0, 1, 2, 3, 11]
 SWEEP_DEFAULT_EPOCHS, SWEEP_K3_EPOCHS = 2, 10
 GRID_CURVATURES, GRID_BETAS, GRID_EPOCHS = (0.5, 1.0, 1.4), (1.0, 3.0), 2
 PVAE_SWEEP_CURVATURES, PVAE_SWEEP_EPOCHS, PVAE_SWEEP_IWAE_K = (0.5, 1.0, 1.4), 2, 500
+PVAE_REPLICATE_BATCH = 128  # experiments/pvae_replicate.py's default --batch-size
 SWEEP_ROWS = (60000, 10000)  # synthetic MNIST: 54,000 train, 6,000 val, 10,000 test rows
 
 
@@ -3079,7 +3132,7 @@ def sweep_phase():
     per_epoch = steps + val_batches
 
     def no_launches():
-        return {"gyroplane_distances": 0, "flagship_fused": 0, "flagship_train": 0}
+        return _want(k1=0)
 
     # (a) K1 at 512 planes on the grid's other balls
     rng = np.random.default_rng(31)
@@ -3117,7 +3170,8 @@ def sweep_phase():
     paths, sps, seq_sps, windows = {}, {}, {}, {}
     for tag, path, epochs, want in (
             ("b", "default", SWEEP_DEFAULT_EPOCHS,
-             {**no_launches(), "gyroplane_distances": 8 * SWEEP_DEFAULT_EPOCHS * per_epoch}),
+             {**no_launches(), "gyroplane_distances": 8 * SWEEP_DEFAULT_EPOCHS * per_epoch,
+              "riemannian_adam": 8 * SWEEP_DEFAULT_EPOCHS * steps}),
             ("c", "k3", SWEEP_K3_EPOCHS,
              {**no_launches(), "flagship_train": 8 * SWEEP_K3_EPOCHS * steps,
               "flagship_fused": 8 * SWEEP_K3_EPOCHS * val_batches})):
@@ -3126,6 +3180,7 @@ def sweep_phase():
         paths[f"sweep_{path}"] = _launches()
         if paths[f"sweep_{path}"] != want:
             _fail(f"sweep ({tag}): launches {paths[f'sweep_{path}']}, want {want}")
+        _adam_path("flagship", f"sweep_{path}", paths[f"sweep_{path}"])
         for r in res:
             if r.epochs_run != epochs or not all(np.isfinite(v) for h in r.history
                                                  for v in h.values()):
@@ -3187,9 +3242,10 @@ def sweep_phase():
     sync()
     wall = time.perf_counter() - t0
     grid_paths = {"sweep_grid": _launches()["gyroplane_distances"]}
-    want = len(lanes) * GRID_EPOCHS * per_epoch
-    if _launches() != {**no_launches(), "gyroplane_distances": want}:
-        _fail(f"sweep (e): launches {_launches()}, want {want} K1")
+    want = _want(k1=len(lanes) * GRID_EPOCHS * per_epoch, adam=len(lanes) * GRID_EPOCHS * steps)
+    if _launches() != want:
+        _fail(f"sweep (e): launches {_launches()}, want {want}")
+    _adam_path("conv", "sweep_grid", _launches())
     check = lanes.index({"manifold_curvature": 0.5, "beta": 3.0, "seed": 42})
     one = Trainer(grid_model(lanes[check]), max_epochs=GRID_EPOCHS, seed=42,
                   early_stopping_patience=10, device=device)
@@ -3240,8 +3296,12 @@ def sweep_phase():
         if not (np.isfinite(r[key]) and np.isfinite(r["best_val"]) and r[key] >= r["test_elbo"]):
             _fail(f"sweep (f): {tag}: the bound {r[key]} is not finite or below the ELBO "
                   f"{r['test_elbo']}")
-    if paths["sweep_pvae"] != no_launches():
-        _fail(f"sweep (f): launches {paths['sweep_pvae']}, want none")
+    # the pair once a train step of each lane (the CLI's batch of PVAE_REPLICATE_BATCH rows)
+    want = _want(adam=len(PVAE_SWEEP_CURVATURES) * PVAE_SWEEP_EPOCHS
+                 * (dm.x_train.shape[0] // PVAE_REPLICATE_BATCH))
+    if paths["sweep_pvae"] != want:
+        _fail(f"sweep (f): launches {paths['sweep_pvae']}, want {want}")
+    _adam_path("pvae", "sweep_pvae", paths["sweep_pvae"])
     print(f"sweep (f): experiment 9 --lane-sweep, riemannian, c in {PVAE_SWEEP_CURVATURES}, "
           f"{PVAE_SWEEP_EPOCHS} epochs and IWAE-{PVAE_SWEEP_IWAE_K} a lane in {wall:.3f} s: "
           f"{json.dumps(out)} ({time.perf_counter() - t_phase:.1f} s into the phase)", flush=True)
@@ -3540,14 +3600,16 @@ def deploy_phase():
 
     val_b = -(-n_val // BATCH)
     want_k1 = DEPLOY_EPOCHS * (n_tr // BATCH + val_b)
-    k1_only = lambda n: {"gyroplane_distances": n, "flagship_fused": 0, "flagship_train": 0}  # noqa: E731
+    want_fit = _want(k1=want_k1, adam=DEPLOY_EPOCHS * (n_tr // BATCH))  # K1 and the pair a fit
+    k1_only = lambda n: _want(k1=n)  # noqa: E731
     resident, wall_r, _ = run(Trainer(rna_model(), max_epochs=DEPLOY_EPOCHS).fit, rna)
     whole, wall_1, n = run(Trainer(rna_model(), max_epochs=DEPLOY_EPOCHS).fit_streamed,
                            rna, block_rows=n_tr)
     _same_fit("deploy (b) fit_streamed(block_rows=n_train)", whole, resident, "streamed",
               "resident")
-    if n != k1_only(want_k1):
-        _fail(f"deploy (b): the single-block streamed fit launched {n}, want {want_k1} K1")
+    if n != want_fit:
+        _fail(f"deploy (b): the single-block streamed fit launched {n}, want {want_fit}")
+    _adam_path("rnaseq", "deploy_rnaseq_stream_whole", n)
     paths["k1_256"]["deploy_rnaseq_stream_whole"] = n["gyroplane_distances"]
     limited = Trainer(rna_model(), max_epochs=DEPLOY_EPOCHS)
     est = {rows: limited.memory_estimate(rna, [limited.model], stream_rows=rows)["total"]
@@ -3561,8 +3623,9 @@ def deploy_phase():
             _fail(f"deploy (b): the preflight's remedy does not name fit_streamed: {e}")
     with tracing.recording(limited.device):  # the copies' and blocks' spans on the card
         blocks, wall_4, n = run(limited.fit_streamed, rna, block_rows=DEPLOY_BLOCK)
-    if n != k1_only(want_k1):
-        _fail(f"deploy (b): the 4-block streamed fit launched {n}, want {want_k1} K1")
+    if n != want_fit:
+        _fail(f"deploy (b): the 4-block streamed fit launched {n}, want {want_fit}")
+    _adam_path("rnaseq", "deploy_rnaseq_stream_blocks", n)
     paths["k1_256"]["deploy_rnaseq_stream_blocks"] = n["gyroplane_distances"]
     losses = [h["train/loss_total"] for h in blocks.history]
     if not np.all(np.isfinite(losses)):
@@ -3632,10 +3695,10 @@ def deploy_phase():
     out = {}
     for name, rows in (("whole", m_tr), ("blocks", m_tr // 4)):
         res, wall, n = run(k3().fit_streamed, mnist, block_rows=rows)
-        want = {"gyroplane_distances": 0, "flagship_fused": k2_want,
-                "flagship_train": DEPLOY_EPOCHS * (m_tr // rows) * (rows // BATCH)}
+        want = _want(k2=k2_want, k3=DEPLOY_EPOCHS * (m_tr // rows) * (rows // BATCH))
         if n != want:
             _fail(f"deploy (c): fit_streamed(block_rows={rows}) launched {n}, want {want}")
+        _adam_path("flagship", f"deploy_k3_stream_{name}", n)
         paths["flagship_fused"][f"deploy_k3_stream_{name}"] = n["flagship_fused"]
         paths["flagship_train"][f"deploy_k3_stream_{name}"] = n["flagship_train"]
         out[name] = (res, wall)
@@ -3665,8 +3728,10 @@ def deploy_phase():
                                                     np.zeros(INTEROP_EXP8_CELLS), seed=42)
         want = (DEPLOY_EPOCHS * (DEPLOY_EXP8_BLOCK // UNI_BATCH + -(-len(va) // UNI_BATCH))
                 + -(-len(te) // UNI_BATCH))
-        if n != k1_only(want) or not all(np.isfinite(v) for v in res.values()):
-            _fail(f"deploy (d): experiment 8 streamed gave {res}, launches {n} (want {want} K1)")
+        want_n = _want(k1=want, adam=DEPLOY_EPOCHS * (DEPLOY_EXP8_BLOCK // UNI_BATCH))
+        if n != want_n or not all(np.isfinite(v) for v in res.values()):
+            _fail(f"deploy (d): experiment 8 streamed gave {res}, launches {n} (want {want_n})")
+        _adam_path("exp8", "deploy_exp8_stream", n)
         paths["k1_100"]["deploy_exp8_stream"] = n["gyroplane_distances"]
         print(f"deploy (d): experiment 8 with --stream-block-rows {DEPLOY_EXP8_BLOCK} "
               f"({len(tr)} train cells: one block, {len(tr) - DEPLOY_EXP8_BLOCK} left out) "
@@ -3930,8 +3995,8 @@ def data_mesh_phase():
         torch.cuda.synchronize()
         return res, time.perf_counter() - t, _launches()
 
-    def k1_only(n):
-        return {"gyroplane_distances": n, "flagship_fused": 0, "flagship_train": 0}
+    def k1_only(n, adam=0):
+        return _want(k1=n, adam=adam)
 
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
@@ -4008,8 +4073,10 @@ def data_mesh_phase():
             _fail("data_mesh (b): --use-mesh did not start an NCCL world")
         want_k1 = (int(res["epochs"]) * (len(x_tr) // UNI_BATCH + -(-len(x_va) // UNI_BATCH))
                    + -(-len(x_te) // UNI_BATCH))
-        if n != k1_only(want_k1) or not all(np.isfinite(v) for v in res.values()):
-            _fail(f"data_mesh (b): experiment 8 gave {res}, launches {n} (want {want_k1} K1)")
+        want = k1_only(want_k1, adam=int(res["epochs"]) * (len(x_tr) // UNI_BATCH))
+        if n != want or not all(np.isfinite(v) for v in res.values()):
+            _fail(f"data_mesh (b): experiment 8 gave {res}, launches {n} (want {want})")
+        _adam_path("exp8", "data_mesh_exp8_csv", n)
         paths["k1_100"]["data_mesh_exp8_csv"] = n["gyroplane_distances"]
         print(f"data_mesh (b): experiment 8 --rnaseq-dir --use-mesh (NCCL, world size "
               f"{dist.get_world_size()}) {wall:.3f} s: {json.dumps(res)}; {want_k1} K1 at "
@@ -4038,18 +4105,19 @@ def data_mesh_phase():
 
         for label, make, dm, key, want_fn in (
                 ("flagship default path", flagship, mnist, "k1_16",
-                 lambda s, v: k1_only(MESH_EPOCHS * (s + v))),
+                 lambda s, v: k1_only(MESH_EPOCHS * (s + v), adam=MESH_EPOCHS * s)),
                 ("RNASeqVAE 20,480 genes", rnaseq, rna, "k1_256",
-                 lambda s, v: k1_only(MESH_EPOCHS * (s + v))),
+                 lambda s, v: k1_only(MESH_EPOCHS * (s + v), adam=MESH_EPOCHS * s)),
                 ("flagship K3 path", functools.partial(flagship, k3=True), mnist, "flagship_train",
-                 lambda s, v: {"gyroplane_distances": 0, "flagship_fused": MESH_EPOCHS * v,
-                               "flagship_train": MESH_EPOCHS * s})):
+                 lambda s, v: _want(k2=MESH_EPOCHS * v, k3=MESH_EPOCHS * s))):
             t_meshed, t_plain = make(mesh), make(None)
             r_meshed, wall_m, n = run(t_meshed.fit, dm)
             r_plain, wall_p, _ = run(t_plain.fit, dm)
             _same_fit(f"data_mesh (c) {label}", r_meshed, r_plain, "meshed", "unmeshed")
             if n != want_fn(*steps_of(dm)):
                 _fail(f"data_mesh (c) {label}: launches {n}, want {want_fn(*steps_of(dm))}")
+            _adam_path("rnaseq" if key == "k1_256" else "flagship",
+                       f"data_mesh_{'k3' if key == 'flagship_train' else label.split()[0].lower()}", n)
             if key == "flagship_train":
                 paths["flagship_train"]["data_mesh_k3"] = n["flagship_train"]
                 paths["flagship_fused"]["data_mesh_k3"] = n["flagship_fused"]
@@ -4084,8 +4152,10 @@ def data_mesh_phase():
         for seed, a, b in zip(MESH_SEEDS, meshed, plain):
             _same_fit(f"data_mesh (d) seed {seed}", a, b, "seed mesh", "no mesh")
         s, v = len(mnist.x_train) // BATCH, -(-len(mnist.x_val) // BATCH)
-        if n != k1_only(len(MESH_SEEDS) * MESH_EPOCHS * (s + v)):
-            _fail(f"data_mesh (d): launches {n}")
+        want = k1_only(len(MESH_SEEDS) * MESH_EPOCHS * (s + v), adam=len(MESH_SEEDS) * MESH_EPOCHS * s)
+        if n != want:
+            _fail(f"data_mesh (d): launches {n}, want {want}")
+        _adam_path("flagship", "data_mesh_seed_mesh", n)
         paths["k1_16"]["data_mesh_seed_mesh"] = n["gyroplane_distances"]
         print(f"data_mesh (d): experiment 6 --seeds {' '.join(MESH_SEEDS)} --seed-mesh 1 = the "
               f"sweep without it, bit for bit ({wall_m:.3f} / {wall_p:.3f} s; "
@@ -4236,8 +4306,7 @@ def shard_phase():
     mesh = make_mesh(n_data=1, n_model=1)
     rna = _fake_cells(SHARD_CELLS)
     s, v = len(rna.x_train) // BATCH, -(-len(rna.x_val) // BATCH)
-    want = {"gyroplane_distances": SHARD_EPOCHS * (s + v), "flagship_fused": 0,
-            "flagship_train": 0}
+    want = _want(k1=SHARD_EPOCHS * (s + v), adam=SHARD_EPOCHS * s)  # the pair over the masters
 
     def fit(m, rule):
         model = RNASeqVAE(RNA_GENES, RNA_HIDDEN, generator=torch.Generator().manual_seed(0))
@@ -4259,6 +4328,7 @@ def shard_phase():
         if n != want:
             _fail(f"shard (b) {name}: launches {n}, want {want}")
         paths["k1_256"][f"shard_{name}"] = n["gyroplane_distances"]
+        _adam_path("rnaseq", f"shard_{name}", n)
         ps = _profile_train(t.program, "cuda")
         cw = _collective_window(t.program, eager=False)
         print(f"shard (b) RNASeqVAE {RNA_GENES} genes under {name} (NCCL, world size 1): bit for "
@@ -4276,10 +4346,13 @@ def shard_phase():
         argv = ["--fake", "--epochs", str(SHARD_EPOCHS), "--log-level", "WARNING"]
         got, wall, n = run(train_vaes_rnaseq.main,
                            argv + ["--tp", "1", "--fsdp", "--run-dir", str(Path(tmp) / "s")])
-        plain, wall_p, _ = run(train_vaes_rnaseq.main, argv + ["--run-dir", str(Path(tmp) / "p")])
-    if got != plain or not all(np.isfinite(v) for v in got.values()) or not n["gyroplane_distances"]:
-        _fail(f"shard (c): experiment 8 --tp 1 --fsdp gave {got} ({n}), without {plain}")
+        plain, wall_p, n_p = run(train_vaes_rnaseq.main, argv + ["--run-dir", str(Path(tmp) / "p")])
+    # the same launches as the run without the flags: K1 and the pair (over the masters)
+    if (got != plain or not all(np.isfinite(v) for v in got.values()) or n != n_p
+            or not (n["gyroplane_distances"] and n["riemannian_adam"])):
+        _fail(f"shard (c): experiment 8 --tp 1 --fsdp gave {got} ({n}), without {plain} ({n_p})")
     paths["k1_100"]["shard_exp8_fsdp"] = n["gyroplane_distances"]
+    _adam_path("exp8", "shard_exp8_fsdp", n)
     print(f"shard (c): experiment 8 --tp 1 --fsdp (world size {dist.get_world_size()}) "
           f"{wall:.3f} s = the run without them ({wall_p:.3f} s): {json.dumps(got)}; "
           f"{n['gyroplane_distances']} K1 at {UNI_HIDDEN} planes", flush=True)
@@ -4449,8 +4522,7 @@ def api_phase():
 
     dm = make_data_module(batch_size=BATCH, synthetic=True, n_train=API_ROWS[0], n_test=API_ROWS[1])
     s, v = len(dm.x_train) // BATCH, -(-len(dm.x_val) // BATCH)
-    k1_fit = {"gyroplane_distances": API_EPOCHS * (s + v), "flagship_fused": 0,
-              "flagship_train": 0}
+    k1_fit = _want(k1=API_EPOCHS * (s + v), adam=API_EPOCHS * s)  # K1 and the pair
 
     def trainer(**kw):
         model = hvt.GyroplaneVAE(generator=torch.Generator().manual_seed(0))
@@ -4463,6 +4535,7 @@ def api_phase():
         if n != k1_fit:
             _fail(f"api (a): launches {n}, want {k1_fit}")
         paths["api_fit"] = n
+        _adam_path("flagship", "api_fit", n)
         vals = [h["val/loss_total"] for h in res.history]
         best = CheckpointManager(ckpt).best_metadata()
         if best is None or best["epoch"] != int(np.argmin(vals)) or best["val/loss_total"] != min(vals):
@@ -4477,6 +4550,7 @@ def api_phase():
         if n_d != k1_fit:
             _fail(f"api (b): launches {n_d} (debug_nans); want {k1_fit}")
         paths["api_debug_nans"] = n_d
+        _adam_path("flagship", "api_debug_nans", n_d)
         x = dm.x_train[:API_POISON_ROWS].copy()
         x[API_POISON, 5, 9, 0] = np.nan
         bad = ArrayDataModule(x, dm.y_train[:API_POISON_ROWS], dm.x_val[:BATCH],
@@ -4510,8 +4584,8 @@ def api_phase():
         if not (np.array_equal(emb, plain.embed(xs))
                 and np.array_equal(rec, plain.reconstruct(xs))):
             _fail("api (c): the meshed engine's replies differ from the unmeshed engine's")
-        if n["gyroplane_distances"] < 1:
-            _fail(f"api (c): launches {n}: reconstruct launched no K1")
+        if n["gyroplane_distances"] < 1 or n["riemannian_adam"]:
+            _fail(f"api (c): launches {n}: reconstruct launched no K1, or serving ran the optimizer")
         paths["api_serve"] = n
         print(f"api (c): Inferencer.from_checkpoint(mesh=) over NCCL (world size "
               f"{dist.get_world_size()}): embed and reconstruct of {len(xs)} rows bit for bit the "
@@ -4532,7 +4606,7 @@ def api_phase():
         whole, w_whole, n_whole, m_whole = k3(2, str(Path(tmp) / "whole"))
         _, w_part, n_part, _ = k3(1, str(Path(tmp) / "part"))
         resumed, w_res, n_res, m_res = k3(2, str(Path(tmp) / "part"), resume=True)
-        want = {"gyroplane_distances": 0, "flagship_fused": v, "flagship_train": s}
+        want = _want(k2=v, k3=s)
         if n_whole != {k: 2 * c for k, c in want.items()} or n_part != want or n_res != want:
             _fail(f"api (d): launches {n_whole} (2 epochs), {n_part} (1), {n_res} (resumed); "
                   f"want {want} an epoch")
@@ -4547,6 +4621,7 @@ def api_phase():
                   f"{m_whole['count']}")
         paths["api_k3_fsdp_tp"] = n_whole
         paths["api_k3_resume"] = {k: n_part[k] + n_res[k] for k in n_part}
+        _adam_path("flagship", "api_k3_fsdp_tp", n_whole)
         print(f"api (d): K3 under FSDP x TP (NCCL, world size 1, specs as over 2 data ranks): "
               f"1 epoch ({w_part:.3f} s) resumed to 2 ({w_res:.3f} s) bit for bit the "
               f"uninterrupted 2 epochs ({w_whole:.3f} s): history, parameters and {len(moments)} "
@@ -4582,6 +4657,126 @@ def _rows_kernel_fit() -> None:
             _fail(f"{name}: shared memory {got} over the wrapper's bound {bound}, or no cluster fits")
 
 
+ADAM_STEPS = 10  # steps of the pair against the op sequence, from the same gradients
+ADAM_BALL_K = 8.0  # a ball tensor's largest row error: at most this times the op sequence's
+
+
+def adam_phase() -> list:
+    """The Riemannian Adam kernel pair (``csrc/riemannian_adam.cu``) against
+    the op sequence it replaces, at the flagship's 14 tensors and experiment
+    8's 10 (20,480 genes, hidden 100): ``ADAM_STEPS`` guarded steps from the
+    same gradients, Euclidean tensors, both moments and count bit for bit;
+    ball rows (points and moments) every row of every step: each step
+    starts the pair, the op sequence and the op sequence in float64 (on
+    the CPU) from one state (float64's, rounded to f32), and a tensor's
+    largest row distance from float64 is at most ``ADAM_BALL_K`` times the
+    f32 op sequence's, plus 1e-6 of the tensor's largest value
+    (``tests/test_torch_port_optim_kernel.py`` says why); a step with a NaN
+    gradient changes nothing. Each timed as one guarded step (the op
+    sequence: the guard's sums of squares, isfinite, ``step(ok=)``) in
+    turns from Python and replayed from a CUDA graph, with the pair's two
+    kernels split under torch.profiler; the bound reads g twice and p, m, v
+    once and writes p, m, v (8 tensor-sizes of f32 at 3.35 TB/s). Its
+    launches on the main path are the other phases' (``ADAM_PATHS``)."""
+    import torch
+
+    from hyperbolic_vae_tpu_torch.manifolds import PoincareBall
+    from hyperbolic_vae_tpu_torch.models import GyroplaneVAE, UnifiedVAE
+    from hyperbolic_vae_tpu_torch.nn import ManifoldParameter
+    from hyperbolic_vae_tpu_torch.optim import RiemannianAdam
+
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(0)
+    models = {
+        "flagship": lambda: GyroplaneVAE(generator=gen, device=dev),
+        "exp8": lambda: UnifiedVAE(input_size=(RNA_GENES,), hidden_layer_dim=UNI_HIDDEN, latent_dim=2,
+                                   prior_scale=2.0, beta=0.5, last_activation="sigmoid",
+                                   generator=gen, device=dev),
+    }
+
+    def guarded_ops(opt, params, loss):
+        g2 = torch.stack([(p.grad * p.grad).sum() for p in params]).sum()
+        ok = torch.isfinite(loss) & torch.isfinite(g2)
+        opt.step(ok=ok)
+        return ok
+
+    def tensors(opt, p):
+        return (p, opt.state[p]["exp_avg"], opt.state[p]["exp_avg_sq"])
+
+    def state(opt, ps):
+        return [t.detach().clone() for p in ps for t in tensors(opt, p)]
+
+    entries = []
+    for name, make in models.items():
+        params = list(make().parameters())
+        twin = [type(p)(p.detach().clone()) for p in params]
+        ball = {i: ManifoldParameter(p.detach().double().cpu())
+                for i, p in enumerate(params) if isinstance(p, ManifoldParameter)}
+        ka = RiemannianAdam(params, lr=1e-3, ball=PoincareBall(1.0))
+        ops = RiemannianAdam(twin, lr=1e-3, ball=PoincareBall(1.0))
+        ops.kernel = None
+        f64 = RiemannianAdam(list(ball.values()), lr=1e-3, ball=PoincareBall(1.0))
+        if ka.kernel is None:
+            _fail(f"adam {name}: RiemannianAdam over f32 card tensors did not take the kernel pair")
+        g = torch.Generator(device=dev).manual_seed(7)
+        loss = torch.tensor(1.0, device=dev)
+
+        def grads():
+            for i, (p, q) in enumerate(zip(params, twin)):
+                p.grad = 0.1 * torch.randn(p.shape, generator=g, device=dev)
+                q.grad = p.grad.clone()
+                if i in ball:
+                    ball[i].grad = p.grad.double().cpu()
+
+        worst = {}  # (ball index, tensor) -> [the pair's, the op sequence's, largest |value|]
+        for _ in range(ADAM_STEPS):
+            grads()
+            if not (bool(ka.step(guard=loss)) and bool(guarded_ops(ops, twin, loss))):
+                _fail(f"adam {name}: a finite step was not ok")
+            f64.step()
+            for i, f in ball.items():  # every row, then one state for the next step
+                for k, (t64, ta, tb) in enumerate(zip(tensors(f64, f), tensors(ka, params[i]),
+                                                      tensors(ops, twin[i]))):
+                    ref = t64.detach()
+                    w = worst.setdefault((i, k), [0.0, 0.0, 0.0])
+                    for j, t in ((0, ta), (1, tb)):
+                        w[j] = max(w[j], float((t.detach().double().cpu() - ref).norm(dim=-1).max()))
+                    w[2] = max(w[2], float(ref.abs().max()))
+                    t32 = ref.float()
+                    with torch.no_grad():
+                        t64.copy_(t32.double())
+                        ta.copy_(t32)
+                        tb.copy_(t32)
+        ball_err = max((a / (ADAM_BALL_K * b + 1e-6 * big) for a, b, big in worst.values()),
+                       default=0.0)
+        euclid_equal = all(torch.equal(a, b) for i, (p, q) in enumerate(zip(params, twin))
+                           if i not in ball for a, b in zip(state(ka, [p]), state(ops, [q])))
+        if not euclid_equal or int(ka.count) != int(ops.count) or ball_err > 1.0:
+            _fail(f"adam {name}: Euclidean bit for bit {euclid_equal}, count {int(ka.count)} vs "
+                  f"{int(ops.count)}, ball rows at {ball_err:.3g} of their bound")
+        before = state(ka, params)
+        grads()
+        params[0].grad.view(-1)[3] = float("nan")
+        if bool(ka.step(guard=loss)) or not all(torch.equal(a, b) for a, b in zip(before, state(ka, params))):
+            _fail(f"adam {name}: a NaN gradient's step changed the state")
+        grads()
+        kernel = functools.partial(ka.step, guard=loss)
+        plain = functools.partial(guarded_ops, ops, twin, loss)
+        plain_a, ms_a, ms_b, plain_b, graph_ms, plain_graph_ms = _in_turns(kernel, plain)
+        split = _graph_split(kernel)
+        n = sum(p.numel() for p in params)
+        entry = {
+            "name": "riemannian_adam", "model": name, "tensors": len(params), "elements": n,
+            "blocks": ka.kernel.n_tiles, "ms": [ms_a, ms_b], "graph_ms": graph_ms,
+            "plain_ms": [plain_a, plain_b], "plain_graph_ms": plain_graph_ms,
+            "bound_ms": 8 * 4 * n / HBM_BYTES_PER_S * 1e3, "split_ms": split,
+            "ball_share_of_bound": ball_err,
+        }
+        print(f"adam {name}: {json.dumps(entry)}", flush=True)
+        entries.append(entry)
+    return entries
+
+
 def main() -> int:
     import torch
 
@@ -4606,7 +4801,7 @@ def main() -> int:
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}", flush=True)
     t0 = time.perf_counter()
-    _build.load_libraries(["gyroplane", "flagship_fused", "flagship_train"])
+    _build.load_libraries(["gyroplane", "flagship_fused", "flagship_train", "riemannian_adam"])
     print(f"build: {time.perf_counter() - t0:.2f} s", flush=True)
     for name, (secs, log) in _build.build_log.items():
         print(f"build {name}: nvcc {secs:.2f} s", flush=True)
@@ -4686,6 +4881,13 @@ def main() -> int:
     kernels[0]["max_abs_err"] = max(kernels[0]["max_abs_err"], err_in)
     kernels[0]["max_abs_err_boundary"] = max(kernels[0]["max_abs_err_boundary"], err_bd)
     kernels[0]["layer_options"] = options
+    # the Riemannian Adam pair at the flagship's and experiment 8's tensors,
+    # each with its launches on the phases' runs of its model
+    adam = timed("adam", adam_phase)
+    for k in adam:
+        k["launches_by_path"] = ADAM_PATHS.get(k["model"], {})
+    kernels += adam
+    print(f"adam: launches by model and path {json.dumps(ADAM_PATHS)}", flush=True)
     for k in kernels:
         k["launches"] = sum(k["launches_by_path"].values())
     print(f"phase seconds (build: from the start of the build): {json.dumps(seconds)}", flush=True)

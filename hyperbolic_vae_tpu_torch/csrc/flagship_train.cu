@@ -58,6 +58,7 @@
 // rounds on its own (flagship_common.cuh says in which order).
 
 #include "flagship_common.cuh"
+#include "point_step.cuh"
 
 namespace {
 
@@ -357,59 +358,6 @@ struct Final {
   float omb1, omb2, adam_eps;
 };
 
-// The Riemannian Adam step of one gyroplane point (p, m, v, its gradient g;
-// L each) with bias corrections bc1, bc2 -> new p, m, v: g / lambda^2, the
-// expmap retraction, projection, exp_avg transported by gyr[new_p, -p]
-__device__ void point_step(const float* pp, const float* mp, const float* vp, const float* gp,
-                           int L, const Final& f, float bc1, float bc2, const Consts& k,
-                           float* np_out, float* nm_out, float* nv_out) {
-  float p[kMaxLatent], nm[kMaxLatent], uu[kMaxLatent], second[kMaxLatent];
-  float np[kMaxLatent], neg_p[kMaxLatent], t1[kMaxLatent], t2[kMaxLatent], t3[kMaxLatent];
-  float gyr[kMaxLatent];
-  Mob ms;
-  float p2 = 0.0f;
-  for (int l = 0; l < L; ++l) {
-    p[l] = pp[l];
-    p2 += p[l] * p[l];
-  }
-  const float lam = 2.0f / maxn(1.0f - k.c * p2, kMinNorm);
-  const float lr = *f.lr;
-  float su = 0.0f;
-  for (int l = 0; l < L; ++l) {
-    const float g_r = gp[l] / (lam * lam);
-    nm[l] = f.b1 * mp[l] + f.omb1 * g_r;
-    const float nv = f.b2 * vp[l] + f.omb2 * (lam * lam) * g_r * g_r;
-    nv_out[l] = nv;
-    const float dir = (nm[l] / bc1) / (sqrtf(nv / bc2) + f.adam_eps);
-    uu[l] = -lr * dir;
-    su += uu[l] * uu[l];
-  }
-  const float u_n = sqrtf(maxn(su, kMinNorm2));
-  const float tu = tanh_c(k.sqrt_c * lam * u_n / 2.0f);
-  for (int l = 0; l < L; ++l) second[l] = tu * uu[l] / (k.sqrt_c * u_n);
-  mob_fwd(p, second, np, L, k, ms);
-  float s2 = 0.0f;
-  for (int l = 0; l < L; ++l) s2 += np[l] * np[l];
-  const float fac = minn(k.max_norm / sqrtf(maxn(s2, kMinNorm2)), 1.0f);
-  float np2 = 0.0f;
-  for (int l = 0; l < L; ++l) {
-    np[l] = np[l] * fac;
-    np2 += np[l] * np[l];
-    neg_p[l] = -p[l];
-  }
-  // gyr[new_p, -p] m = -(new_p (+) -p) (+) (new_p (+) (-p (+) m))
-  mob_fwd(np, neg_p, t1, L, k, ms);
-  for (int l = 0; l < L; ++l) t1[l] = -t1[l];
-  mob_fwd(neg_p, nm, t2, L, k, ms);
-  mob_fwd(np, t2, t3, L, k, ms);
-  mob_fwd(t1, t3, gyr, L, k, ms);
-  const float lam_new = 2.0f / maxn(1.0f - k.c * np2, kMinNorm);
-  for (int l = 0; l < L; ++l) {
-    np_out[l] = np[l];
-    nm_out[l] = gyr[l] * lam / lam_new;
-  }
-}
-
 __global__ void __launch_bounds__(kGradThreads)
 train_grad_kernel(Jobs jobs, int B, int L, float* __restrict__ partials, Final fin, Consts k) {
   // per group of 256 threads, kStages chunks of 32 rows of both operands:
@@ -460,8 +408,10 @@ train_grad_kernel(Jobs jobs, int B, int L, float* __restrict__ partials, Final f
       const float cf = (float)(*fin.count + 1);
       const float bc1 = 1.0f - powf(fin.b1, cf), bc2 = 1.0f - powf(fin.b2, cf);
       const int n = kP * L;
+      const AdamScalars as{*fin.lr, fin.b1, fin.omb1, fin.b2, fin.omb2, fin.adam_eps};
+      PointVecs<kMaxLatent> w;
       point_step(fin.pts + tid * L, fin.pts_m + tid * L, fin.pts_v + tid * L, gpts + tid * L, L,
-                 fin, bc1, bc2, k, fin.cand + tid * L, fin.cand + n + tid * L,
+                 as, bc1, bc2, k, w, fin.cand + tid * L, fin.cand + n + tid * L,
                  fin.cand + 2 * n + tid * L);
     }
   } else {

@@ -21,10 +21,11 @@ from hyperbolic_vae_tpu_torch.ops.gyroplane import (
 
 def launch_counters() -> dict:
     """Each CUDA kernel's launch counter, by kernel name."""
-    from hyperbolic_vae_tpu_torch.ops import flagship_fused, gyroplane
+    from hyperbolic_vae_tpu_torch.ops import flagship_fused, gyroplane, riemannian_adam
 
     return {"gyroplane_distances": gyroplane.launches, "flagship_fused": flagship_fused.launches,
-            "flagship_train": flagship_fused.train_launches}
+            "flagship_train": flagship_fused.train_launches,
+            "riemannian_adam": riemannian_adam.launches}
 
 
 __all__ = [

@@ -36,6 +36,19 @@ Euclidean tensors average linearly, manifold points in the tangent space
 at the origin (logmap0, lerp, expmap0, project), as JAX does;
 ``ema_params()`` returns it.
 
+The path is chosen once, at construction, from what the optimizer can
+observe (``ops.riemannian_adam.takes``): f32 parameters on one CUDA device
+with f32 moments and no EMA step through the hand-written kernel pair of
+``csrc/riemannian_adam.cu`` (``kernel``: the update of every tensor in
+two launches, the Euclidean ones bit for bit the op sequence below, ball
+rows of any width through K3's point step; ``step(guard=loss)`` computes
+the finite guard in its first launch and returns ``ok``); CPU tensors,
+other storage types and an EMA take the op sequence, whose
+``step(guard=loss)`` computes the same guard op for op (the sum of each
+gradient's squares, then isfinite of it and of the loss). On the kernel
+path a tensor the kernel does not take (non-contiguous) raises; it never
+runs the op sequence instead.
+
 Under a parameter layout (``parallel/fsdp.py``) the Trainer builds it over
 the layout's masters, so each parameter's moments and EMA live with its
 slice on its rank, and records each master's spec in ``param_specs``
@@ -52,6 +65,7 @@ import torch
 
 from hyperbolic_vae_tpu_torch.manifolds import PoincareBall
 from hyperbolic_vae_tpu_torch.nn.layers import is_manifold_param
+from hyperbolic_vae_tpu_torch.ops import riemannian_adam as kernel_pair
 
 
 def _dtype(d: Union[str, torch.dtype, None]) -> Optional[torch.dtype]:
@@ -88,6 +102,10 @@ class RiemannianAdam(torch.optim.Optimizer):
                 self.moments(p)
                 if ema_decay is not None:
                     self.state[p]["ema"] = p.detach().to(torch.float32, copy=True)
+        params = [p for g in self.param_groups for p in g["params"]]
+        # the kernel pair where it takes these tensors, else None (the op sequence)
+        self.kernel = (kernel_pair.KernelStep(self)
+                       if kernel_pair.takes(params, self.moment_dtype, ema_decay) else None)
 
     def set_lr(self, lr) -> None:
         """Write ``lr`` (a number or a 0-d tensor) into every group's lr
@@ -96,14 +114,24 @@ class RiemannianAdam(torch.optim.Optimizer):
             _write(group["lr"], lr)
 
     @torch.no_grad()
-    def step(self, closure=None, ok: Optional[torch.Tensor] = None):
+    def step(self, closure=None, ok: Optional[torch.Tensor] = None,
+             guard: Optional[torch.Tensor] = None):
         """One update from each parameter's ``.grad``. With ``ok`` (a bool
         0-d tensor), parameters, moments, the EMA and ``count`` change only
-        where ``ok`` is true."""
+        where ``ok`` is true. With ``guard`` (the step's loss) the step
+        decides ok = isfinite(loss) & isfinite(sum of the gradients'
+        squares) itself and returns it, a bool 0-d tensor on the device."""
         loss = None
         if closure is not None:
             with torch.enable_grad():
                 loss = closure()
+        if self.kernel is not None:
+            ok = self.kernel(guard=guard, ok=ok)
+            return ok if guard is not None else loss
+        if guard is not None:
+            g2 = torch.stack([(p.grad * p.grad).sum() for g in self.param_groups
+                              for p in g["params"] if p.grad is not None]).sum()
+            ok = torch.isfinite(guard) & torch.isfinite(g2)
         count = self.count + 1
         cf = count.float()
         for group in self.param_groups:
@@ -146,7 +174,7 @@ class RiemannianAdam(torch.optim.Optimizer):
                 m.copy_(new_m)
                 v.copy_(new_v)
         self.count.copy_(count if ok is None else torch.where(ok, count, self.count))
-        return loss
+        return ok if guard is not None else loss
 
     def _ema(self, e, new_p, manifold: bool):
         """JAX's ``ema_leaf``: d e + (1 - d) new_p, for manifold points in

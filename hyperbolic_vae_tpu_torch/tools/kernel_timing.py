@@ -126,7 +126,7 @@ def instrument(src: Path, dst: Path, mode: str) -> None:
     files = {f.name: f.read_text() for f in src.iterdir() if f.suffix in (".cu", ".cuh")}
     has_common = "flagship_common.cuh" in files
     for name, text in files.items():
-        if name.endswith(".cu") and name != "gyroplane.cu":
+        if name in TIMELINE_KERNELS:  # K2's and K3's sources; the others are copied as they are
             if mode == "phases":
                 funcs = PHASE_FUNCS[name]
                 text = _stamp_phases(text, funcs[0], first=not has_common, last=True)

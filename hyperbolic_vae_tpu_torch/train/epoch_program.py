@@ -92,7 +92,10 @@ def train_step(model, optimizer, batch, generator, loss_fn: Callable = default_l
     the optimizer holds the layout's masters; their gradients come from
     the working tensors', the norm is the global one, and the masters are
     gathered into the working tensors after the update. ``nan_check``
-    (``debug_nans``): the gradients of each backward checked."""
+    (``debug_nans``): the gradients of each backward checked. Where nothing
+    else needs the norm (no layout, no clipping), the optimizer computes the
+    guard itself, ``optimizer.step(guard=loss)``: on the card the first
+    launch of ``RiemannianAdam``'s kernel pair."""
     with shard.window() if shard is not None else contextlib.nullcontext():
         metrics = _grads_and_metrics(model, optimizer, batch, generator, loss_fn,
                                      grad_accum_steps, layout, nan_check)
@@ -102,6 +105,10 @@ def train_step(model, optimizer, batch, generator, loss_fn: Callable = default_l
         metrics = shard.reduce([p.grad for g in optimizer.param_groups for p in g["params"]
                                 if p.grad is not None], metrics)
     loss = metrics["loss_total"]
+    if finite_guard and layout is None and grad_clip_norm is None:
+        ok = optimizer.step(guard=loss)
+        metrics["skipped_steps"] = 1.0 - ok.float()
+        return metrics
     if finite_guard or grad_clip_norm is not None:
         grads = [p.grad for g in optimizer.param_groups for p in g["params"] if p.grad is not None]
         g2 = (torch.stack([(g * g).sum() for g in grads]).sum() if layout is None

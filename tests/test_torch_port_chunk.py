@@ -292,6 +292,8 @@ def test_k5_equals_k1_on_card_with_counts():
     r5 = _fit(5, **kw)
     _same(r1, r5)
     assert r1[0].epochs_run == 3
-    assert k1 == {"gyroplane_distances": 0, "flagship_fused": 3 * 2, "flagship_train": 3 * 3}
+    assert k1 == {"gyroplane_distances": 0, "flagship_fused": 3 * 2, "flagship_train": 3 * 3,
+                  "riemannian_adam": 0}
     k5 = {k: c.count - k1[k] for k, c in counters.items()}
-    assert k5 == {"gyroplane_distances": 0, "flagship_fused": 5 * 2, "flagship_train": 5 * 3}
+    assert k5 == {"gyroplane_distances": 0, "flagship_fused": 5 * 2, "flagship_train": 5 * 3,
+                  "riemannian_adam": 0}

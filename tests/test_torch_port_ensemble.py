@@ -441,7 +441,8 @@ def test_graphed_sweep_equals_eager_on_card(path):
 @pytest.mark.cuda
 def test_lane_streams_equal_one_stream_with_counts():
     """A stream a lane against one stream: the same bits; launches are
-    lanes x epochs x (steps + val batches) of K1 on the default path."""
+    lanes x epochs x (steps + val batches) of K1 on the default path, and
+    lanes x epochs x steps of the Riemannian Adam pair."""
     dev = _card()
     counters = launch_counters()
     for c in counters.values():
@@ -452,4 +453,4 @@ def test_lane_streams_equal_one_stream_with_counts():
     for a, b in zip(many, one):
         _same(a, b)
     assert counts == {"gyroplane_distances": 3 * 3 * (3 + 2), "flagship_fused": 0,
-                      "flagship_train": 0}
+                      "flagship_train": 0, "riemannian_adam": 3 * 3 * 3}
